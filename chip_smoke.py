@@ -3,24 +3,35 @@
 
     python3 chip_smoke.py
 
-The main path is the cow_and_lady mapping tick stream (400x400x80 voxels
-at 0.05 m, 3 scans of 192x256 rays per tick, exact EDT truncated at 100
-voxels, lazy closest) on replayed scans made from seed 0.  Phases, in
+Two paths are driven at cow_and_lady size (400x400x80 voxels at 0.05 m,
+exact EDT truncated at 100 voxels) on replayed scans made from seed 0:
+the mapping tick stream (3 scans of 192x256 rays per tick, lazy closest)
+and the closest-obstacle query path on the map it leaves.  Phases, in
 order; any failure raises and exits non-zero:
 
 1. device and build: the card's name and power limit (nvidia-smi), then
    every kernel built with nvcc from the sources in this checkout (timed);
 2. the stream: ``fused_stream`` with the kernels, launch counts zeroed
-   just before and read just after (every kernel must have launched);
-   then the same ticks through the plain PyTorch versions on the card.
-   The final MapState and every tick's UpdateStats must be bit-equal and
-   the map must hold more than 1000 occupied voxels;
-3. each kernel against its plain version on the card at the stream's own
-   shapes (splat on the first tick's rays, carve on the seeds it gives,
-   the EDT passes on the stream's final occupancy): exact equality, and
+   just before and read just after (each of its kernels must have
+   launched); then the same ticks through the plain PyTorch versions on
+   the card.  The final MapState and every tick's UpdateStats must be
+   bit-equal and the map must hold more than 1000 occupied voxels;
+3. the closest/query path on the final map, launch counts zeroed just
+   before and read just after (each closest kernel must have launched):
+   ``derive_closest``, two ticks in eager closest mode, and 2^19 query
+   positions (the map plus a few outside it and a NaN) through
+   ``get_distance``, ``get_dist_grad_trilinear`` and
+   ``get_closest_obstacle``; then all of it through the plain versions.
+   The closest grids, d2, the eager states and the query outputs must be
+   bit-equal, and the eager closest equal to the lazy derivation on the
+   same occupancy.  ``derive_closest`` is timed both ways;
+4. each kernel against its plain version on the card at the main path's
+   own shapes (splat on the first tick's rays, carve on the seeds it
+   gives, the drain and box add on a tick of counters, the EDT and
+   closest passes on the stream's final occupancy): exact equality, and
    median times (CUDA events) beside the plain version's, a library
    call's where one computes the same function, and the card's bound;
-4. a JSON line of per-kernel numbers, the nvidia-smi line, and last
+5. a JSON line of per-kernel numbers, the nvidia-smi line, and last
    ``{"ok": true, "device": {...}}``.
 
 The script needs a CUDA card and the rest of the repository; without
@@ -38,12 +49,17 @@ import time
 import torch
 
 import fiesta_tpu_torch as ft
-from fiesta_tpu_torch import kernels
+from fiesta_tpu_torch import kernels, pipeline
 from fiesta_tpu_torch.io import replay
-from fiesta_tpu_torch.ops import edt, raycast
+from fiesta_tpu_torch.ops import edt, fusion, query, raycast
 
 H, W = 192, 256          # scan size of the cow_and_lady bench (bench.py)
 TICKS = 5                # timed ticks of 3 scans each
+EAGER_TICKS = 2          # ticks in eager closest mode on the final map
+QUERIES = 2 ** 19        # ~ the MPC's 491 k lookups per solve (query.py)
+STREAM_KERNELS = ("splat", "carve", "edt_binary", "edt_minplus", "fuse",
+                  "boxadd")
+CLOSEST_KERNELS = ("closest_binary", "closest_window", "closest_split")
 MIN_OCCUPIED = 1000      # a representative scene (bench.py:184)
 # H100 SXM published peaks (NVIDIA data sheet and Hopper white paper)
 HBM_BYTES_PER_S = 3.35e12
@@ -75,21 +91,32 @@ def cow_config():
     return cfg.validate()
 
 
+#: (module, dispatch function, plain version) of every kernel wrapper
+PLAIN = (
+    (raycast, "splat_packed", raycast._splat_packed_plain),
+    (raycast, "carve_free_mask_batch", raycast._carve_free_plain),
+    (raycast, "apply_box_counts", raycast._apply_box_counts_plain),
+    (fusion, "fuse_drain", fusion._fuse_drain_plain),
+    (edt, "binary_pass", edt._binary_pass_plain),
+    (edt, "minplus_pass", edt._minplus_pass_plain),
+    (edt, "binary_packed", edt._binary_packed_plain),
+    (edt, "window_packed", edt._window_packed_plain),
+    (edt, "split_packed", edt._split_packed_plain),
+)
+
+
 @contextlib.contextmanager
 def plain_versions():
-    """Route the four kernel wrappers to their plain PyTorch versions (for
-    the reference run on the card), restoring them afterwards."""
-    saved = (raycast.splat_packed, raycast.carve_free_mask_batch,
-             edt.binary_pass, edt.minplus_pass)
-    raycast.splat_packed = raycast._splat_packed_plain
-    raycast.carve_free_mask_batch = raycast._carve_free_plain
-    edt.binary_pass = edt._binary_pass_plain
-    edt.minplus_pass = edt._minplus_pass_plain
+    """Route every kernel wrapper to its plain PyTorch version (for the
+    reference runs on the card), restoring them afterwards."""
+    saved = [getattr(mod, name) for mod, name, _ in PLAIN]
+    for mod, name, plain in PLAIN:
+        setattr(mod, name, plain)
     try:
         yield
     finally:
-        (raycast.splat_packed, raycast.carve_free_mask_batch,
-         edt.binary_pass, edt.minplus_pass) = saved
+        for (mod, name, _), fn in zip(PLAIN, saved):
+            setattr(mod, name, fn)
 
 
 def run_stream(cfg, batches, dev):
@@ -132,6 +159,98 @@ def max_abs_err(got, ref):
         err = max(err, float((g.double() - r.double()).abs().max()))
         assert torch.equal(g, r), f"kernel differs from plain: {err}"
     return err
+
+
+def bit_equal(a, b, what):
+    """Exact equality, f32 by bit pattern (NaN included)."""
+    assert a.dtype == b.dtype and a.shape == b.shape, what
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    assert torch.equal(a, b), f"{what} differs between kernels and plain"
+
+
+def query_positions(cfg, dev):
+    """QUERIES positions drawn from seed 0 over the map, the last few
+    outside it (beyond each face, and a NaN)."""
+    g = torch.Generator().manual_seed(0)
+    lo = torch.tensor(cfg.origin, dtype=torch.float32)
+    size = torch.tensor(cfg.map_size, dtype=torch.float32)
+    pos = lo + torch.rand((QUERIES, 3), generator=g) * size
+    pos[-7:] = torch.tensor([[-1.0, 0.5, 0.5], [2.0, 0.5, 0.5],
+                             [0.5, -1.0, 0.5], [0.5, 2.0, 0.5],
+                             [0.5, 0.5, -1.0], [0.5, 0.5, 2.0],
+                             [float("nan")] * 3]) * size + lo
+    return pos.to(dev)
+
+
+def closest_path(cfg, state, eager, pos):
+    """The closest/query path on ``state`` (left as it is): the lazy
+    derivation, EAGER_TICKS eager ticks from the state and the lazy
+    derivation on their occupancy, and the three queries."""
+    d2, closest = pipeline.rebuild_esdf(
+        cfg, ft.occupied_grid(cfg, state.logodds))
+    lazy = pipeline.derive_closest(cfg, state.logodds)
+    assert torch.equal(lazy, closest)
+    cfg_e = dataclasses.replace(cfg, closest_mode="eager")
+    e_state, _ = ft.fused_stream(cfg_e, ft.copy_state(state), *eager)
+    dist = query.distance_grid(cfg, state.d2, state.seen)
+    d, (dt, grad), (pts, cdist) = (
+        query.get_distance(cfg, dist, pos),
+        query.get_dist_grad_trilinear(cfg, dist, pos),
+        query.get_closest_obstacle(cfg, closest, state.d2, state.seen, pos))
+    return dict(d2=d2, closest=closest, eager_closest=e_state.closest,
+                eager_d2=e_state.d2, eager_logodds=e_state.logodds,
+                eager_lazy=pipeline.derive_closest(cfg, e_state.logodds),
+                distance=d, trilinear=dt, gradient=grad, obstacle=pts,
+                dist=cdist)
+
+
+def closest_rows(cfg, occupied):
+    """Rows of the three packed closest passes on the final occupancy."""
+    t = edt.trunc_vox_for(cfg.resolution, cfg.trunc_dist)
+    plan = edt.closest_plan(occupied.shape, t)
+    a, b, c = plan["a"], plan["b"], plan["c"]
+    cap, nvox = plan["cap"], occupied.numel()
+    occ = occupied.view(torch.uint8)
+    p1 = kernels.closest_binary(occ, plan, a)
+    err = max(max_abs_err([p1], [edt._binary_packed_plain(occ, plan, a)]),
+              max_abs_err([kernels.closest_binary(occ, plan, a, False)],
+                          [edt._binary_packed_plain(occ, plan, a, False)]))
+    rows = [dict(
+        name="closest_binary", source="fiesta_tpu_torch/kernels/closest.cu",
+        replaces="fiesta_tpu/ops/pallas/edt.py:614", err=err,
+        ms=time_ms(lambda: kernels.closest_binary(occ, plan, a)),
+        plain_ms=time_ms(lambda: edt._binary_packed_plain(occ, plan, a)),
+        library_ms=None, bound=bound(5 * nvox, 4 * nvox, I32_OPS_PER_S))]
+    p2 = kernels.closest_window(p1, plan, b)
+    for name, line, kern, plain, x, axis, shift in (
+            ("closest_window", 703, kernels.closest_window,
+             edt._window_packed_plain, p1, b, plan["ba"]),
+            ("closest_split", 773, kernels.closest_split,
+             edt._split_packed_plain, p2, c, plan["s"])):
+        # the cheapest exact pass is O(A) per column holding a value
+        # below cap, as for the min-plus passes
+        near_cols = int(((x >> shift) < cap).any(dim=axis).sum())
+        rows.append(dict(
+            name=name, source="fiesta_tpu_torch/kernels/closest.cu",
+            replaces=f"fiesta_tpu/ops/pallas/edt.py:{line}",
+            err=max_abs_err([kern(x, plan, axis)], [plain(x, plan, axis)]),
+            ms=time_ms(lambda: kern(x, plan, axis)),
+            plain_ms=time_ms(lambda: plain(x, plan, axis), calls=1,
+                             windows=3),
+            library_ms=None,
+            bound=bound(8 * nvox, ENVELOPE_OPS * near_cols * x.shape[axis],
+                        I32_OPS_PER_S)))
+    return rows
+
+
+def box_union(starts, box, grid):
+    """Grid voxels covered by at least one of the boxes at ``starts``
+    [K,3] (the tick's boxes lie inside the grid), counted on the card."""
+    cover = torch.zeros(grid, dtype=torch.bool, device=starts.device)
+    for x, y, z in starts.tolist():
+        cover[x:x + box[0], y:y + box[1], z:z + box[2]] = True
+    return int(cover.sum())
 
 
 def bound(nbytes, ops, rate):
@@ -179,7 +298,7 @@ def run(dev, cfg, h, w, ticks):
     kernels.reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
     k_state, k_stats, k_ms = run_stream(cfg, batches, dev)
-    launches = dict(kernels.LAUNCHES)
+    launches = {k: kernels.LAUNCHES[k] for k in STREAM_KERNELS}
     log(f"stream (kernels): {k_ms:.3f} ms/tick on {card}; launches "
         f"{launches}; peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB")
@@ -200,7 +319,44 @@ def run(dev, cfg, h, w, ticks):
     assert n_occ > MIN_OCCUPIED, f"scene mapped only {n_occ} occupied voxels"
     assert bool((k_state.d2 < ft.grid.INF_D2).any())
 
-    # -- phase 3: each kernel against its plain version ------------------
+    # -- phase 3: the closest/query path, kernels then plain ------------
+    eager = tuple(b[:EAGER_TICKS] for b in batches)
+    pos = query_positions(cfg, dev)
+    kernels.reset_launch_counts()
+    k_out = closest_path(cfg, k_state, eager, pos)
+    closest_launches = {k: kernels.LAUNCHES[k] for k in CLOSEST_KERNELS}
+    log(f"closest path (kernels): launches {closest_launches}")
+    for name, n in closest_launches.items():
+        assert n > 0, f"kernel {name} did not launch on the closest path"
+    launches.update(closest_launches)
+    with plain_versions():
+        p_out = closest_path(cfg, k_state, eager, pos)
+    for name in k_out:
+        bit_equal(k_out[name], p_out[name], name)
+    assert torch.equal(k_out["d2"], k_state.d2), "closest d2 != tick d2"
+    assert torch.equal(k_out["eager_closest"], k_out["eager_lazy"]), \
+        "eager closest differs from the lazy derivation"
+    n_def = int((k_out["closest"] >= 0).sum())
+    n_near = int((k_out["dist"] < cfg.infinity_distance).sum())
+    log(f"closest path bit-equal: {n_def} voxels with a closest obstacle, "
+        f"{n_near} of {QUERIES} queries with one")
+    assert n_def > MIN_OCCUPIED and n_near > 0
+    derive_ms = time_ms(lambda: pipeline.derive_closest(cfg, k_state.logodds))
+    with plain_versions():
+        derive_plain_ms = time_ms(
+            lambda: pipeline.derive_closest(cfg, k_state.logodds),
+            calls=1, windows=3)
+    dist = query.distance_grid(cfg, k_state.d2, k_state.seen)
+    query_ms = time_ms(lambda: (
+        query.get_distance(cfg, dist, pos),
+        query.get_dist_grad_trilinear(cfg, dist, pos),
+        query.get_closest_obstacle(cfg, k_out["closest"], k_state.d2,
+                                   k_state.seen, pos)))
+    log(f"derive_closest: {derive_ms:.4f} ms (plain {derive_plain_ms:.3f} "
+        f"ms); three queries of {QUERIES} positions: {query_ms:.4f} ms; "
+        f"on {card}")
+
+    # -- phase 4: each kernel against its plain version ------------------
     rows = []
     pts, vals, tfs, _ = (b[0] for b in batches)
     starts, po, lin, val, _ = raycast._scanline_splat_prep(
@@ -242,6 +398,53 @@ def run(dev, cfg, h, w, ticks):
         # floors, four taps, octant test, r2, free test)
         bound=bound(n * 4 + n + po.numel() * 4, 3 * 20 * n, F32_OPS_PER_S)))
     log(f"carve: {int(kfree.sum())} free voxels of {n}")
+
+    # the drain and the box add on one more tick of counters
+    ticked = pipeline.integrate_scan_batch(cfg, ft.copy_state(k_state),
+                                           pts, vals, tfs)
+    on, eq = ((cfg.min_occupancy_log, False) if cfg.probabilistic
+              else (1.0, True))
+    kw = dict(l_hit=cfg.prob_hit_log, l_miss=cfg.prob_miss_log,
+              clamp_min=cfg.clamp_min_log, clamp_max=cfg.clamp_max_log,
+              occ_thresh=on, occ_is_eq=eq)
+    fin = (ticked.logodds, ticked.seen, ticked.hit_cnt, ticked.miss_cnt)
+    nvox = ticked.logodds.numel()
+    rows.append(dict(
+        name="fuse", source="fiesta_tpu_torch/kernels/fuse.cu",
+        replaces="fiesta_tpu/ops/pallas/fuse.py:72",
+        err=max_abs_err(kernels.fuse(*fin, **kw),
+                        fusion._fuse_drain_plain(*fin, **kw)),
+        ms=time_ms(lambda: kernels.fuse(*fin, **kw)),
+        plain_ms=time_ms(lambda: fusion._fuse_drain_plain(*fin, **kw)),
+        library_ms=None,
+        # 15 bytes per voxel; ~8 f32 operations (add, clamp, selects, two
+        # threshold tests)
+        bound=bound(15 * nvox, 8 * nvox, F32_OPS_PER_S)))
+
+    starts, hitc, missc, _, _ = raycast.scanline_batch_boxes(cfg, pts, vals,
+                                                             tfs)
+    bargs = (starts, hitc, missc)
+    grids = (k_state.hit_cnt, k_state.miss_cnt)
+    got = kernels.boxadd(*(g.clone() for g in grids), *bargs)
+    ref = raycast._apply_box_counts_plain(*(g.clone() for g in grids),
+                                          *bargs)
+    # in place on a scratch pair: repeated adds saturate, same work
+    scratch = tuple(g.clone() for g in grids)
+    union = box_union(starts, hitc.shape[1:], grids[0].shape)
+    log(f"boxadd: {hitc.shape[0]} boxes of {hitc[0].numel()} voxels, "
+        f"union {union} voxels")
+    rows.append(dict(
+        name="boxadd", source="fiesta_tpu_torch/kernels/boxadd.cu",
+        replaces="fiesta_tpu/ops/pallas/boxadd.py:101",
+        err=max_abs_err(got, ref),
+        ms=time_ms(lambda: kernels.boxadd(*scratch, *bargs)),
+        plain_ms=time_ms(lambda: raycast._apply_box_counts_plain(
+            *scratch, *bargs)),
+        library_ms=None,
+        # the boxes' hit and miss bytes read once, and each grid voxel of
+        # the boxes' union read and written once in each counter
+        bound=bound(2 * hitc.numel() + 4 * union, 2 * hitc.numel(),
+                    I32_OPS_PER_S)))
 
     t = edt.trunc_vox_for(cfg.resolution, cfg.trunc_dist)
     f = torch.full(occupied.shape, edt._INF_EDT, dtype=torch.int32,
@@ -285,6 +488,8 @@ def run(dev, cfg, h, w, ticks):
     log(f"edt_minplus per axis (1, 2): {ms[0]:.4f} / {ms[1]:.4f} ms, "
         f"plain {plain_ms[0]:.3f} / {plain_ms[1]:.3f} ms, bounds {bounds}")
 
+    rows.extend(closest_rows(cfg, occupied))
+
     out = []
     for r in rows:
         log(f"{r['name']}: {r['ms']:.4f} ms/launch (plain {r['plain_ms']:.4f}"
@@ -298,7 +503,10 @@ def run(dev, cfg, h, w, ticks):
             "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
             "library_ms": r["library_ms"]})
     print(json.dumps({"kernels": out, "ms_per_tick": k_ms,
-                      "plain_ms_per_tick": p_ms, "ticks": ticks}))
+                      "plain_ms_per_tick": p_ms, "ticks": ticks,
+                      "derive_closest_ms": derive_ms,
+                      "derive_closest_plain_ms": derive_plain_ms,
+                      "query_ms": query_ms}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -25,6 +25,7 @@ from .config import FiestaConfig
 
 UNDEFINED_COORD = -1          # closest-obstacle "undefined" marker
 INF_D2 = 1 << 29              # squared-distance infinity (voxel units)
+UNDEFINED_DIST = -10000.0     # out-of-map query result (ESDFMap.cpp:182)
 
 Device = Union[str, torch.device, None]
 
@@ -120,7 +121,8 @@ def state_from_arrays(cfg: FiestaConfig, arrays: Mapping[str, np.ndarray],
                       device: Device = None) -> MapState:
     """A state from host arrays keyed by the MapState field names (a JAX
     state as numpy, or a checkpoint's npz fields).  Shapes and dtypes must
-    be what ``make_state(cfg)`` allocates."""
+    be what ``make_state(cfg)`` allocates.  The state owns copies of the
+    arrays (a tick writes its counters in place)."""
     dev = resolve_device(device)
     out = {}
     for name, (shape, dtype) in _shapes_dtypes(cfg).items():
@@ -130,13 +132,20 @@ def state_from_arrays(cfg: FiestaConfig, arrays: Mapping[str, np.ndarray],
             raise ValueError(
                 f"field {name}: got {arr.dtype}{list(arr.shape)}, expected "
                 f"{want}{list(shape)} for this config")
-        out[name] = torch.from_numpy(np.ascontiguousarray(arr)).to(dev)
+        out[name] = torch.from_numpy(np.array(arr, order="C")).to(dev)
     return MapState(**out)
 
 
 def state_to_arrays(state: MapState) -> dict:
     """Host numpy arrays keyed by the MapState field names."""
     return {name: getattr(state, name).cpu().numpy() for name in FIELDS}
+
+
+def copy_state(state: MapState) -> MapState:
+    """A copy of a MapState, for a caller that keeps a state it hands to a
+    tick: the tick gives up its input (its counters are added to in
+    place)."""
+    return MapState(**{f: getattr(state, f).clone() for f in FIELDS})
 
 
 # ---------------------------------------------------------------------------
@@ -161,11 +170,38 @@ def pos_to_vox(cfg: FiestaConfig, pos: torch.Tensor) -> torch.Tensor:
                        ).to(torch.int32)
 
 
+def const_vec(values, dtype: torch.dtype, like: torch.Tensor) -> torch.Tensor:
+    """1-D tensor of ``values`` on ``like``'s device (made there: no
+    host-to-device copy)."""
+    return torch.stack([torch.full((), v, dtype=dtype, device=like.device)
+                        for v in values])
+
+
+def vox_to_pos(cfg: FiestaConfig, vox: torch.Tensor) -> torch.Tensor:
+    """Voxel [..., 3] -> world position of the voxel centre, f32
+    (ESDFMap.cpp:79-82)."""
+    return ((vox.to(torch.float32) + 0.5) * cfg.resolution
+            + const_vec(cfg.origin, torch.float32, vox))
+
+
+def idx_to_vox(cfg: FiestaConfig, idx: torch.Tensor) -> torch.Tensor:
+    """Linear index -> voxel [..., 3] (ESDFMap.cpp:109-118)."""
+    _, gy, gz = cfg.grid_shape
+    return torch.stack([idx // (gy * gz), (idx % (gy * gz)) // gz, idx % gz],
+                       dim=-1)
+
+
+def pos_in_map(cfg: FiestaConfig, pos: torch.Tensor) -> torch.Tensor:
+    """Bounds check of world positions [..., 3] against the map's box,
+    faces included (ESDFMap.cpp:46-61)."""
+    lo = const_vec(cfg.origin, pos.dtype, pos)
+    hi = lo + const_vec(cfg.map_size, pos.dtype, pos)
+    return torch.all((pos >= lo) & (pos <= hi), dim=-1)
+
+
 def vox_in_grid(cfg: FiestaConfig, vox: torch.Tensor) -> torch.Tensor:
     """Voxel bounds check against the allocated grid."""
-    gx, gy, gz = cfg.grid_shape
-    hi = torch.stack([torch.full((), g, dtype=vox.dtype, device=vox.device)
-                      for g in (gx, gy, gz)])
+    hi = const_vec(cfg.grid_shape, vox.dtype, vox)
     return torch.all((vox >= 0) & (vox < hi), dim=-1)
 
 

@@ -13,8 +13,8 @@ add one to ``LAUNCHES[name]`` per call.  The ops modules call them for
 CUDA tensors only; CPU tensors take the plain PyTorch versions there.
 
 Flags: ``-fmad=false`` (no FMA contraction) and IEEE division / square
-root, so the f32 arithmetic of the splat decode and the carve's free test
-rounds exactly as the plain PyTorch versions do.
+root, so the f32 arithmetic of the splat decode, the carve's free test and
+the fusion step rounds exactly as the plain PyTorch versions do.
 """
 
 from __future__ import annotations
@@ -38,7 +38,9 @@ NVCC_FLAGS = (
 )
 
 #: per-kernel wrapper calls that launched on the card
-LAUNCHES = {"splat": 0, "carve": 0, "edt_binary": 0, "edt_minplus": 0}
+LAUNCHES = {"splat": 0, "carve": 0, "edt_binary": 0, "edt_minplus": 0,
+            "fuse": 0, "boxadd": 0, "closest_binary": 0,
+            "closest_window": 0, "closest_split": 0}
 
 #: compiler output (ptxas register/shared-memory report) per source
 BUILD_LOG: dict = {}
@@ -55,6 +57,15 @@ _SIGNATURES = {
                    [_P, _P, _I, _L, _I, _I, _I, _P]),
     "edt_minplus": ("edt.cu", "fiesta_edt_minplus",
                     [_P, _P, _L, _I, _L, _I, _P]),
+    "fuse": ("fuse.cu", "fiesta_fuse",
+             [_P] * 10 + [_L, _F, _F, _F, _F, _F, _I, _P]),
+    "boxadd": ("boxadd.cu", "fiesta_boxadd", [_P] * 5 + [_I] * 7 + [_P]),
+    "closest_binary": ("closest.cu", "fiesta_closest_binary",
+                       [_P, _P, _L, _I, _L, _I, _I, _I, _I, _I, _P]),
+    "closest_window": ("closest.cu", "fiesta_closest_window",
+                       [_P, _P, _L, _I, _L, _I, _I, _I, _I, _P]),
+    "closest_split": ("closest.cu", "fiesta_closest_split",
+                      [_P, _P, _L, _I, _L, _I, _I, _I, _P]),
 }
 SOURCES = tuple(sorted({s for s, _, _ in _SIGNATURES.values()}))
 
@@ -140,6 +151,18 @@ def _check(t: torch.Tensor, dtype: torch.dtype, what: str) -> None:
         raise ValueError(f"{what}: expected a contiguous tensor")
 
 
+def _same_device(what: str, first: torch.Tensor, *rest: torch.Tensor):
+    if any(t.device != first.device for t in rest):
+        raise ValueError(f"{what}: tensors on different devices")
+
+
+def _columns(shape, axis: int):
+    """(outer, A, inner) of a contiguous volume walked along ``axis``."""
+    axis = axis % len(shape)
+    return (int(np.prod(shape[:axis], dtype=np.int64)), int(shape[axis]),
+            int(np.prod(shape[axis + 1:], dtype=np.int64)))
+
+
 def splat(lin: torch.Tensor, val: torch.Tensor, n: int, thr: float):
     """Zero-fill an f32 target of ``n`` cells, scatter-max ``val`` [R] at
     ``lin`` [R] (indices outside [0, n) dropped), decode into (seeds f32,
@@ -208,11 +231,135 @@ def edt_minplus(f: torch.Tensor, t: int, axis: int) -> torch.Tensor:
     of an i32 volume (values <= _INF_EDT), walking strided columns in
     place of transposes.  Replaces ``edt._minplus_pass_pallas``."""
     _check(f, torch.int32, "edt_minplus f")
-    axis = axis % f.dim()
-    a = f.shape[axis]
-    outer = int(np.prod(f.shape[:axis], dtype=np.int64))
-    inner = int(np.prod(f.shape[axis + 1:], dtype=np.int64))
+    outer, a, inner = _columns(f.shape, axis)
     out = torch.empty_like(f)
     _launch("edt_minplus", f.device, f.data_ptr(), out.data_ptr(), outer, a,
             inner, min(t, a - 1))
+    return out
+
+
+def fuse(logodds: torch.Tensor, seen: torch.Tensor, hit_cnt: torch.Tensor,
+         miss_cnt: torch.Tensor, l_hit: float, l_miss: float,
+         clamp_min: float, clamp_max: float, occ_thresh: float,
+         occ_is_eq: bool):
+    """One-pass fusion drain, global update: returns (new log-odds f32,
+    new seen u8, occupancy u8, zeroed hit u8, zeroed miss u8, n_observed,
+    n_inserted, n_deleted) with the counts as 0-dim i32.  Every output is
+    a new tensor; the inputs are left as they are.  Replaces
+    ``fuse.fuse_counts_pallas``."""
+    _check(logodds, torch.float32, "fuse logodds")
+    for t, what in ((seen, "seen"), (hit_cnt, "hit_cnt"),
+                    (miss_cnt, "miss_cnt")):
+        _check(t, torch.uint8, f"fuse {what}")
+        if t.shape != logodds.shape:
+            raise ValueError(f"fuse: {what} shape {tuple(t.shape)} != "
+                             f"{tuple(logodds.shape)}")
+    _same_device("fuse", logodds, seen, hit_cnt, miss_cnt)
+    # the kernel reads four voxels per 16-byte f32 / 4-byte u8 access
+    if any(t.data_ptr() % 16 for t in (logodds, seen, hit_cnt, miss_cnt)):
+        raise ValueError("fuse: inputs must start 16-byte aligned")
+    dev = logodds.device
+    lo_o = torch.empty_like(logodds)
+    seen_o, occ, hit_o, miss_o = (torch.empty_like(seen) for _ in range(4))
+    counts = torch.zeros(3, dtype=torch.int32, device=dev)
+    f32 = lambda v: float(np.float32(v))  # noqa: E731
+    _launch("fuse", dev, logodds.data_ptr(), seen.data_ptr(),
+            hit_cnt.data_ptr(), miss_cnt.data_ptr(), lo_o.data_ptr(),
+            seen_o.data_ptr(), occ.data_ptr(), hit_o.data_ptr(),
+            miss_o.data_ptr(), counts.data_ptr(), logodds.numel(),
+            f32(l_hit), f32(l_miss), f32(clamp_min), f32(clamp_max),
+            f32(occ_thresh), int(bool(occ_is_eq)))
+    return (lo_o, seen_o, occ, hit_o, miss_o, counts[0], counts[1],
+            counts[2])
+
+
+def boxadd(hit_cnt: torch.Tensor, miss_cnt: torch.Tensor,
+           starts: torch.Tensor, box_hit: torch.Tensor,
+           box_miss: torch.Tensor):
+    """Add K boxes' u8 counts [K,BX,BY,BZ] into the u8 grids [X,Y,Z] at
+    the corners ``starts`` [K,3] i32, saturating at 255, as K in-order
+    saturating adds.  Updates ``hit_cnt`` and ``miss_cnt`` IN PLACE and
+    returns them.  Replaces ``boxadd.box_add_inplace``."""
+    for t, what in ((hit_cnt, "hit_cnt"), (miss_cnt, "miss_cnt"),
+                    (box_hit, "box_hit"), (box_miss, "box_miss")):
+        _check(t, torch.uint8, f"boxadd {what}")
+    _check(starts, torch.int32, "boxadd starts")
+    if hit_cnt.dim() != 3 or miss_cnt.shape != hit_cnt.shape:
+        raise ValueError("boxadd: expected two [X,Y,Z] grids")
+    if box_hit.dim() != 4 or box_miss.shape != box_hit.shape or \
+            tuple(starts.shape) != (box_hit.shape[0], 3):
+        raise ValueError("boxadd: expected boxes [K,BX,BY,BZ] and starts "
+                         "[K,3]")
+    _same_device("boxadd", hit_cnt, miss_cnt, starts, box_hit, box_miss)
+    k, bx, by, bz = box_hit.shape
+    gx, gy, gz = hit_cnt.shape
+    _launch("boxadd", hit_cnt.device, hit_cnt.data_ptr(),
+            miss_cnt.data_ptr(), starts.data_ptr(), box_hit.data_ptr(),
+            box_miss.data_ptr(), k, bx, by, bz, gx, gy, gz)
+    return hit_cnt, miss_cnt
+
+
+def _check_closest(t: torch.Tensor, axis: int, bits, what: str) -> None:
+    """A 3-D volume whose extent along ``axis`` fits ``bits`` payload bits
+    (``None``: the axis carries no payload)."""
+    if t.dim() != 3:
+        raise ValueError(f"{what}: expected an [X,Y,Z] volume")
+    if bits is not None and t.shape[axis] > 1 << bits:
+        raise ValueError(f"{what}: axis {axis} of extent {t.shape[axis]} "
+                         f"does not fit the plan's {bits} payload bits")
+
+
+def _binary_reach(t: int) -> int:
+    """Total offset covered by the TPU pass's doubling steps 1, 2, 4, ...
+    for local reach ``t``."""
+    s, reach = 1, 0
+    while reach < t:
+        reach += s
+        s *= 2
+    return reach
+
+
+def closest_binary(occ: torch.Tensor, plan, axis: int,
+                   square: bool = True) -> torch.Tensor:
+    """Packed binary closest pass along ``axis`` of an occupancy volume
+    (u8 nonzero = occupied, or bool): i32 ``val << ba | a*``.  Replaces
+    ``edt._binary_packed_pallas``."""
+    if occ.dtype == torch.bool:
+        occ = occ.view(torch.uint8)
+    _check(occ, torch.uint8, "closest_binary occ")
+    _check_closest(occ, axis, plan["ba"], "closest_binary")
+    outer, a, inner = _columns(occ.shape, axis)
+    tl = min(plan["t"], a - 1)
+    out = torch.empty(occ.shape, dtype=torch.int32, device=occ.device)
+    far = plan["cap"] if square else plan["t"] + 1
+    _launch("closest_binary", occ.device, occ.data_ptr(), out.data_ptr(),
+            outer, a, inner, tl, plan["ba"], far,
+            int(_binary_reach(tl) > tl), int(square))
+    return out
+
+
+def closest_window(p1: torch.Tensor, plan, axis: int) -> torch.Tensor:
+    """Packed paired window closest pass along ``axis`` of an i32 volume
+    (values <= cap): ``val << s | b* << ba | a*``.  Replaces
+    ``edt._window_packed_pallas``."""
+    _check(p1, torch.int32, "closest_window p1")
+    _check_closest(p1, axis, plan["bb"], "closest_window")
+    outer, a, inner = _columns(p1.shape, axis)
+    out = torch.empty_like(p1)
+    _launch("closest_window", p1.device, p1.data_ptr(), out.data_ptr(),
+            outer, a, inner, min(plan["t"], a - 1), plan["ba"], plan["s"],
+            plan["cap"])
+    return out
+
+
+def closest_split(p2: torch.Tensor, plan, axis: int) -> torch.Tensor:
+    """Split-sign final closest pass along ``axis`` of an i32 volume
+    (values <= cap): ``val << (s+1) | sign << s | pay``.  Replaces
+    ``edt._split_packed_pallas``."""
+    _check(p2, torch.int32, "closest_split p2")
+    _check_closest(p2, axis, None, "closest_split")
+    outer, a, inner = _columns(p2.shape, axis)
+    out = torch.empty_like(p2)
+    _launch("closest_split", p2.device, p2.data_ptr(), out.data_ptr(),
+            outer, a, inner, min(plan["t"], a - 1), plan["s"], plan["cap"])
     return out

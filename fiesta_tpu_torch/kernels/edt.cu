@@ -17,11 +17,10 @@
 //
 // Min-plus pass.  out[i] = min(f[i], min_{1<=k<=t} min(f[i-k], f[i+k]) + k^2)
 // with INF beyond the column ends, along any axis of a contiguous volume
-// viewed as [outer, A, inner].  A block loads TC whole columns into shared
-// memory (coalesced: along `inner`, or along the column when inner == 1),
-// skips the window loop when every value is far (as the TPU kernel skips an
-// all-far block), evaluates the window from shared memory, stages the
-// results in shared memory and stores them with the load's coalescing.
+// viewed as [outer, A, inner], through the shared column-tile kernel
+// (fiesta_kernels.cuh: tc whole columns per block in shared memory,
+// coalesced loads and stores); the window loop is skipped when every value
+// of the tile is far, as the TPU kernel skips an all-far block.
 // This brute-force window does 3 int32 ops per offset pair per voxel; an
 // exact O(A) pass (lower envelope, or a convex min-plus convolution where
 // the window is shorter than the column) needs ~24 per voxel, so the bound
@@ -52,59 +51,26 @@ __global__ void edt_binary_kernel(const int* __restrict__ f,
   }
 }
 
-__global__ void edt_minplus_kernel(const int* __restrict__ f,
-                                   int* __restrict__ out, long long outer,
-                                   int A, long long inner, int tl, int tc) {
-  extern __shared__ int smem[];
-  int* tile = smem;            // [A][tc] input columns
-  int* res = smem + A * tc;    // [A][tc] results
-  const long long ncols = outer * inner;
-  const long long col0 = (long long)blockIdx.x * tc;
-  const int total = A * tc;
-
-  // load: element e -> (i, c), coalesced along memory order
-  int near = 0;
-  for (int e = threadIdx.x; e < total; e += blockDim.x) {
-    const int i = inner == 1 ? e % A : e / tc;
-    const int c = inner == 1 ? e / A : e % tc;
-    const long long col = col0 + c;
-    int v = EDT_INF;
-    if (col < ncols) {
-      const long long o = col / inner, n = col % inner;
-      v = f[(o * A + i) * inner + n];
-    }
-    tile[i * tc + c] = v;
-    near |= v < EDT_INF;
+// The min-plus pass's prologue and window for fiesta_tile_window_kernel.
+struct EdtMinplus {
+  int tl;
+  int fill;  // EDT_INF: beyond the column ends
+  __device__ int load(int raw, int, int& near) const {
+    near |= raw < EDT_INF;
+    return raw;
   }
-  const bool any_near = __syncthreads_or(near);
-
-  // window: c fastest, so a warp reads 32 consecutive shared words
-  for (int e = threadIdx.x; e < total; e += blockDim.x) {
-    const int i = e / tc, c = e % tc;
-    int acc = EDT_INF;
-    if (any_near) {
-      const int* col = tile + c;
-      acc = col[i * tc];
-      for (int k = 1; k <= tl; ++k) {
-        const int lo = i - k >= 0 ? col[(i - k) * tc] : EDT_INF;
-        const int hi = i + k < A ? col[(i + k) * tc] : EDT_INF;
-        acc = min(acc, min(lo, hi) + k * k);
-      }
+  __device__ int window(const int* col, int i, int A, int tc,
+                        bool any_near) const {
+    if (!any_near) return EDT_INF;
+    int acc = col[i * tc];
+    for (int k = 1; k <= tl; ++k) {
+      const int lo = i - k >= 0 ? col[(i - k) * tc] : EDT_INF;
+      const int hi = i + k < A ? col[(i + k) * tc] : EDT_INF;
+      acc = min(acc, min(lo, hi) + k * k);
     }
-    res[i * tc + c] = acc;
+    return acc;
   }
-  __syncthreads();
-
-  for (int e = threadIdx.x; e < total; e += blockDim.x) {
-    const int i = inner == 1 ? e % A : e / tc;
-    const int c = inner == 1 ? e / A : e % tc;
-    const long long col = col0 + c;
-    if (col < ncols) {
-      const long long o = col / inner, n = col % inner;
-      out[(o * A + i) * inner + n] = res[i * tc + c];
-    }
-  }
-}
+};
 
 FIESTA_EXPORT int fiesta_edt_binary(const int* f, int* out, int A,
                                     long long inner, int tl, int far_value,
@@ -121,20 +87,6 @@ FIESTA_EXPORT int fiesta_edt_minplus(const int* f, int* out,
                                      long long outer, int A,
                                      long long inner, int tl,
                                      cudaStream_t stream) {
-  // columns per block: 32 (one warp-wide row) while both tiles fit in
-  // 200 KB of shared memory, fewer for very long columns
-  int tc = 32;
-  while (tc > 1 && 2LL * A * tc * (long long)sizeof(int) > 200 * 1024)
-    tc /= 2;
-  const size_t smem = 2 * (size_t)A * tc * sizeof(int);
-  cudaError_t err = cudaFuncSetAttribute(
-      edt_minplus_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const long long ncols = outer * inner;
-  const long long blocks = (ncols + tc - 1) / tc;
-  edt_minplus_kernel<<<(unsigned)blocks, 256, smem, stream>>>(
-      f, out, outer, A, inner, tl, tc);
-  FIESTA_LAUNCH_CHECK();
-  return 0;
+  return fiesta_tile_window(EdtMinplus{tl, EDT_INF}, f, out, outer, A, inner,
+                            stream);
 }

@@ -1,5 +1,5 @@
-"""Exact truncated Euclidean distance transform (port of
-``fiesta_tpu/ops/pallas/edt.py``, d2-only path).
+"""Exact truncated Euclidean distance transform, with and without the
+closest obstacle (port of ``fiesta_tpu/ops/pallas/edt.py``).
 
     d2[v] = min_{|j - v|_inf <= T} (0 if occupied[j]) + |v - j|^2
 
@@ -14,6 +14,11 @@ plain PyTorch version here.  ``binary_pass`` and ``minplus_pass`` launch
 the kernel for a CUDA tensor and take the plain version for a CPU tensor;
 d2 is a pure function of the occupancy, so both routes are bit-equal to
 the JAX package's transform.
+
+The closest transform (``truncated_edt_d2_closest``) runs three packed
+passes of the same shape, each with a CUDA kernel (``kernels/closest.cu``)
+and a plain version, dispatched the same way; the two-word wide fallback
+is plain PyTorch, as it is XLA in the JAX package.
 """
 
 from __future__ import annotations
@@ -39,6 +44,19 @@ def trunc_vox_for(resolution: float, trunc_dist: float) -> int:
 # ---------------------------------------------------------------------------
 
 
+def _lead_iota(n: int, ndim: int, device) -> torch.Tensor:
+    return torch.arange(n, dtype=torch.int32, device=device).reshape(
+        (n,) + (1,) * (ndim - 1))
+
+
+def _padded(x: torch.Tensor, t: int, fill: int) -> torch.Tensor:
+    """``x`` with ``t`` planes of ``fill`` before and after the leading
+    axis: ``_padded(x)[t + i + k] == x[i + k]`` with ``fill`` beyond."""
+    far = torch.full((t,) + tuple(x.shape[1:]), fill, dtype=x.dtype,
+                     device=x.device)
+    return torch.cat([far, x, far], 0)
+
+
 def _binary_pass_plain(f: torch.Tensor, t: int,
                        square: bool = True) -> torch.Tensor:
     """Plain version of the binary first pass along axis 0 of [A, ...]:
@@ -55,11 +73,8 @@ def _binary_pass_plain(f: torch.Tensor, t: int,
     d = torch.clamp(f, max=tl + 1).to(torch.int32)
     s, reach = 1, 0
     while reach < tl:
-        far = torch.full((s,) + tuple(d.shape[1:]), tl + 1,
-                         dtype=torch.int32, device=d.device)
-        lo = torch.cat([far, d[:-s]], 0)       # d[i - s]
-        hi = torch.cat([d[s:], far], 0)        # d[i + s]
-        d = torch.minimum(d, torch.minimum(lo, hi) + s)
+        dp = _padded(d, s, tl + 1)
+        d = torch.minimum(d, torch.minimum(dp[:a], dp[2 * s:2 * s + a]) + s)
         reach += s
         s *= 2
     if square:
@@ -75,9 +90,7 @@ def _minplus_pass_plain(f: torch.Tensor, t: int, axis: int) -> torch.Tensor:
     x = f.movedim(axis, 0)
     a = x.shape[0]
     tl = min(t, a - 1)
-    far = torch.full((tl,) + tuple(x.shape[1:]), _INF_EDT,
-                     dtype=x.dtype, device=x.device)
-    xp = torch.cat([far, x, far], 0)
+    xp = _padded(x, tl, _INF_EDT)
     acc = x.clone()
     for k in range(1, tl + 1):
         pair = torch.minimum(xp[tl - k:tl - k + a], xp[tl + k:tl + k + a])
@@ -102,12 +115,15 @@ def minplus_pass(f: torch.Tensor, t: int, axis: int) -> torch.Tensor:
 
 
 def truncated_edt_d2(occupied: torch.Tensor, trunc_vox: int) -> torch.Tensor:
-    """Exact squared EDT of ``occupied`` [X,Y,Z] bool, truncated at
-    ``trunc_vox`` (``ops/pallas/edt.py:348-386``).
+    """Exact squared EDT of ``occupied`` [X,Y,Z] (bool, or u8 {0,1} as the
+    fusion drain gives it), truncated at ``trunc_vox``
+    (``ops/pallas/edt.py:348-386``).
 
     Returns int32 [X,Y,Z]: exact |v - nearest obstacle|^2 in voxel units
     within trunc_vox of an obstacle, INF_D2 beyond.
     """
+    if occupied.dtype == torch.uint8:
+        occupied = occupied.view(torch.bool)
     t = int(trunc_vox)
     if t <= 0:
         return torch.full(occupied.shape, int(INF_D2), dtype=torch.int32,
@@ -194,3 +210,293 @@ def closest_capability(shape, trunc_vox: int) -> dict:
         f"{'fits' if oracle else 'does not fit'}"
     )
     return dict(packed=packed, wide=wide, oracle=oracle, detail=detail)
+
+
+# ---------------------------------------------------------------------------
+# Packed closest transform (ops/pallas/edt.py:393-944)
+#
+# The argmin rides in the low bits of the int32 the distance rides in,
+# ``packed = val << S | payload``, so integer min is lexicographic (value
+# first, then the smaller payload).  Pass 1 (binary, along axis a) carries
+# a*, pass 2 (window, along b) b* << ba | a*, and pass 3 (along c) runs two
+# half-window accumulators so c* is recovered arithmetically from d2 and the
+# sign of the winning side.  Each pass takes the axis it runs along, so the
+# transform needs no transposes; per column the words are those of the JAX
+# passes on the transposed volume.
+# ---------------------------------------------------------------------------
+
+
+def _binary_packed_plain(occ: torch.Tensor, plan, axis: int = 0,
+                         square: bool = True) -> torch.Tensor:
+    """Plain version of the packed binary pass along ``axis`` of an
+    occupancy volume (bool or u8 {0,1}): the doubling steps of
+    ``_binary_packed_xla``.  Returns i32 ``val << ba | a*`` with val the
+    squared L1 distance to the nearest seed on the column, ``cap`` beyond
+    the local reach; ``square=False`` gives the raw L1 distance and the
+    caller's ``t + 1`` beyond it."""
+    x = occ.movedim(axis, 0)
+    a = x.shape[0]
+    sent = plan["t"] + 1
+    t = min(plan["t"], a - 1)
+    ba, cap = plan["ba"], plan["cap"]
+    fill = (t + 1) << ba
+    packed = torch.where(x != 0, 0, fill).to(torch.int32) \
+        | _lead_iota(a, x.dim(), x.device)
+    s, reach = 1, 0
+    while reach < t:
+        xp = _padded(packed, s, fill)          # x[i - s] and x[i + s]
+        pair = torch.minimum(xp[:a], xp[2 * s:2 * s + a])
+        packed = torch.minimum(packed, pair + (s << ba))
+        reach += s
+        s *= 2
+    d = packed >> ba
+    astar = packed & ((1 << ba) - 1)
+    if square:
+        out = (torch.where(d > t, cap, d * d) << ba) | astar
+    else:
+        out = torch.where(d > t, (sent << ba) | astar, packed)
+    return out.to(torch.int32).movedim(0, axis).contiguous()
+
+
+def _window_packed_plain(p1: torch.Tensor, plan,
+                         axis: int = 0) -> torch.Tensor:
+    """Plain version of the packed paired window pass along ``axis``
+    (``_window_packed_xla``): repack ``v << s | b << ba | a*``, window
+    min with ``k^2 << s``, clamp the value at ``cap``."""
+    x = p1.movedim(axis, 0)
+    b = x.shape[0]
+    t = min(plan["t"], b - 1)
+    ba, s, cap = plan["ba"], plan["s"], plan["cap"]
+    packed = ((x >> ba) << s) | (_lead_iota(b, x.dim(), x.device) << ba) \
+        | (x & ((1 << ba) - 1))
+    xp = _padded(packed, t, cap << s)
+    acc = packed
+    for k in range(1, t + 1):
+        pair = torch.minimum(xp[t - k:t - k + b], xp[t + k:t + k + b])
+        acc = torch.minimum(acc, pair + ((k * k) << s))
+    out = (torch.clamp(acc >> s, max=cap) << s) | (acc & ((1 << s) - 1))
+    return out.movedim(0, axis).contiguous()
+
+
+def _split_packed_plain(p2: torch.Tensor, plan,
+                        axis: int = 0) -> torch.Tensor:
+    """Plain version of the split-sign final pass along ``axis``
+    (``_split_packed_xla``): one word ``val << (s+1) | sign << s | pay``,
+    sign 1 when the winner lies at higher c (strict ``vp < vn``)."""
+    x = p2.movedim(axis, 0)
+    c = x.shape[0]
+    t = min(plan["t"], c - 1)
+    s, cap = plan["s"], plan["cap"]
+    xp = _padded(x, t, cap << s)
+    acc_n = acc_p = x
+    for k in range(1, t + 1):
+        kk = (k * k) << s
+        acc_n = torch.minimum(acc_n, xp[t - k:t - k + c] + kk)
+        acc_p = torch.minimum(acc_p, xp[t + k:t + k + c] + kk)
+    vn, vp = acc_n >> s, acc_p >> s
+    use_p = vp < vn
+    val = torch.clamp(torch.minimum(vn, vp), max=cap)
+    mask_s = (1 << s) - 1
+    pay = torch.where(use_p, acc_p & mask_s, acc_n & mask_s)
+    out = (val << (s + 1)) | (use_p.to(torch.int32) << s) | pay
+    return out.movedim(0, axis).contiguous()
+
+
+def binary_packed(occ: torch.Tensor, plan, axis: int = 0,
+                  square: bool = True) -> torch.Tensor:
+    """Packed binary pass (closest pass 1) along ``axis``.  CUDA tensor
+    (u8 {0,1}): the ``closest_binary`` kernel; CPU: the plain version."""
+    if occ.is_cuda:
+        return kernels.closest_binary(occ, plan, axis, square)
+    return _binary_packed_plain(occ, plan, axis, square)
+
+
+def window_packed(p1: torch.Tensor, plan, axis: int = 0) -> torch.Tensor:
+    """Packed window pass (closest pass 2) along ``axis``.  CUDA tensor:
+    the ``closest_window`` kernel; CPU: the plain version."""
+    if p1.is_cuda:
+        return kernels.closest_window(p1, plan, axis)
+    return _window_packed_plain(p1, plan, axis)
+
+
+def split_packed(p2: torch.Tensor, plan, axis: int = 0) -> torch.Tensor:
+    """Split-sign final pass (closest pass 3) along ``axis``.  CUDA
+    tensor: the ``closest_split`` kernel; CPU: the plain version."""
+    if p2.is_cuda:
+        return kernels.closest_split(p2, plan, axis)
+    return _split_packed_plain(p2, plan, axis)
+
+
+def square_packed_l1(packed: torch.Tensor, plan) -> torch.Tensor:
+    """Raw packed L1 (``square=False``) -> the squared packed form the
+    later passes take (``val << ba | a*``)."""
+    ba, cap, t = plan["ba"], plan["cap"], plan["t"]
+    d = packed >> ba
+    val = torch.where(d > t, cap, d * d).to(torch.int32)
+    return (val << ba) | (packed & ((1 << ba) - 1))
+
+
+def unpack_split(vps: torch.Tensor, plan):
+    """Decode the final packed word -> (val, sign, b*, a*)."""
+    s, ba, bb = plan["s"], plan["ba"], plan["bb"]
+    return (vps >> (s + 1), (vps >> s) & 1, (vps >> ba) & ((1 << bb) - 1),
+            vps & ((1 << ba) - 1))
+
+
+def _axis_iota(shape, axis: int, device) -> torch.Tensor:
+    view = [1, 1, 1]
+    view[axis] = shape[axis]
+    return torch.arange(shape[axis], dtype=torch.int32,
+                        device=device).reshape(view)
+
+
+def _reconstruct_closest(shape, plan, val, sign, bstar, astar,
+                         packed_out: bool = False):
+    """Recover c* from the winning (val, a*, b*) and the sign, and assemble
+    (d2, closest) in [X,Y,Z] order: closest as one packed int32 grid
+    (``grid.pack_closest`` layout, -1 undefined) when ``packed_out``, else
+    int16 [3,X,Y,Z] planes."""
+    t = plan["t"]
+    a_ax, b_ax, c_ax = plan["a"], plan["b"], plan["c"]
+    dev = val.device
+    ia, ib, ic = (_axis_iota(shape, ax, dev) for ax in (a_ax, b_ax, c_ax))
+    da, db = ia - astar, ib - bstar
+    dc2 = val - da * da - db * db
+    dc = torch.round(torch.sqrt(torch.clamp(dc2, min=0).to(torch.float32))
+                     ).to(torch.int32)
+    cstar = torch.where(sign > 0, ic + dc, ic - dc)
+    valid = val <= t * t
+    d2 = torch.where(valid, val, int(INF_D2))
+    coords = [None, None, None]
+    coords[a_ax], coords[b_ax], coords[c_ax] = astar, bstar, cstar
+    if packed_out:
+        if any(g > 1024 for g in shape):
+            raise ValueError(f"packed closest needs every grid extent <= "
+                             f"1024 (10-bit fields); got {tuple(shape)}")
+        packed = (coords[0] << 20) | (coords[1] << 10) | coords[2]
+        return d2, torch.where(valid, packed, -1)
+    closest = torch.stack([torch.where(valid, c, -1).to(torch.int16)
+                           for c in coords])
+    return d2, closest
+
+
+def _as_u8(occupied: torch.Tensor) -> torch.Tensor:
+    """Occupancy as a contiguous u8 tensor, nonzero = occupied (a bool
+    tensor is viewed, not copied)."""
+    occ = occupied.contiguous()
+    if occ.dtype == torch.bool:
+        return occ.view(torch.uint8)
+    return occ if occ.dtype == torch.uint8 else (occ != 0).to(torch.uint8)
+
+
+def truncated_edt_d2_closest(occupied: torch.Tensor, trunc_vox: int,
+                             packed_out: bool = False):
+    """Exact truncated squared EDT with per-voxel closest-obstacle
+    coordinates (``ops/pallas/edt.py:912-944``).  ``occupied`` [X,Y,Z] bool
+    or u8 {0,1}.  Returns (d2 i32 [X,Y,Z], closest): int16 [3,X,Y,Z] planes
+    (-1 where d2 == INF_D2), or one packed int32 grid when ``packed_out``.
+    d2 equals ``truncated_edt_d2``.  Needs ``closest_plan`` to fit."""
+    plan = closest_plan(occupied.shape, trunc_vox)
+    if plan is None:
+        raise ValueError(
+            f"packed closest tracking does not fit int32 for shape="
+            f"{tuple(occupied.shape)} t={trunc_vox}; use "
+            "truncated_edt_d2_closest_wide")
+    p1 = binary_packed(_as_u8(occupied), plan, plan["a"])
+    p2 = window_packed(p1, plan, plan["b"])
+    vps = split_packed(p2, plan, plan["c"])
+    return _reconstruct_closest(occupied.shape, plan, *unpack_split(vps, plan),
+                                packed_out=packed_out)
+
+
+# ---------------------------------------------------------------------------
+# Wide (two-word) closest fallback (ops/pallas/edt.py:947-1075): value and
+# payload in separate int32 words, compared lexicographically.  XLA in the
+# JAX package, so plain PyTorch here.
+# ---------------------------------------------------------------------------
+
+
+def _pair_min(h1, l1, h2, l2):
+    """Lexicographic (value, payload) min."""
+    take2 = (h2 < h1) | ((h2 == h1) & (l2 < l1))
+    return torch.where(take2, h2, h1), torch.where(take2, l2, l1)
+
+
+def _binary_pair(occ, plan):
+    """Binary first pass, pair form: (val, a*) along the leading axis."""
+    a = occ.shape[0]
+    t = min(plan["t"], a - 1)
+    l1inf = t + 1
+    hi = torch.where(occ > 0, 0, l1inf).to(torch.int32)
+    lo = _lead_iota(a, occ.dim(), occ.device).expand(occ.shape).contiguous()
+    s, reach = 1, 0
+    while reach < t:
+        # the +s shift sees the -s shift's result, as in _binary_pair_xla
+        for at in (0, 2 * s):                   # x[i - s], then x[i + s]
+            hi, lo = _pair_min(hi, lo,
+                               _padded(hi, s, l1inf)[at:at + a] + s,
+                               _padded(lo, s, 0)[at:at + a])
+        reach += s
+        s *= 2
+    return torch.where(hi > t, plan["cap"], hi * hi).to(torch.int32), lo
+
+
+def _window_pair(hi, lo, plan):
+    """Paired window pass, pair form: payload grows to b* << ba | a*."""
+    b = hi.shape[0]
+    t = min(plan["t"], b - 1)
+    lo = (_lead_iota(b, hi.dim(), hi.device) << plan["ba"]) | lo
+    hip, lop = _padded(hi, t, plan["cap"]), _padded(lo, t, 0)
+    acc_h, acc_l = hi, lo
+    for d in range(2 * t + 1):
+        k = d - t
+        acc_h, acc_l = _pair_min(acc_h, acc_l, hip[d:d + b] + k * k,
+                                 lop[d:d + b])
+    return torch.clamp(acc_h, max=plan["cap"]), acc_l
+
+
+def _split_pair(hi, lo, plan):
+    """Split-sign final pass, pair form: (val, sign, payload)."""
+    c = hi.shape[0]
+    t = min(plan["t"], c - 1)
+    hip, lop = _padded(hi, t, plan["cap"]), _padded(lo, t, 0)
+    an_h, an_l, ap_h, ap_l = hi, lo, hi, lo
+    for k in range(1, t + 1):
+        an_h, an_l = _pair_min(an_h, an_l, hip[t - k:t - k + c] + k * k,
+                               lop[t - k:t - k + c])
+        ap_h, ap_l = _pair_min(ap_h, ap_l, hip[t + k:t + k + c] + k * k,
+                               lop[t + k:t + k + c])
+    use_p = ap_h < an_h
+    val = torch.clamp(torch.minimum(an_h, ap_h), max=plan["cap"])
+    return val, use_p.to(torch.int32), torch.where(use_p, ap_l, an_l)
+
+
+def truncated_edt_d2_closest_wide(occupied: torch.Tensor, trunc_vox: int,
+                                  packed_out: bool = False):
+    """Exact truncated EDT + closest on grids past the int32 packing budget
+    (``ops/pallas/edt.py:1047-1074``).  Same contract and results as
+    ``truncated_edt_d2_closest`` where both are defined."""
+    plan = closest_plan_wide(occupied.shape, trunc_vox)
+    if plan is None:
+        raise ValueError(
+            "closest tracking unsupported even in wide form: "
+            + closest_capability(occupied.shape, trunc_vox)["detail"])
+    ba, a_ax, b_ax, c_ax = plan["ba"], plan["a"], plan["b"], plan["c"]
+    occ_t = _as_u8(occupied).permute(a_ax, b_ax, c_ax)
+    hi, lo = _binary_pair(occ_t, plan)                             # [A,B,C]
+    hi, lo = _window_pair(hi.transpose(0, 1), lo.transpose(0, 1), plan)
+    val, sign, pay = _split_pair(hi.permute(2, 1, 0), lo.permute(2, 1, 0),
+                                 plan)                             # [C,A,B]
+    inv = tuple(int(i) for i in np.argsort((c_ax, a_ax, b_ax)))
+    val, sign, pay = (x.permute(inv).contiguous() for x in (val, sign, pay))
+    return _reconstruct_closest(occupied.shape, plan, val, sign, pay >> ba,
+                                pay & ((1 << ba) - 1), packed_out=packed_out)
+
+
+def edt_closest_auto(occupied: torch.Tensor, trunc_vox: int,
+                     packed_out: bool = False):
+    """One truncated EDT + closest: the packed transform when the int32
+    budget fits, else the two-word fallback (identical results)."""
+    if closest_plan(occupied.shape, trunc_vox) is not None:
+        return truncated_edt_d2_closest(occupied, trunc_vox, packed_out)
+    return truncated_edt_d2_closest_wide(occupied, trunc_vox, packed_out)

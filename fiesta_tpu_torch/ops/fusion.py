@@ -2,52 +2,64 @@
 
 Reference semantics (src/ESDFMap.cpp:235-271, 401-450): each queued voxel
 (``miss_cnt > 0``) applies ONE clamped log-odds step, a hit iff
-``2*hit >= miss``; occupancy flips count as inserts/deletes.  Plain
-PyTorch: the kernel form of this drain (``fuse_counts_pallas``) is not
-ported yet.
+``2*hit >= miss``; occupancy flips count as inserts/deletes.
+
+``fuse_drain`` is the one-pass drain of the rebuild tick
+(``ops/pallas/fuse.py:fuse_counts_pallas``): it returns the u8 occupancy
+and only the counts of the flips.  A CUDA tensor takes the ``fuse`` kernel
+(``kernels/fuse.cu``), a CPU tensor the plain version here.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
-
+import numpy as np
 import torch
 
-from ..config import FiestaConfig
-from ..grid import occupied_grid
+from .. import kernels
 
 
-class FusionResult(NamedTuple):
-    logodds: torch.Tensor       # updated log-odds f32
-    seen: torch.Tensor          # updated observed mask u8
-    occupied: torch.Tensor      # occupancy AFTER the update, bool
-    insert_mask: torch.Tensor   # flipped free -> occupied
-    delete_mask: torch.Tensor   # flipped occupied -> free
-    num_observed: torch.Tensor  # queued-voxel count, i32 scalar
+def _fuse_drain_plain(logodds, seen, hit_cnt, miss_cnt, *, l_hit, l_miss,
+                      clamp_min, clamp_max, occ_thresh, occ_is_eq):
+    """Plain version of the one-pass drain, with the arithmetic of
+    ``fuse_counts_pallas``'s kernel body."""
+    f32 = lambda v: float(np.float32(v))  # noqa: E731
+    thr = f32(occ_thresh)
+
+    def occ_of(lo):
+        return (lo == thr) if occ_is_eq else (lo > thr)
+
+    miss32 = miss_cnt.to(torch.int32)
+    obs = miss32 > 0
+    is_hit = 2 * hit_cnt.to(torch.int32) >= miss32
+    step = torch.where(is_hit, f32(l_hit), f32(l_miss))
+    new = torch.clamp(logodds + step, f32(clamp_min), f32(clamp_max))
+    new = torch.where(obs, new, logodds)
+    occ_b, occ_a = occ_of(logodds), occ_of(new)
+    return (new, seen | obs.to(seen.dtype), occ_a.to(torch.uint8),
+            torch.zeros_like(hit_cnt), torch.zeros_like(miss_cnt),
+            obs.sum(dtype=torch.int32),
+            (occ_a & ~occ_b).sum(dtype=torch.int32),
+            (~occ_a & occ_b).sum(dtype=torch.int32))
 
 
-def fuse_counts(cfg: FiestaConfig, logodds: torch.Tensor, seen: torch.Tensor,
-                hit_cnt: torch.Tensor, miss_cnt: torch.Tensor
-                ) -> FusionResult:
-    """Drain the observation counters into log-odds (UpdateOccupancy),
-    global update (no window mask)."""
-    observed = miss_cnt > 0
-    # vote rule (ESDFMap.cpp:243), widened so the doubled u8 hit count
-    # cannot wrap
-    is_hit = 2 * hit_cnt.to(torch.int32) >= miss_cnt.to(torch.int32)
-    l_update = torch.where(is_hit, cfg.prob_hit_log, cfg.prob_miss_log)
-
-    occ_before = occupied_grid(cfg, logodds)
-    new_lo = torch.clamp(logodds + l_update, cfg.clamp_min_log,
-                         cfg.clamp_max_log)
-    new_lo = torch.where(observed, new_lo, logodds)
-
-    occ_after = occupied_grid(cfg, new_lo)
-    return FusionResult(
-        logodds=new_lo,
-        seen=seen | observed.to(torch.uint8),
-        occupied=occ_after,
-        insert_mask=occ_after & ~occ_before,
-        delete_mask=~occ_after & occ_before,
-        num_observed=observed.sum(dtype=torch.int32),
-    )
+def fuse_drain(logodds, seen, hit_cnt, miss_cnt, *, l_hit, l_miss,
+               clamp_min, clamp_max, occ_thresh, occ_is_eq, window=None,
+               x_offset=None):
+    """Drain the counters in one pass, global update (the contract of
+    ``fuse_counts_pallas``).  Returns (new_logodds f32, new_seen u8, occ
+    u8, hit_zeroed u8, miss_zeroed u8, n_observed, n_inserted, n_deleted);
+    ``occ_is_eq`` selects deterministic mode's ``logodds == occ_thresh``
+    over ``>``.  Every output is a new tensor and the inputs are left as
+    they are (the JAX kernel aliases them in place).  CUDA tensor: the
+    ``fuse`` kernel; CPU: the plain version.  ``window`` / ``x_offset``
+    (local-update mode) are not ported yet and raise."""
+    if window is not None or x_offset is not None:
+        raise NotImplementedError(
+            "the windowed fusion drain comes with window mode, which this "
+            "port does not have yet")
+    args = dict(l_hit=l_hit, l_miss=l_miss, clamp_min=clamp_min,
+                clamp_max=clamp_max, occ_thresh=occ_thresh,
+                occ_is_eq=occ_is_eq)
+    if logodds.is_cuda:
+        return kernels.fuse(logodds, seen, hit_cnt, miss_cnt, **args)
+    return _fuse_drain_plain(logodds, seen, hit_cnt, miss_cnt, **args)

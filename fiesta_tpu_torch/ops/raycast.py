@@ -12,12 +12,13 @@ Per tick, K scans are integrated into sensor-centered carve boxes:
 3. the carve (``carve_free_mask_batch``): octant wavefront sweeps that
    propagate max observation range from the seeds toward the sensor, then
    the free test;
-4. the counter apply: a saturating u8 add per scan into the full grid
-   (the JAX ``rmw`` mode), with box indices built on the device so the
+4. the counter apply: a saturating u8 add of each scan's box into the
+   full grid, in scan order, with box corners kept on the device so the
    tick never waits on the host.
 
-Steps 2 and 3 have hand-written CUDA kernels (``kernels/splat.cu``,
-``kernels/carve.cu``); a CPU tensor takes the plain PyTorch version here.
+Steps 2, 3 and 4 have hand-written CUDA kernels (``kernels/splat.cu``,
+``kernels/carve.cu``, ``kernels/boxadd.cu``); a CPU tensor takes the plain
+PyTorch version here.
 
 f32 arithmetic follows the JAX expressions op for op, with tensor
 divisors (``grid.f32_scalar``) so that every division is IEEE.
@@ -392,12 +393,13 @@ def carve_free_mask_batch(cfg: FiestaConfig, seeds: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
-def apply_box_counts(hit_cnt, miss_cnt, starts, hitc, missc):
-    """Add K scans' box-local counts into the full grids: one saturating
-    u8 add per scan, in scan order (the JAX ``rmw`` mode).  The box
-    region's flat indices are built on the device from ``starts``, so no
-    value leaves the device.  Returns new (hit_cnt, miss_cnt)."""
-    gx, gy, gz = hit_cnt.shape
+def _apply_box_counts_plain(hit_cnt, miss_cnt, starts, hitc, missc):
+    """Plain version of the counter apply: one saturating u8 add per scan,
+    in scan order (the JAX ``rmw`` mode), into the given grids in place.
+    The box region's flat indices are built on the device from
+    ``starts``, so no value leaves the device.  Returns (hit_cnt,
+    miss_cnt), the tensors it was given."""
+    gy, gz = hit_cnt.shape[1:]
     box = hitc.shape[1:]
     dev = hit_cnt.device
     offs = (torch.arange(box[0], device=dev)[:, None, None] * (gy * gz)
@@ -405,14 +407,25 @@ def apply_box_counts(hit_cnt, miss_cnt, starts, hitc, missc):
             + torch.arange(box[2], device=dev)[None, None, :]).reshape(-1)
     st = starts.to(torch.int64)
     base = st[:, 0] * (gy * gz) + st[:, 1] * gz + st[:, 2]        # [K]
-    hit_flat = hit_cnt.reshape(-1).clone()
-    miss_flat = miss_cnt.reshape(-1).clone()
+    hit_flat, miss_flat = hit_cnt.view(-1), miss_cnt.view(-1)
     for i in range(starts.shape[0]):
         idx = offs + base[i]
         for flat, inc in ((hit_flat, hitc[i]), (miss_flat, missc[i])):
             reg = flat[idx].to(torch.int32) + inc.reshape(-1).to(torch.int32)
             flat[idx] = torch.clamp(reg, max=255).to(torch.uint8)
-    return hit_flat.reshape(gx, gy, gz), miss_flat.reshape(gx, gy, gz)
+    return hit_cnt, miss_cnt
+
+
+def apply_box_counts(hit_cnt, miss_cnt, starts, hitc, missc):
+    """Add K scans' box-local counts [K,BX,BY,BZ] u8 at the corners
+    ``starts`` [K,3] i32 into the full u8 grids, saturating at 255, in
+    scan order (``box_add_inplace``'s contract).  The grids are updated IN
+    PLACE on every device and returned: the caller gives them up, as the
+    JAX package donates them.  CUDA tensor: the ``boxadd`` kernel; CPU
+    tensor: the plain version."""
+    if hit_cnt.is_cuda:
+        return kernels.boxadd(hit_cnt, miss_cnt, starts, hitc, missc)
+    return _apply_box_counts_plain(hit_cnt, miss_cnt, starts, hitc, missc)
 
 
 def scanline_batch_boxes(cfg: FiestaConfig, points, valid, transforms):

@@ -4,10 +4,13 @@
     python3 profile_torch.py [--ticks N]
 
 Runs the tick stream of ``chip_smoke.py`` (same config, scans and seed):
-one warm tick, then the timed ticks twice, and prints one JSON object:
+one warm tick, then the timed ticks four times, each from a copy of the
+warm state (a tick gives up the state it is handed), and prints one JSON
+object:
 
-* ``ms_per_tick``: the timed ticks through ``fused_stream`` without the
-  profiler (CUDA events around the stream);
+* ``ms_per_tick``: the median of three windows of the timed ticks through
+  ``fused_stream`` without the profiler (CUDA events around the stream;
+  ``ms_per_tick_windows`` lists all three);
 * ``profile``: ``torch.profiler`` over the same ticks run again: device
   time summed by kernel name (top 15), device busy time, the share of it
   in the hand-written kernels, and the wall time under the profiler
@@ -16,12 +19,18 @@ one warm tick, then the timed ticks twice, and prints one JSON object:
 * ``device_idle_share``: 1 - busy / ``ms_per_tick``, against the
   unprofiled tick, and ``other_ms_per_tick``: the unprofiled tick less
   the hand kernels' device time;
+* ``derive_closest``: the lazy closest derivation on the final map, three
+  calls under the profiler after a warm one: device busy and hand-kernel
+  time per call, wall time per call, and the top kernels;
 * the card's name and power limit beside the numbers.
+
+Kernel names are cut at their argument list.
 """
 
 import argparse
 import json
 import re
+import statistics
 import time
 from pathlib import Path
 
@@ -34,12 +43,44 @@ from fiesta_tpu_torch.io import replay
 
 
 def hand_kernel_names():
-    """Names of the ``__global__`` functions in the port's CUDA sources."""
+    """Names of the ``__global__`` functions in the port's CUDA sources
+    and their shared header."""
     names = set()
-    for src in Path(kernels.__file__).parent.glob("*.cu"):
+    for src in Path(kernels.__file__).parent.glob("*.cu*"):
         names |= set(re.findall(r"__global__\s+void\s+(\w+)",
                                 src.read_text()))
     return names
+
+
+def profiled(fn, calls):
+    """Run ``fn`` ``calls`` times under ``torch.profiler``: returns (device
+    ms per call by kernel name, wall ms per call)."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    by_name = {}
+    for e in prof.key_averages():
+        dt = getattr(e, "device_time_total", None)
+        if dt is None:
+            dt = getattr(e, "cuda_time_total", 0.0)
+        if dt and e.device_type == torch.autograd.DeviceType.CUDA:
+            name = e.key.split("(")[0]
+            by_name[name] = by_name.get(name, 0.0) + dt / 1e3 / calls
+    return by_name, wall_ms / calls
+
+
+def summary(by_name, hand):
+    """(busy ms, hand-kernel ms, top 15 kernels) of a profile."""
+    hand_ms = sum(v for k, v in by_name.items()
+                  if k.split("<")[0].split(" ")[-1] in hand)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:15]
+    return sum(by_name.values()), hand_ms, dict(top)
 
 
 def main():
@@ -60,40 +101,37 @@ def main():
     timed = tuple(b[1:] for b in batches)
     ticks = args.ticks
 
-    # unprofiled window
+    # unprofiled windows
     warm_state, _ = ft.fused_stream(cfg, ft.make_state(cfg, dev), *warm)
-    torch.cuda.synchronize()
-    a = torch.cuda.Event(enable_timing=True)
-    b = torch.cuda.Event(enable_timing=True)
-    a.record()
-    ft.fused_stream(cfg, warm_state, *timed)
-    b.record()
-    b.synchronize()
-    ms_per_tick = a.elapsed_time(b) / ticks
-
-    # the same ticks under the profiler
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        ft.fused_stream(cfg, warm_state, *timed)
+    windows = []
+    for _ in range(3):
+        state = ft.copy_state(warm_state)
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    by_name = {}
-    for e in prof.key_averages():
-        dt = getattr(e, "device_time_total", None)
-        if dt is None:
-            dt = getattr(e, "cuda_time_total", 0.0)
-        if dt and e.device_type == torch.autograd.DeviceType.CUDA:
-            by_name[e.key] = by_name.get(e.key, 0.0) + dt / 1e3
-    busy = sum(by_name.values()) / ticks
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        ft.fused_stream(cfg, state, *timed)
+        b.record()
+        b.synchronize()
+        windows.append(a.elapsed_time(b) / ticks)
+    ms_per_tick = statistics.median(windows)
+
+    # the same ticks under the profiler, then the lazy closest derivation
     hand = hand_kernel_names()
-    hand_ms = sum(v for k, v in by_name.items()
-                  if k.split("(")[0].split("<")[0] in hand) / ticks
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:15]
+    final = [ft.copy_state(warm_state)]
+    tick, wall_ms = profiled(
+        lambda: final.append(ft.fused_stream(cfg, final[0], *timed)[0]), 1)
+    busy, hand_ms, top = summary({k: v / ticks for k, v in tick.items()},
+                                 hand)
+    logodds = final[-1].logodds
+    ft.derive_closest(cfg, logodds)
+    closest, closest_wall = profiled(
+        lambda: ft.derive_closest(cfg, logodds), 3)
+    c_busy, c_hand, c_top = summary(closest, hand)
     print(json.dumps({
         "card": card, "ticks": ticks,
         "ms_per_tick": ms_per_tick,
+        "ms_per_tick_windows": windows,
         "device_busy_ms_per_tick": busy or None,
         "device_idle_share": 1 - busy / ms_per_tick if busy else None,
         "hand_kernels_ms_per_tick": hand_ms,
@@ -102,7 +140,12 @@ def main():
             "wall_ms_per_tick": wall_ms / ticks,
             "device_idle_share_under_profiler":
                 1 - busy * ticks / wall_ms if busy else None,
-            "top_kernels_ms_per_tick": {k: v / ticks for k, v in top},
+            "top_kernels_ms_per_tick": top,
+        },
+        "derive_closest": {
+            "device_busy_ms": c_busy, "hand_kernels_ms": c_hand,
+            "wall_ms_under_profiler": closest_wall,
+            "top_kernels_ms": c_top,
         }}, indent=1))
 
 

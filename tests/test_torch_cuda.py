@@ -8,7 +8,9 @@ there with:
 
 Every kernel must equal its plain version bit for bit, at small shapes
 chosen for their edges: odd sizes, ragged tiles, t >= axis length,
-duplicate and dropped splat indices, square and non-square carve boxes.
+duplicate and dropped splat indices, square and non-square carve boxes,
+saturating and overlapping boxes on an unaligned grid, and both closest
+layouts (x-lead, and the widest-C fallback).
 """
 
 import dataclasses
@@ -22,7 +24,7 @@ import fiesta_tpu_torch as ft  # noqa: E402
 from fiesta_tpu_torch import kernels  # noqa: E402
 from fiesta_tpu_torch import pipeline  # noqa: E402
 from fiesta_tpu_torch.io import replay  # noqa: E402
-from fiesta_tpu_torch.ops import edt, raycast  # noqa: E402
+from fiesta_tpu_torch.ops import edt, fusion, raycast  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -102,6 +104,93 @@ def test_minplus_pass_kernel(dev, axis, t):
         _eq(edt.minplus_pass(f, t, axis), edt._minplus_pass_plain(f, t, axis))
 
 
+@pytest.mark.parametrize("probabilistic", [True, False])
+@pytest.mark.parametrize("shape", [(16, 12, 24), (7, 5, 3)])
+def test_fuse_kernel(dev, shape, probabilistic):
+    rng = np.random.default_rng(sum(shape))
+    lo = rng.uniform(-2.0, 3.5, shape).astype(np.float32)
+    lo.flat[::7] = np.float32(0.4)
+    lo.flat[::5] = np.float32(1.0)
+    seen = (rng.random(shape) < 0.5).astype(np.uint8)
+    hit = rng.integers(0, 256, shape).astype(np.uint8)
+    miss = np.where(rng.random(shape) < 0.3, 0,
+                    rng.integers(0, 256, shape)).astype(np.uint8)
+    args = [torch.from_numpy(a).to(dev) for a in (lo, seen, hit, miss)]
+    kw = dict(l_hit=0.85, l_miss=-0.4, clamp_min=-2.0, clamp_max=3.5,
+              occ_thresh=0.4 if probabilistic else 1.0,
+              occ_is_eq=not probabilistic)
+    before = [a.clone() for a in args]
+    got = fusion.fuse_drain(*args, **kw)
+    ref = fusion._fuse_drain_plain(*args, **kw)
+    for a, b in zip(got, ref):
+        _eq(a, b)
+    for a, b in zip(args, before):
+        _eq(a, b)                                  # inputs left as they were
+
+
+@pytest.mark.parametrize("grid,box,starts", [
+    ((45, 43, 25), (13, 11, 25), [[0, 0, 0], [5, 7, 0], [32, 32, 0],
+                                  [6, 8, 0]]),
+    ((32, 24, 16), (16, 8, 16), [[0, 8, 0], [8, 8, 0], [8, 16, 0]])],
+    ids=["unaligned", "aligned"])
+def test_boxadd_kernel(dev, grid, box, starts):
+    rng = np.random.default_rng(len(starts))
+    hit = rng.integers(0, 256, grid).astype(np.uint8)
+    hit[4:12] = 253                                # saturates
+    miss = rng.integers(0, 256, grid).astype(np.uint8)
+    k = len(starts)
+    bh = rng.integers(0, 3, (k,) + box).astype(np.uint8)
+    bm = rng.integers(0, 4, (k,) + box).astype(np.uint8)
+    h, m, st, bh, bm = (torch.from_numpy(a).to(dev) for a in
+                        (hit, miss, np.asarray(starts, np.int32), bh, bm))
+    ref = raycast._apply_box_counts_plain(h.clone(), m.clone(), st, bh, bm)
+    got = raycast.apply_box_counts(h, m, st, bh, bm)
+    assert got[0] is h and got[1] is m                 # in place
+    for a, b in zip(got, ref):
+        _eq(a, b)
+    assert int((ref[0] == 255).sum()) > 0
+
+
+CLOSEST = {"x_lead": ((40, 33, 8), 9), "x_lead_long_t": ((37, 29, 20), 23),
+           "widest_c": ((64, 16, 8), 1500)}
+
+
+@pytest.mark.parametrize("square", [True, False])
+@pytest.mark.parametrize("layout", sorted(CLOSEST))
+def test_closest_kernels(dev, layout, square):
+    shape, t = CLOSEST[layout]
+    plan = edt.closest_plan(shape, t)
+    g = torch.Generator().manual_seed(len(layout))
+    occ = (torch.rand(shape, generator=g) < 0.03).to(torch.uint8)
+    occ[:, :3] = 0                                 # all-far tiles
+    occ = occ.to(dev)
+    a, b, c = plan["a"], plan["b"], plan["c"]
+    p1 = edt._binary_packed_plain(occ, plan, a, square)
+    _eq(edt.binary_packed(occ, plan, a, square), p1)
+    if not square:
+        p1 = edt.square_packed_l1(p1, plan)
+    p2 = edt._window_packed_plain(p1, plan, b)
+    _eq(edt.window_packed(p1, plan, b), p2)
+    _eq(edt.split_packed(p2, plan, c), edt._split_packed_plain(p2, plan, c))
+
+
+@pytest.mark.parametrize("packed_out", [False, True])
+def test_closest_transform_kernels_equal_plain(dev, monkeypatch, packed_out):
+    occ = (torch.rand((48, 40, 24), generator=torch.Generator().manual_seed(
+        5)) < 0.01).to(dev)
+    kernels.reset_launch_counts()
+    got = edt.truncated_edt_d2_closest(occ, 12, packed_out)
+    assert [kernels.LAUNCHES[k] for k in
+            ("closest_binary", "closest_window", "closest_split")] == [1, 1, 1]
+    monkeypatch.setattr(edt, "binary_packed", edt._binary_packed_plain)
+    monkeypatch.setattr(edt, "window_packed", edt._window_packed_plain)
+    monkeypatch.setattr(edt, "split_packed", edt._split_packed_plain)
+    ref = edt.truncated_edt_d2_closest(occ, 12, packed_out)
+    for a, b in zip(got, ref):
+        _eq(a, b)
+    _eq(got[0], edt.truncated_edt_d2(occ, 12))
+
+
 def test_stream_kernels_equal_plain(dev, monkeypatch):
     cfg = replay.scale_intrinsics(ft.FiestaConfig(
         resolution=0.1, origin=(-2.25, -2.15, -0.95), map_size=(4.5, 4.3, 2.5),
@@ -114,11 +203,16 @@ def test_stream_kernels_equal_plain(dev, monkeypatch):
     k_state, k_stats = pipeline.fused_stream(cfg, ft.make_state(cfg, dev),
                                              *batches)
     torch.cuda.synchronize()
-    assert kernels.LAUNCHES == {"splat": 4, "carve": 4, "edt_binary": 4,
-                                "edt_minplus": 8}
+    assert kernels.LAUNCHES == {
+        "splat": 4, "carve": 4, "edt_binary": 4, "edt_minplus": 8,
+        "fuse": 4, "boxadd": 4, "closest_binary": 0, "closest_window": 0,
+        "closest_split": 0}
     monkeypatch.setattr(raycast, "splat_packed", raycast._splat_packed_plain)
     monkeypatch.setattr(raycast, "carve_free_mask_batch",
                         raycast._carve_free_plain)
+    monkeypatch.setattr(raycast, "apply_box_counts",
+                        raycast._apply_box_counts_plain)
+    monkeypatch.setattr(fusion, "fuse_drain", fusion._fuse_drain_plain)
     monkeypatch.setattr(edt, "binary_pass", edt._binary_pass_plain)
     monkeypatch.setattr(edt, "minplus_pass", edt._minplus_pass_plain)
     p_state, p_stats = pipeline.fused_stream(cfg, ft.make_state(cfg, dev),

@@ -3,8 +3,10 @@
 A multi-tick ``fused_stream`` on replayed scans, once on an 8-aligned
 grid and once on an unaligned one: the port's final ``MapState`` and
 every tick's ``UpdateStats`` must equal ``fiesta_tpu.pipeline.fused_stream``
-bit for bit.  Off a TPU the JAX tick runs exactly this slice's forms:
-XLA fusion, ``rmw`` counter apply, XLA carve and EDT.
+bit for bit.  Off a TPU the JAX tick runs its XLA fusion and ``rmw``
+counter apply, which its own tests pin to the Pallas drain and box add;
+the port's one-pass drain and box add are held against those Pallas
+kernels in interpret mode here as well.
 """
 
 import dataclasses
@@ -23,6 +25,8 @@ from fiesta_tpu import pipeline as jpipe  # noqa: E402
 from fiesta_tpu.io import replay as jreplay  # noqa: E402
 from fiesta_tpu.ops import fusion as jfusion  # noqa: E402
 from fiesta_tpu.ops import raycast as jrc  # noqa: E402
+from fiesta_tpu.ops.pallas import boxadd as jboxadd  # noqa: E402
+from fiesta_tpu.ops.pallas import fuse as jfuse  # noqa: E402
 
 import fiesta_tpu_torch as ft  # noqa: E402
 from fiesta_tpu_torch import pipeline as tpipe  # noqa: E402
@@ -76,8 +80,11 @@ def test_fused_stream_matches_jax(name):
 
 
 def test_fuse_counts_matches_jax():
+    """The port's drain against the JAX package's plain fusion
+    (``fusion.fuse_counts``, op by op): log-odds, seen, occupancy, and the
+    three counts equal to the sums of its observed, insert and delete
+    masks."""
     cfg = GRIDS["aligned"]
-    tc = ft.config_from_fields(dataclasses.asdict(cfg))
     rng = np.random.default_rng(3)
     shape = (16, 16, 8)
     lo = rng.uniform(cfg.clamp_min_log, cfg.clamp_max_log,
@@ -90,12 +97,79 @@ def test_fuse_counts_matches_jax():
     with jax.disable_jit():
         ref = jfusion.fuse_counts(cfg, *(jnp.asarray(a)
                                          for a in (lo, seen, hit, miss)))
-    got = tfusion.fuse_counts(tc, *(torch.from_numpy(a)
-                                    for a in (lo, seen, hit, miss)))
-    for field in ref._fields:
-        r, g = np.asarray(getattr(ref, field)), getattr(got, field).numpy()
-        assert g.dtype == r.dtype, field
-        np.testing.assert_array_equal(g, r, err_msg=field)
+    new_lo, new_seen, occ, hit0, miss0, n_obs, n_ins, n_del = \
+        tfusion.fuse_drain(*(torch.from_numpy(a)
+                             for a in (lo, seen, hit, miss)),
+                           l_hit=cfg.prob_hit_log, l_miss=cfg.prob_miss_log,
+                           clamp_min=cfg.clamp_min_log,
+                           clamp_max=cfg.clamp_max_log,
+                           occ_thresh=cfg.min_occupancy_log, occ_is_eq=False)
+    for name, g, r in (("logodds", new_lo, ref.logodds),
+                       ("seen", new_seen, ref.seen),
+                       ("occupied", occ, np.asarray(ref.occupied, np.uint8))):
+        r = np.asarray(r)
+        assert g.numpy().dtype == r.dtype, name
+        np.testing.assert_array_equal(g.numpy(), r, err_msg=name)
+    assert int(n_obs) == int(ref.num_observed) > 0
+    assert int(n_ins) == int(np.asarray(ref.insert_mask).sum()) > 0
+    assert int(n_del) == int(np.asarray(ref.delete_mask).sum()) > 0
+    assert not hit0.any() and not miss0.any()
+
+
+def _fusion_inputs(cfg, shape, seed):
+    rng = np.random.default_rng(seed)
+    lo = rng.uniform(cfg.clamp_min_log, cfg.clamp_max_log,
+                     shape).astype(np.float32)
+    lo.flat[::7] = np.float32(cfg.min_occupancy_log)
+    lo.flat[::11] = np.float32(1.0)
+    seen = (rng.random(shape) < 0.5).astype(np.uint8)
+    hit = rng.integers(0, 256, shape).astype(np.uint8)
+    miss = np.where(rng.random(shape) < 0.3, 0,
+                    rng.integers(0, 256, shape)).astype(np.uint8)
+    return lo, seen, hit, miss
+
+
+@pytest.mark.parametrize("probabilistic", [True, False])
+def test_fuse_drain_matches_pallas_interpret(probabilistic):
+    """The one-pass drain: all eight outputs of ``fuse_counts_pallas``."""
+    cfg = dataclasses.replace(GRIDS["aligned"], probabilistic=probabilistic)
+    arrays = _fusion_inputs(cfg, (16, 12, 24), 5)
+    on, eq = ((cfg.min_occupancy_log, False) if probabilistic
+              else (1.0, True))
+    kw = dict(l_hit=cfg.prob_hit_log, l_miss=cfg.prob_miss_log,
+              clamp_min=cfg.clamp_min_log, clamp_max=cfg.clamp_max_log,
+              occ_thresh=on, occ_is_eq=eq)
+    ref = jfuse.fuse_counts_pallas(*(jnp.asarray(a) for a in arrays),
+                                   interpret=True, **kw)
+    got = tfusion.fuse_drain(*(torch.from_numpy(a) for a in arrays), **kw)
+    assert len(got) == 8
+    for i, (r, g) in enumerate(zip(ref, got)):
+        r = np.asarray(r)
+        assert g.numpy().dtype == r.dtype, i
+        np.testing.assert_array_equal(g.numpy(), r, err_msg=str(i))
+    assert int(got[5]) > 0 and int(got[6]) + int(got[7]) > 0
+
+
+def test_box_add_matches_pallas_interpret():
+    """An 8-aligned fixture ``box_add_inplace`` accepts: overlapping boxes,
+    saturation, in scan order."""
+    rng = np.random.default_rng(2)
+    g, box = (32, 24, 16), (16, 8, 16)
+    assert jboxadd.box_add_supported(box, g)
+    hit = rng.integers(0, 256, g).astype(np.uint8)
+    hit[4:12] = 253
+    miss = rng.integers(0, 256, g).astype(np.uint8)
+    starts = np.array([[0, 8, 0], [8, 8, 0], [8, 16, 0]], np.int32)
+    bh = rng.integers(0, 3, (3,) + box).astype(np.uint8)
+    bm = rng.integers(0, 4, (3,) + box).astype(np.uint8)
+    ref = jboxadd.box_add_inplace(*(jnp.asarray(a) for a in
+                                    (hit, miss, starts, bh, bm)),
+                                  interpret=True)
+    got = trc.apply_box_counts(*(torch.from_numpy(a) for a in
+                                 (hit, miss, starts, bh, bm)))
+    for r, o in zip(ref, got):
+        np.testing.assert_array_equal(o.numpy(), np.asarray(r))
+    assert int((got[0] == 255).sum()) > 0
 
 
 def test_apply_box_counts_matches_rmw_with_saturation():
@@ -116,15 +190,53 @@ def test_apply_box_counts_matches_rmw_with_saturation():
         np.testing.assert_array_equal(o.numpy(), np.asarray(r))
 
 
+def test_tick_gives_up_its_input_state():
+    """A tick adds into its input state's counters in place (the JAX
+    package donates the state); a copy kept with ``copy_state`` replays
+    the same tick."""
+    cfg = GRIDS["unaligned"]
+    tc = ft.config_from_fields(dataclasses.asdict(cfg))
+    _, frames = treplay.make_sequence(tc, n_frames=3, n_boxes=5, seed=1,
+                                      height=H, width=W, orbit_radius=0.8)
+    pts, vals, tfs, pos = (b[0] for b in treplay.stage_update_batches(
+        tc, frames, device="cpu"))
+    state = ft.make_state(tc, device="cpu")
+    kept = ft.copy_state(state)
+    hit_in, miss_in = state.hit_cnt, state.miss_cnt
+    ticked = tpipe.integrate_scan_batch(tc, state, pts, vals, tfs)
+    assert ticked.hit_cnt is hit_in and ticked.miss_cnt is miss_in
+    assert int(miss_in.sum()) > 0 and not kept.miss_cnt.any()
+    new, stats = tpipe.fused_batch_step(tc, ft.copy_state(kept), pts, vals,
+                                        tfs, pos)
+    again, stats2 = tpipe.fused_batch_step(tc, kept, pts, vals, tfs, pos)
+    for f in ft.grid.FIELDS:
+        assert torch.equal(getattr(new, f), getattr(again, f)), f
+    assert all(torch.equal(a, b) for a, b in zip(stats, stats2))
+    assert int(stats.num_observed) == int((miss_in > 0).sum())
+    assert not new.hit_cnt.any() and not new.miss_cnt.any()
+
+
 def test_tick_raises_for_paths_not_ported():
+    """Window mode, the hierarchical EDT (with and without closest) and
+    the incremental engine are not ported: each raises."""
     cfg = ft.config_from_fields(dataclasses.asdict(GRIDS["aligned"]))
     occ = torch.zeros(cfg.grid_shape, dtype=torch.bool)
+    hier = dataclasses.replace(cfg, edt_fine_dist=0.5)
     with pytest.raises(NotImplementedError):
-        tpipe.rebuild_d2(dataclasses.replace(cfg, edt_fine_dist=0.5), occ)
+        tpipe.rebuild_d2(hier, occ)
     with pytest.raises(NotImplementedError):
-        tpipe.tick_rebuild_esdf(dataclasses.replace(cfg, closest_mode="eager"),
-                                occ)
+        tpipe.rebuild_esdf(hier, occ)
+    with pytest.raises(NotImplementedError):
+        tpipe.tick_rebuild_esdf(
+            dataclasses.replace(hier, closest_mode="eager"), occ)
     state = ft.make_state(cfg, device="cpu")
+    with pytest.raises(NotImplementedError):
+        tfusion.fuse_drain(
+            state.logodds, state.seen, state.hit_cnt, state.miss_cnt,
+            l_hit=0.8, l_miss=-0.4, clamp_min=-2.0, clamp_max=3.5,
+            occ_thresh=0.8, occ_is_eq=False,
+            window=(torch.zeros(3, dtype=torch.int32),
+                    torch.full((3,), 7, dtype=torch.int32)))
     with pytest.raises(NotImplementedError):
         tpipe.esdf_update(dataclasses.replace(cfg, esdf_mode="incremental"),
                           state)
