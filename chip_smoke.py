@@ -3,11 +3,15 @@
 
     python3 chip_smoke.py
 
-Two paths are driven at cow_and_lady size (400x400x80 voxels at 0.05 m,
-exact EDT truncated at 100 voxels) on replayed scans made from seed 0:
-the mapping tick stream (3 scans of 192x256 rays per tick, lazy closest)
-and the closest-obstacle query path on the map it leaves.  Phases, in
-order; any failure raises and exits non-zero:
+Five paths are driven, four at cow_and_lady size (400x400x80 voxels at
+0.05 m, exact EDT truncated at 100 voxels) on replayed scans made from
+seed 0: the mapping tick stream (3 scans of 192x256 rays per tick, lazy
+closest), the closest-obstacle query path on the map it leaves, the same
+stream with the sorted splat, and the app engine (``FiestaPipeline``);
+and the demo preset's windowed depth tick (400x400x36 voxels at 0.1 m,
+120x160 depth images).  Each path's kernel launch counts are zeroed just
+before it and read just after.  Phases, in order; any failure raises and
+exits non-zero:
 
 1. device and build: the card's name and power limit (nvidia-smi), then
    every kernel built with nvcc from the sources in this checkout (timed);
@@ -25,19 +29,38 @@ order; any failure raises and exits non-zero:
    The closest grids, d2, the eager states and the query outputs must be
    bit-equal, and the eager closest equal to the lazy derivation on the
    same occupancy.  ``derive_closest`` is timed both ways;
-4. each kernel against its plain version on the card at the main path's
-   own shapes (splat on the first tick's rays, carve on the seeds it
-   gives, the drain and box add on a tick of counters, the EDT and
-   closest passes on the stream's final occupancy): exact equality, and
-   median times (CUDA events) beside the plain version's, a library
-   call's where one computes the same function, and the card's bound;
-5. a JSON line of per-kernel numbers, the nvidia-smi line, and last
+4. the sorted splat: the phase-2 stream again with ``FIESTA_SPLAT=sorted``
+   and ``FIESTA_SPLAT_SORT_IMPL=pallas`` (set on ``ops.raycast``); the sort
+   kernel must launch and the final state and stats equal phase 2's;
+5. the app engine: ``FiestaPipeline(cfg, "scanline")`` fed 9 frames of the
+   phase-2 replay the way ``run.py`` feeds it (``observe_pose`` /
+   ``observe_cloud`` / ``process()``, ``update()`` every third frame),
+   then the three queries on the phase-3 positions; kernels, then plain.
+   The final state, the closest grid and the query outputs must be
+   bit-equal, and the tick's and the closest path's kernels must have
+   launched, and neither ``process()`` nor ``update()`` may wait for the
+   device; ms per ``process()`` frame and per ``update()``.  Then the
+   ``dda`` and ``projective`` integrators on 3 frames each (plain
+   PyTorch on the card): ms per frame and the occupied count;
+6. the demo preset: ``fused_depth_stream`` with the local window, 5 ticks
+   of 3 depth frames staged as ``bench_demo.py`` stages them; kernels,
+   then plain: bit-equal states and stats, the windowed drain and the
+   tick's kernels launched, ms/tick, and an occupied-voxel floor;
+7. each kernel against its plain version on the card at the main path's
+   own shapes (splat and sort on the first tick's rays, carve on the
+   seeds the splat gives, the drain and box add on a tick of counters,
+   the EDT and closest passes on the stream's final occupancy, the
+   windowed drain at the demo's shapes): exact equality, and median
+   times (CUDA events) beside the plain version's, a library call's where
+   one computes the same function, and the card's bound;
+8. a JSON line of per-kernel numbers, the nvidia-smi line, and last
    ``{"ok": true, "device": {...}}``.
 
 The script needs a CUDA card and the rest of the repository; without
 either it exits non-zero and prints no result.
 """
 
+import collections
 import contextlib
 import dataclasses
 import json
@@ -46,12 +69,13 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 import fiesta_tpu_torch as ft
 from fiesta_tpu_torch import kernels, pipeline
 from fiesta_tpu_torch.io import replay
-from fiesta_tpu_torch.ops import edt, fusion, query, raycast
+from fiesta_tpu_torch.ops import edt, fusion, query, raycast, sort
 
 H, W = 192, 256          # scan size of the cow_and_lady bench (bench.py)
 TICKS = 5                # timed ticks of 3 scans each
@@ -61,6 +85,11 @@ STREAM_KERNELS = ("splat", "carve", "edt_binary", "edt_minplus", "fuse",
                   "boxadd")
 CLOSEST_KERNELS = ("closest_binary", "closest_window", "closest_split")
 MIN_OCCUPIED = 1000      # a representative scene (bench.py:184)
+ENGINE_FRAMES = 9        # FiestaPipeline frames, update() every third
+OTHER_FRAMES = 3         # frames each for the dda and projective engines
+DH, DW = 120, 160        # depth size of the demo bench (bench_demo.py:39)
+DEMO_TICKS = 5
+DEMO_MIN_OCCUPIED = 80   # the first chip run mapped 88 (PERF.md)
 # H100 SXM published peaks (NVIDIA data sheet and Hopper white paper)
 HBM_BYTES_PER_S = 3.35e12
 # 67 TFLOP/s of non-tensor f32 counts an FMA as two operations; the kernels
@@ -91,6 +120,15 @@ def cow_config():
     return cfg.validate()
 
 
+def demo_config():
+    """``launch/demo.launch`` as ``bench_demo.py`` sizes it: depth images
+    of 120x160, local-window updates."""
+    cfg = dataclasses.replace(
+        replay.scale_intrinsics(ft.DEMO_ONBOARD, DH, DW),
+        max_points_per_scan=DH * DW)
+    return cfg.validate()
+
+
 #: (module, dispatch function, plain version) of every kernel wrapper
 PLAIN = (
     (raycast, "splat_packed", raycast._splat_packed_plain),
@@ -102,6 +140,7 @@ PLAIN = (
     (edt, "binary_packed", edt._binary_packed_plain),
     (edt, "window_packed", edt._window_packed_plain),
     (edt, "split_packed", edt._split_packed_plain),
+    (sort, "sort_pairs", sort._sort_pairs_plain),
 )
 
 
@@ -259,18 +298,123 @@ def bound(nbytes, ops, rate):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def read_launches(names):
+    """The launch counts of ``names`` since the last reset."""
+    return {k: kernels.LAUNCHES[k] for k in names}
+
+
+def check_launched(counts, what):
+    for name, n in counts.items():
+        assert n > 0, f"kernel {name} did not launch on {what}"
+
+
+@contextlib.contextmanager
+def sorted_splat():
+    """The sorted splat with the bitonic sort (``FIESTA_SPLAT=sorted``,
+    ``FIESTA_SPLAT_SORT_IMPL=pallas``), restored afterwards."""
+    saved = raycast._SPLAT_ORDER, raycast._SPLAT_SORT_IMPL
+    raycast._SPLAT_ORDER, raycast._SPLAT_SORT_IMPL = "sorted", "pallas"
+    try:
+        yield
+    finally:
+        raycast._SPLAT_ORDER, raycast._SPLAT_SORT_IMPL = saved
+
+
+def run_engine(cfg, frames, method, dev, pos=None, no_sync=False):
+    """``FiestaPipeline`` fed ``frames`` as ``run.py`` feeds it, with
+    ``update()`` every third frame and once after a final pose releases the
+    last frame.  Each ``process()`` and ``update()`` is timed to the
+    device's end (host clock, synchronised).  ``no_sync``: they run under
+    PyTorch's sync debug mode "error", so one that waits for the device
+    raises.  Returns (pipe, outputs, ms per integrated frame, ms per
+    update)."""
+    pipe = ft.FiestaPipeline(cfg, method=method, device=dev)
+    frame_ms, update_ms = [], []
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if no_sync:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    def update():
+        stats, ms = timed(pipe.update)
+        if stats is not None:
+            update_ms.append(ms)
+
+    for i, (t, (p, q), scan) in enumerate(frames):
+        pipe.observe_pose(t, p, q)
+        pipe.observe_cloud(t, scan)
+        n, ms = timed(pipe.process)
+        if n:
+            frame_ms.append(ms / n)
+        if i % 3 == 2:
+            update()
+    pipe.observe_pose(frames[-1][0] + 1.0, *frames[-1][1])
+    n, ms = timed(pipe.process)
+    frame_ms.append(ms / max(n, 1))
+    update()
+    out = {f: getattr(pipe.state, f) for f in ft.grid.FIELDS}
+    if pos is not None:
+        out["closest_grid"] = pipe.closest_grid()
+        out["distance"] = pipe.query_distance(pos)
+        out["trilinear"], out["gradient"] = pipe.query_dist_grad(pos)
+        out["obstacle"], out["obstacle_dist"] = \
+            pipe.query_closest_obstacle(pos)
+    torch.cuda.synchronize()
+    return pipe, out, statistics.median(frame_ms), statistics.median(
+        update_ms)
+
+
+def demo_batches(cfg, h, w, ticks, dev):
+    """Depth ticks staged as ``bench_demo.py:47-59`` stages them: depths
+    [N,3,H,W], transforms [N,3,4,4], positions [N,3] on ``dev``."""
+    _, frames = replay.make_sequence(
+        cfg, n_frames=3 * ticks, n_boxes=20, seed=0, kind="depth",
+        height=h, width=w, period=12.0, orbit_radius=5.0)
+    depths = np.stack([f[2] for f in frames]).reshape(ticks, 3, h, w)
+    tfs = np.stack([replay.pose_to_matrix(*f[1]) for f in frames]
+                   ).reshape(ticks, 3, 4, 4)
+    poss = np.stack([frames[i * 3 + 2][1][0] for i in range(ticks)])
+    return tuple(torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev)
+                 for a in (depths, tfs, poss))
+
+
+def run_demo(cfg, batches, dev):
+    """``fused_depth_stream`` with the local window from an empty map;
+    returns (state, stats, ms/tick)."""
+    state = ft.make_state(cfg, dev)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    state, stats = ft.fused_depth_stream(
+        cfg, state, *batches, use_window=not cfg.global_update)
+    end.record()
+    end.synchronize()
+    return state, stats, start.elapsed_time(end) / batches[0].shape[0]
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    return run(torch.device("cuda"), cow_config(), H, W, TICKS)
+    return run(torch.device("cuda"), cow_config(), H, W, TICKS,
+               demo_config(), DH, DW, DEMO_TICKS)
 
 
-def run(dev, cfg, h, w, ticks):
+def run(dev, cfg, h, w, ticks, dcfg, dh, dw, dticks):
     """The phases on ``dev`` for ``cfg`` with ``ticks`` ticks of three
-    h x w scans."""
+    h x w scans, and for the demo config ``dcfg`` with ``dticks`` ticks of
+    three dh x dw depth images."""
     # -- phase 1: device and build ------------------------------------
     card = card_line()
     log(f"card: {card} ({torch.cuda.get_device_name(0)}, "
@@ -298,12 +442,12 @@ def run(dev, cfg, h, w, ticks):
     kernels.reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
     k_state, k_stats, k_ms = run_stream(cfg, batches, dev)
-    launches = {k: kernels.LAUNCHES[k] for k in STREAM_KERNELS}
+    stream_launches = read_launches(STREAM_KERNELS)
     log(f"stream (kernels): {k_ms:.3f} ms/tick on {card}; launches "
-        f"{launches}; peak memory "
+        f"{stream_launches}; peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB")
-    for name, n in launches.items():
-        assert n > 0, f"kernel {name} did not launch on the main path"
+    check_launched(stream_launches, "the main path")
+    launches = collections.Counter(stream_launches)
     with plain_versions():
         p_state, p_stats, p_ms = run_stream(cfg, batches, dev)
     log(f"stream (plain PyTorch): {p_ms:.3f} ms/tick on {card}")
@@ -324,10 +468,9 @@ def run(dev, cfg, h, w, ticks):
     pos = query_positions(cfg, dev)
     kernels.reset_launch_counts()
     k_out = closest_path(cfg, k_state, eager, pos)
-    closest_launches = {k: kernels.LAUNCHES[k] for k in CLOSEST_KERNELS}
+    closest_launches = read_launches(CLOSEST_KERNELS)
     log(f"closest path (kernels): launches {closest_launches}")
-    for name, n in closest_launches.items():
-        assert n > 0, f"kernel {name} did not launch on the closest path"
+    check_launched(closest_launches, "the closest path")
     launches.update(closest_launches)
     with plain_versions():
         p_out = closest_path(cfg, k_state, eager, pos)
@@ -356,7 +499,81 @@ def run(dev, cfg, h, w, ticks):
         f"ms); three queries of {QUERIES} positions: {query_ms:.4f} ms; "
         f"on {card}")
 
-    # -- phase 4: each kernel against its plain version ------------------
+    # -- phase 4: the sorted splat -----------------------------------------
+    kernels.reset_launch_counts()
+    with sorted_splat():
+        s_state, s_stats, s_ms = run_stream(cfg, batches, dev)
+    sort_launches = read_launches(("sort",) + STREAM_KERNELS)
+    log(f"sorted-splat stream (kernels): {s_ms:.3f} ms/tick; launches "
+        f"{sort_launches}")
+    check_launched(sort_launches, "the sorted-splat stream")
+    for f in ft.grid.FIELDS:
+        bit_equal(getattr(s_state, f), getattr(k_state, f),
+                  f"sorted-splat state {f} (against the direct splat)")
+    for f, a, b in zip(k_stats._fields, s_stats, k_stats):
+        assert torch.equal(a, b), f"sorted-splat UpdateStats.{f} differs"
+    log("sorted-splat stream bit-equal to the direct splat's")
+    launches.update(sort_launches)
+
+    # -- phase 5: the app engine ------------------------------------------
+    eng_frames = frames[:ENGINE_FRAMES]
+    kernels.reset_launch_counts()
+    k_pipe, k_eng, frame_ms, update_ms = run_engine(
+        cfg, eng_frames, "scanline", dev, pos, no_sync=True)
+    engine_kernels = STREAM_KERNELS + CLOSEST_KERNELS
+    engine_launches = read_launches(engine_kernels)
+    log(f"engine (kernels, scanline): {frame_ms:.3f} ms per process() "
+        f"frame, {update_ms:.3f} ms per update(), neither waiting for the "
+        f"device, on {card}; launches {engine_launches}")
+    check_launched(engine_launches, "the app engine")
+    launches.update(engine_launches)
+    with plain_versions():
+        _, p_eng, p_frame_ms, p_update_ms = run_engine(
+            cfg, eng_frames, "scanline", dev, pos)
+    for name in k_eng:
+        bit_equal(k_eng[name], p_eng[name], f"engine {name}")
+    n_eng = int(k_pipe.occupied().sum())
+    log(f"engine bit-equal to plain ({p_frame_ms:.3f} ms per frame, "
+        f"{p_update_ms:.3f} ms per update plain); occupied {n_eng}; "
+        f"{k_pipe.esdf_cnt} updates")
+    assert n_eng > MIN_OCCUPIED, f"engine mapped only {n_eng} voxels"
+    other = {}
+    for method in ("dda", "projective"):
+        o_pipe, _, o_ms, o_up = run_engine(cfg, frames[:OTHER_FRAMES],
+                                           method, dev)
+        n_o = int(o_pipe.occupied().sum())
+        other[method] = dict(frame_ms=o_ms, update_ms=o_up, occupied=n_o)
+        log(f"engine ({method}, plain PyTorch): {o_ms:.3f} ms per frame, "
+            f"{o_up:.3f} ms per update; occupied {n_o}; on {card}")
+        assert n_o > 0, f"the {method} engine mapped nothing"
+
+    # -- phase 6: the demo preset's windowed depth tick -------------------
+    t0 = time.perf_counter()
+    dbatches = demo_batches(dcfg, dh, dw, dticks, dev)
+    log(f"demo grid {dcfg.grid_shape}, box {raycast._carve_box_shape(dcfg)}"
+        f", window radius {dcfg.radius}, {dticks} ticks x 3 depth images of "
+        f"{dh}x{dw} staged in {time.perf_counter() - t0:.1f} s")
+    run_demo(dcfg, tuple(b[:1] for b in dbatches), dev)        # warm-up
+    kernels.reset_launch_counts()
+    d_state, d_stats, d_ms = run_demo(dcfg, dbatches, dev)
+    demo_launches = read_launches(STREAM_KERNELS)
+    log(f"demo stream (kernels): {d_ms:.3f} ms/tick on {card}; launches "
+        f"{demo_launches}")
+    check_launched(demo_launches, "the demo depth stream")
+    launches.update(demo_launches)
+    with plain_versions():
+        pd_state, pd_stats, pd_ms = run_demo(dcfg, dbatches, dev)
+    for f in ft.grid.FIELDS:
+        bit_equal(getattr(d_state, f), getattr(pd_state, f), f"demo {f}")
+    for f, a, b in zip(d_stats._fields, d_stats, pd_stats):
+        assert torch.equal(a, b), f"demo UpdateStats.{f} differs"
+    n_demo = int(ft.occupied_grid(dcfg, d_state.logodds).sum())
+    log(f"demo stream bit-equal to plain ({pd_ms:.3f} ms/tick plain); "
+        f"occupied {n_demo}; stats "
+        f"{ {f: v.tolist() for f, v in zip(d_stats._fields, d_stats)} }")
+    assert n_demo >= DEMO_MIN_OCCUPIED, f"demo mapped only {n_demo} voxels"
+
+    # -- phase 7: each kernel against its plain version ------------------
     rows = []
     pts, vals, tfs, _ = (b[0] for b in batches)
     starts, po, lin, val, _ = raycast._scanline_splat_prep(
@@ -378,6 +595,26 @@ def run(dev, cfg, h, w, ticks):
         library_ms=time_ms(lambda: torch.zeros(
             n + 1, device=dev).scatter_reduce_(0, idx, val, "amax")),
         bound=bound(lin.numel() * 8 + n * 6, 0, F32_OPS_PER_S)))
+
+    # the sorted splat's sort on the same rays: keys and values bit-equal
+    ksorted = kernels.sort_pairs(lin, val)
+    psorted = sort._sort_pairs_plain(lin, val)
+    err = max_abs_err([ksorted[0], ksorted[1].view(torch.int32)],
+                      [psorted[0], psorted[1].view(torch.int32)])
+    n_rays = lin.numel()
+    rows.append(dict(
+        name="sort", source="fiesta_tpu_torch/kernels/sort.cu",
+        replaces="fiesta_tpu/ops/pallas/sort.py:54", err=err,
+        ms=time_ms(lambda: kernels.sort_pairs(lin, val)),
+        plain_ms=time_ms(lambda: sort._sort_pairs_plain(lin, val),
+                         calls=1, windows=3),
+        library_ms=time_ms(lambda: val[torch.sort(lin)[1]]),
+        # 8 bytes per pair in and out; the cheapest exact method is a radix
+        # sort of the keys (below 2^24 here): 3 passes of ~10 integer
+        # operations per pair
+        bound=bound(16 * n_rays, 30 * n_rays, I32_OPS_PER_S)))
+    log(f"sort: {n_rays} pairs padded to "
+        f"{kernels.sort_padded_size(n_rays)}, keys and values bit-equal")
 
     seeds = got[0].view((3,) + box)
     kfree = kernels.carve(seeds, po, cfg.resolution, cfg.min_ray_length,
@@ -420,6 +657,36 @@ def run(dev, cfg, h, w, ticks):
         # 15 bytes per voxel; ~8 f32 operations (add, clamp, selects, two
         # threshold tests)
         bound=bound(15 * nvox, 8 * nvox, F32_OPS_PER_S)))
+
+    # the windowed drain at the demo's shapes, on its final map with a
+    # tick's worth of counters, windowed around its last position
+    g = torch.Generator(device=dev).manual_seed(0)
+    dfin = (d_state.logodds, d_state.seen,
+            torch.randint(0, 2, dcfg.grid_shape, generator=g, device=dev,
+                          dtype=torch.uint8),
+            torch.randint(0, 3, dcfg.grid_shape, generator=g, device=dev,
+                          dtype=torch.uint8))
+    dwin = ft.grid.local_window(dcfg, dbatches[2][-1])
+    don, deq = ((dcfg.min_occupancy_log, False) if dcfg.probabilistic
+                else (1.0, True))
+    dkw = dict(l_hit=dcfg.prob_hit_log, l_miss=dcfg.prob_miss_log,
+               clamp_min=dcfg.clamp_min_log, clamp_max=dcfg.clamp_max_log,
+               occ_thresh=don, occ_is_eq=deq, window=dwin)
+    dvox = d_state.logodds.numel()
+    fuse_window = dict(
+        err=max_abs_err(kernels.fuse(*dfin, **dkw),
+                        fusion._fuse_drain_plain(*dfin, **dkw)),
+        ms=time_ms(lambda: kernels.fuse(*dfin, **dkw)),
+        plain_ms=time_ms(lambda: fusion._fuse_drain_plain(*dfin, **dkw)),
+        # 15 bytes per voxel; ~8 f32 operations and ~14 integer ones (the
+        # voxel's coordinates and six compares) per voxel
+        bound_ms=max(15 * dvox / HBM_BYTES_PER_S,
+                     8 * dvox / F32_OPS_PER_S + 14 * dvox / I32_OPS_PER_S)
+        * 1e3)
+    log(f"fuse (windowed, demo {dcfg.grid_shape}, window "
+        f"{[w.tolist() for w in dwin]}): {fuse_window['ms']:.4f} ms "
+        f"(plain {fuse_window['plain_ms']:.4f}, bound "
+        f"{fuse_window['bound_ms']:.4f} ms by bytes), bit-equal, on {card}")
 
     starts, hitc, missc, _, _ = raycast.scanline_batch_boxes(cfg, pts, vals,
                                                              tfs)
@@ -504,9 +771,19 @@ def run(dev, cfg, h, w, ticks):
             "library_ms": r["library_ms"]})
     print(json.dumps({"kernels": out, "ms_per_tick": k_ms,
                       "plain_ms_per_tick": p_ms, "ticks": ticks,
+                      "sorted_ms_per_tick": s_ms,
                       "derive_closest_ms": derive_ms,
                       "derive_closest_plain_ms": derive_plain_ms,
-                      "query_ms": query_ms}))
+                      "query_ms": query_ms,
+                      "engine_frame_ms": frame_ms,
+                      "engine_update_ms": update_ms,
+                      "engine_plain_frame_ms": p_frame_ms,
+                      "engine_plain_update_ms": p_update_ms,
+                      "engine_other": other,
+                      "demo_ms_per_tick": d_ms,
+                      "demo_plain_ms_per_tick": pd_ms,
+                      "demo_occupied": n_demo,
+                      "fuse_window_demo": fuse_window}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

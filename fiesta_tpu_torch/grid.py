@@ -162,6 +162,14 @@ def f32_scalar(v: float, like: torch.Tensor) -> torch.Tensor:
     return torch.full((), v, dtype=torch.float32, device=like.device)
 
 
+def sqrt_f32(x: torch.Tensor) -> torch.Tensor:
+    """Correctly rounded f32 square root, the IEEE ``sqrt`` the JAX
+    package computes: through f64, where rounding the exact f64 root to f32
+    is the correctly rounded f32 root.  PyTorch's vectorised f32 ``sqrt``
+    on the CPU is not correctly rounded (ROADMAP C)."""
+    return torch.sqrt(x.double()).float()
+
+
 def pos_to_vox(cfg: FiestaConfig, pos: torch.Tensor) -> torch.Tensor:
     """World position [..., 3] f32 -> integer voxel [..., 3] i32."""
     origin = torch.stack([torch.full((), o, dtype=pos.dtype,
@@ -210,6 +218,70 @@ def vox_to_idx(cfg: FiestaConfig, vox: torch.Tensor) -> torch.Tensor:
     _, gy, gz = cfg.grid_shape
     v = vox.to(torch.int32)
     return v[..., 0] * (gy * gz) + v[..., 1] * gz + v[..., 2]
+
+
+def vox_in_window(vox: torch.Tensor, min_vec: torch.Tensor,
+                  max_vec: torch.Tensor) -> torch.Tensor:
+    """Inclusive window check, reference VoxInRange (ESDFMap.cpp:63-72)."""
+    return torch.all((vox >= min_vec) & (vox <= max_vec), dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# Update-range windows (reference ESDFMap.cpp:792-824, component C17)
+# ---------------------------------------------------------------------------
+
+
+def full_window(cfg: FiestaConfig, device: Device = None):
+    """SetOriginalRange (ESDFMap.cpp:812-824): the whole grid, as
+    (min_vec [3] i32, max_vec [3] i32)."""
+    dev = resolve_device(device)
+    gx, gy, gz = cfg.grid_shape
+    return (torch.zeros(3, dtype=torch.int32, device=dev),
+            torch.tensor([gx - 1, gy - 1, gz - 1], dtype=torch.int32,
+                         device=dev))
+
+
+def local_window(cfg: FiestaConfig, center_pos: torch.Tensor):
+    """SetUpdateRange(cur - radius, cur + radius) (ESDFMap.cpp:792-810) on
+    the device of ``center_pos`` [3] f32: positions are clamped to the map
+    box, then min gets Pos2Vox(min) and max gets Pos2Vox(max - res/2)."""
+    radius = const_vec(cfg.radius, torch.float32, center_pos)
+    lo = const_vec(cfg.origin, torch.float32, center_pos)
+    hi = lo + const_vec(cfg.map_size, torch.float32, center_pos)
+    min_pos = torch.clamp(center_pos - radius, lo, hi)
+    max_pos = torch.clamp(center_pos + radius, lo, hi)
+    return (pos_to_vox(cfg, min_pos),
+            pos_to_vox(cfg, max_pos - 0.5 * cfg.resolution))
+
+
+def local_window_np(cfg: FiestaConfig, center_pos):
+    """Host (numpy) twin of ``local_window``, computed in f32 so the voxel
+    bounds are bit-identical to it (``fiesta_tpu/grid.py:219-237``)."""
+    center = np.asarray(center_pos, np.float32)
+    radius = np.asarray(cfg.radius, np.float32)
+    lo = np.asarray(cfg.origin, np.float32)
+    hi = lo + np.asarray(cfg.map_size, np.float32)
+    min_pos = np.clip(center - radius, lo, hi)
+    max_pos = np.clip(center + radius, lo, hi)
+    res = np.float32(cfg.resolution)
+    min_vec = np.floor((min_pos - lo) / res).astype(np.int32)
+    max_vec = np.floor(
+        (max_pos - np.float32(0.5) * res - lo) / res).astype(np.int32)
+    return min_vec, max_vec
+
+
+def window_mask(cfg: FiestaConfig, min_vec: torch.Tensor,
+                max_vec: torch.Tensor) -> torch.Tensor:
+    """Dense [X, Y, Z] bool mask of the voxels inside the inclusive
+    window."""
+    gx, gy, gz = cfg.grid_shape
+    dev = min_vec.device
+    xs, ys, zs = (torch.arange(g, dtype=torch.int32, device=dev)
+                  for g in (gx, gy, gz))
+    mx = (xs >= min_vec[0]) & (xs <= max_vec[0])
+    my = (ys >= min_vec[1]) & (ys <= max_vec[1])
+    mz = (zs >= min_vec[2]) & (zs <= max_vec[2])
+    return mx[:, None, None] & my[None, :, None] & mz[None, None, :]
 
 
 def occupied_grid(cfg: FiestaConfig, logodds: torch.Tensor) -> torch.Tensor:

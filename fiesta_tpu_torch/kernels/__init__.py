@@ -40,7 +40,7 @@ NVCC_FLAGS = (
 #: per-kernel wrapper calls that launched on the card
 LAUNCHES = {"splat": 0, "carve": 0, "edt_binary": 0, "edt_minplus": 0,
             "fuse": 0, "boxadd": 0, "closest_binary": 0,
-            "closest_window": 0, "closest_split": 0}
+            "closest_window": 0, "closest_split": 0, "sort": 0}
 
 #: compiler output (ptxas register/shared-memory report) per source
 BUILD_LOG: dict = {}
@@ -58,7 +58,7 @@ _SIGNATURES = {
     "edt_minplus": ("edt.cu", "fiesta_edt_minplus",
                     [_P, _P, _L, _I, _L, _I, _P]),
     "fuse": ("fuse.cu", "fiesta_fuse",
-             [_P] * 10 + [_L, _F, _F, _F, _F, _F, _I, _P]),
+             [_P] * 11 + [_I, _I, _I, _F, _F, _F, _F, _F, _I, _P]),
     "boxadd": ("boxadd.cu", "fiesta_boxadd", [_P] * 5 + [_I] * 7 + [_P]),
     "closest_binary": ("closest.cu", "fiesta_closest_binary",
                        [_P, _P, _L, _I, _L, _I, _I, _I, _I, _I, _P]),
@@ -66,6 +66,7 @@ _SIGNATURES = {
                        [_P, _P, _L, _I, _L, _I, _I, _I, _I, _P]),
     "closest_split": ("closest.cu", "fiesta_closest_split",
                       [_P, _P, _L, _I, _L, _I, _I, _I, _P]),
+    "sort": ("sort.cu", "fiesta_sort_pairs", [_P, _P, _L, _P, _P, _L, _P]),
 }
 SOURCES = tuple(sorted({s for s, _, _ in _SIGNATURES.values()}))
 
@@ -241,12 +242,14 @@ def edt_minplus(f: torch.Tensor, t: int, axis: int) -> torch.Tensor:
 def fuse(logodds: torch.Tensor, seen: torch.Tensor, hit_cnt: torch.Tensor,
          miss_cnt: torch.Tensor, l_hit: float, l_miss: float,
          clamp_min: float, clamp_max: float, occ_thresh: float,
-         occ_is_eq: bool):
-    """One-pass fusion drain, global update: returns (new log-odds f32,
-    new seen u8, occupancy u8, zeroed hit u8, zeroed miss u8, n_observed,
-    n_inserted, n_deleted) with the counts as 0-dim i32.  Every output is
-    a new tensor; the inputs are left as they are.  Replaces
-    ``fuse.fuse_counts_pallas``."""
+         occ_is_eq: bool, window=None):
+    """One-pass fusion drain over [X,Y,Z] grids: returns (new log-odds
+    f32, new seen u8, occupancy u8, zeroed hit u8, zeroed miss u8,
+    n_observed, n_inserted, n_deleted) with the counts as 0-dim i32.
+    ``window`` (wmin [3] i32, wmax [3] i32 on the grids' device): only
+    observations inside the inclusive window apply.  Every output is a new
+    tensor; the inputs are left as they are.  Replaces
+    ``fuse.fuse_counts_pallas`` (global and windowed)."""
     _check(logodds, torch.float32, "fuse logodds")
     for t, what in ((seen, "seen"), (hit_cnt, "hit_cnt"),
                     (miss_cnt, "miss_cnt")):
@@ -254,6 +257,8 @@ def fuse(logodds: torch.Tensor, seen: torch.Tensor, hit_cnt: torch.Tensor,
         if t.shape != logodds.shape:
             raise ValueError(f"fuse: {what} shape {tuple(t.shape)} != "
                              f"{tuple(logodds.shape)}")
+    if logodds.dim() != 3:
+        raise ValueError("fuse: expected [X,Y,Z] grids")
     _same_device("fuse", logodds, seen, hit_cnt, miss_cnt)
     # the kernel reads four voxels per 16-byte f32 / 4-byte u8 access
     if any(t.data_ptr() % 16 for t in (logodds, seen, hit_cnt, miss_cnt)):
@@ -262,12 +267,19 @@ def fuse(logodds: torch.Tensor, seen: torch.Tensor, hit_cnt: torch.Tensor,
     lo_o = torch.empty_like(logodds)
     seen_o, occ, hit_o, miss_o = (torch.empty_like(seen) for _ in range(4))
     counts = torch.zeros(3, dtype=torch.int32, device=dev)
+    bounds = None        # global update: every observation applies
+    if window is not None:
+        bounds = torch.cat([w.reshape(3) for w in window])
+        _check(bounds, torch.int32, "fuse window")
+        _same_device("fuse", logodds, bounds)
+    gx, gy, gz = logodds.shape
     f32 = lambda v: float(np.float32(v))  # noqa: E731
     _launch("fuse", dev, logodds.data_ptr(), seen.data_ptr(),
             hit_cnt.data_ptr(), miss_cnt.data_ptr(), lo_o.data_ptr(),
             seen_o.data_ptr(), occ.data_ptr(), hit_o.data_ptr(),
-            miss_o.data_ptr(), counts.data_ptr(), logodds.numel(),
-            f32(l_hit), f32(l_miss), f32(clamp_min), f32(clamp_max),
+            miss_o.data_ptr(), counts.data_ptr(),
+            None if bounds is None else bounds.data_ptr(), gx, gy,
+            gz, f32(l_hit), f32(l_miss), f32(clamp_min), f32(clamp_max),
             f32(occ_thresh), int(bool(occ_is_eq)))
     return (lo_o, seen_o, occ, hit_o, miss_o, counts[0], counts[1],
             counts[2])
@@ -363,3 +375,35 @@ def closest_split(p2: torch.Tensor, plan, axis: int) -> torch.Tensor:
     _launch("closest_split", p2.device, p2.data_ptr(), out.data_ptr(),
             outer, a, inner, min(plan["t"], a - 1), plan["s"], plan["cap"])
     return out
+
+
+#: the sort's pad key; real keys must lie below it
+SORT_SENTINEL = 0x7FFFFFFF
+
+
+def sort_padded_size(n: int) -> int:
+    """Padded length of the sort network: max(256, next power of two >=
+    n) (``sort.py:70``)."""
+    return max(256, 1 << max(n - 1, 0).bit_length())
+
+
+def sort_pairs(keys: torch.Tensor, vals: torch.Tensor):
+    """Bitonic sort of (keys i32 [N], vals f32 [N]) ascending by key, on a
+    padded scratch of ``sort_padded_size(N)`` pairs (pad key
+    ``SORT_SENTINEL``, pad value 0).  Returns (keys [N], vals [N]), views of
+    the scratch's first N pairs.  Replaces ``sort.sort_pairs``."""
+    _check(keys, torch.int32, "sort keys")
+    _check(vals, torch.float32, "sort vals")
+    if keys.dim() != 1 or keys.shape != vals.shape or keys.numel() == 0:
+        raise ValueError("sort: keys and vals must be matching non-empty "
+                         "1-D tensors")
+    _same_device("sort", keys, vals)
+    n = keys.numel()
+    n_pad = sort_padded_size(n)
+    if n_pad > 1 << 30:
+        raise ValueError(f"sort: {n} pairs exceed the kernel's 2^30")
+    k_out = torch.empty(n_pad, dtype=torch.int32, device=keys.device)
+    v_out = torch.empty(n_pad, dtype=torch.float32, device=keys.device)
+    _launch("sort", keys.device, keys.data_ptr(), vals.data_ptr(), n,
+            k_out.data_ptr(), v_out.data_ptr(), n_pad)
+    return k_out[:n], v_out[:n]

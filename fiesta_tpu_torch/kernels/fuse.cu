@@ -1,8 +1,9 @@
 // One-pass occupancy fusion drain.
 //
-// Replaces fiesta_tpu/ops/pallas/fuse.py fuse_counts_pallas (:72), global
-// update.  Per voxel: the vote (a hit iff 2*hit >= miss), one clamped
-// log-odds step where the voxel was observed (miss > 0), seen |= observed,
+// Replaces fiesta_tpu/ops/pallas/fuse.py fuse_counts_pallas (:72), global and
+// windowed.  Per voxel: the vote (a hit iff 2*hit >= miss), one clamped
+// log-odds step where the voxel was observed (miss > 0 and, in local-update
+// mode, inside the inclusive voxel window), seen |= observed,
 // the u8 occupancy after the step, and zeroed counters; per grid: the
 // observed, inserted and deleted counts.  The f32 step is one IEEE add
 // (built with -fmad=false) then the clamp, as the plain version computes it.
@@ -11,6 +12,9 @@
 // log-odds, seen, occupancy and two zeroed counters written): 192 MB at cow
 // scale.  Each thread takes four consecutive voxels (one 16-byte f32 load,
 // 4-byte u8 loads), so every access is a coalesced vector access.  The
+// window costs each voxel its (x, y, z) from the flat index and six integer
+// compares, against bounds read once per thread; the global drain is a
+// separate instantiation without them.  The
 // three counts are integer sums, exact in any order: per-block sums of
 // warp-shuffle partials, then one atomicAdd per block and count into a
 // zeroed i32[3].
@@ -20,7 +24,19 @@
 struct FuseParams {
   float l_hit, l_miss, cmin, cmax, thr;
   int occ_is_eq;
+  int gy, gz;            // grid extents, for a voxel's (x, y, z)
 };
+
+// Inclusive window [x0, y0, z0, x1, y1, z1] test of flat voxel index i.
+__device__ __forceinline__ bool fuse_in_window(long long i, const int* w,
+                                               const FuseParams& p) {
+  const long long yz = (long long)p.gy * p.gz;
+  const int x = (int)(i / yz);
+  const int y = (int)((i / p.gz) % p.gy);
+  const int z = (int)(i % p.gz);
+  return x >= w[0] && x <= w[3] && y >= w[1] && y <= w[4] && z >= w[2] &&
+         z <= w[5];
+}
 
 __device__ __forceinline__ bool fuse_occ(float lo, const FuseParams& p) {
   return p.occ_is_eq ? lo == p.thr : lo > p.thr;
@@ -29,11 +45,11 @@ __device__ __forceinline__ bool fuse_occ(float lo, const FuseParams& p) {
 // One voxel: returns the new log-odds and sets its output bytes and counts.
 __device__ __forceinline__ float fuse_voxel(float lo, unsigned seen,
                                             unsigned hit, unsigned miss,
-                                            const FuseParams& p,
+                                            bool in_win, const FuseParams& p,
                                             unsigned& seen_o, unsigned& occ_o,
                                             int& n_obs, int& n_ins,
                                             int& n_del) {
-  const bool obs = miss > 0;
+  const bool obs = miss > 0 && in_win;
   const bool is_hit = 2 * hit >= miss;
   float nw = __fadd_rn(lo, is_hit ? p.l_hit : p.l_miss);
   nw = fminf(fmaxf(nw, p.cmin), p.cmax);
@@ -47,6 +63,7 @@ __device__ __forceinline__ float fuse_voxel(float lo, unsigned seen,
   return nw;
 }
 
+template <bool Windowed>
 __global__ void fuse_kernel(const float* __restrict__ lo,
                             const uint8_t* __restrict__ seen,
                             const uint8_t* __restrict__ hit,
@@ -56,8 +73,15 @@ __global__ void fuse_kernel(const float* __restrict__ lo,
                             uint8_t* __restrict__ occ_o,
                             uint8_t* __restrict__ hit_o,
                             uint8_t* __restrict__ miss_o,
-                            int* __restrict__ counts, long long n,
+                            int* __restrict__ counts,
+                            const int* __restrict__ window, long long n,
                             FuseParams p) {
+  int w[6] = {0, 0, 0, 0, 0, 0};
+  if constexpr (Windowed)
+    for (int a = 0; a < 6; ++a) w[a] = window[a];
+  auto in_win = [&](long long i) {
+    return !Windowed || fuse_in_window(i, w, p);
+  };
   int n_obs = 0, n_ins = 0, n_del = 0;
   const long long stride = (long long)gridDim.x * blockDim.x;
   const long long first = (long long)blockIdx.x * blockDim.x + threadIdx.x;
@@ -69,10 +93,15 @@ __global__ void fuse_kernel(const float* __restrict__ lo,
     const uchar4 m4 = reinterpret_cast<const uchar4*>(miss)[g];
     unsigned so[4], oo[4];
     float4 r;
-    r.x = fuse_voxel(l4.x, s4.x, h4.x, m4.x, p, so[0], oo[0], n_obs, n_ins, n_del);
-    r.y = fuse_voxel(l4.y, s4.y, h4.y, m4.y, p, so[1], oo[1], n_obs, n_ins, n_del);
-    r.z = fuse_voxel(l4.z, s4.z, h4.z, m4.z, p, so[2], oo[2], n_obs, n_ins, n_del);
-    r.w = fuse_voxel(l4.w, s4.w, h4.w, m4.w, p, so[3], oo[3], n_obs, n_ins, n_del);
+    const long long i0 = 4 * g;
+    r.x = fuse_voxel(l4.x, s4.x, h4.x, m4.x, in_win(i0), p, so[0], oo[0],
+                     n_obs, n_ins, n_del);
+    r.y = fuse_voxel(l4.y, s4.y, h4.y, m4.y, in_win(i0 + 1), p, so[1], oo[1],
+                     n_obs, n_ins, n_del);
+    r.z = fuse_voxel(l4.z, s4.z, h4.z, m4.z, in_win(i0 + 2), p, so[2], oo[2],
+                     n_obs, n_ins, n_del);
+    r.w = fuse_voxel(l4.w, s4.w, h4.w, m4.w, in_win(i0 + 3), p, so[3], oo[3],
+                     n_obs, n_ins, n_del);
     reinterpret_cast<float4*>(lo_o)[g] = r;
     reinterpret_cast<uchar4*>(seen_o)[g] =
         make_uchar4(so[0], so[1], so[2], so[3]);
@@ -85,8 +114,8 @@ __global__ void fuse_kernel(const float* __restrict__ lo,
   if (blockIdx.x == 0 && threadIdx.x < n - groups * 4) {
     const long long i = groups * 4 + threadIdx.x;
     unsigned so, oo;
-    lo_o[i] = fuse_voxel(lo[i], seen[i], hit[i], miss[i], p, so, oo, n_obs,
-                         n_ins, n_del);
+    lo_o[i] = fuse_voxel(lo[i], seen[i], hit[i], miss[i], in_win(i), p, so,
+                         oo, n_obs, n_ins, n_del);
     seen_o[i] = so;
     occ_o[i] = oo;
     hit_o[i] = 0;
@@ -117,13 +146,23 @@ FIESTA_EXPORT int fiesta_fuse(const float* lo, const uint8_t* seen,
                               const uint8_t* hit, const uint8_t* miss,
                               float* lo_o, uint8_t* seen_o, uint8_t* occ_o,
                               uint8_t* hit_o, uint8_t* miss_o, int* counts,
-                              long long n, float l_hit, float l_miss,
-                              float cmin, float cmax, float thr,
-                              int occ_is_eq, cudaStream_t stream) {
+                              const int* window, int gx, int gy, int gz,
+                              float l_hit, float l_miss, float cmin,
+                              float cmax, float thr, int occ_is_eq,
+                              cudaStream_t stream) {
+  // window: device int[6] inclusive bounds, or null for the global drain
   const int threads = 256;
-  const FuseParams p{l_hit, l_miss, cmin, cmax, thr, occ_is_eq};
-  fuse_kernel<<<fiesta_blocks((n + 3) / 4, threads), threads, 0, stream>>>(
-      lo, seen, hit, miss, lo_o, seen_o, occ_o, hit_o, miss_o, counts, n, p);
+  const long long n = (long long)gx * gy * gz;
+  const FuseParams p{l_hit, l_miss, cmin, cmax, thr, occ_is_eq, gy, gz};
+  const unsigned blocks = fiesta_blocks((n + 3) / 4, threads);
+  if (window)
+    fuse_kernel<true><<<blocks, threads, 0, stream>>>(
+        lo, seen, hit, miss, lo_o, seen_o, occ_o, hit_o, miss_o, counts,
+        window, n, p);
+  else
+    fuse_kernel<false><<<blocks, threads, 0, stream>>>(
+        lo, seen, hit, miss, lo_o, seen_o, occ_o, hit_o, miss_o, counts,
+        window, n, p);
   FIESTA_LAUNCH_CHECK();
   return 0;
 }

@@ -29,7 +29,7 @@ import numpy as np
 import torch
 
 from .. import kernels
-from ..grid import INF_D2
+from ..grid import INF_D2, sqrt_f32
 
 # "far" value inside the passes (ops/pallas/edt.py:44)
 _INF_EDT = 1 << 20
@@ -362,7 +362,7 @@ def _reconstruct_closest(shape, plan, val, sign, bstar, astar,
     ia, ib, ic = (_axis_iota(shape, ax, dev) for ax in (a_ax, b_ax, c_ax))
     da, db = ia - astar, ib - bstar
     dc2 = val - da * da - db * db
-    dc = torch.round(torch.sqrt(torch.clamp(dc2, min=0).to(torch.float32))
+    dc = torch.round(sqrt_f32(torch.clamp(dc2, min=0).to(torch.float32))
                      ).to(torch.int32)
     cstar = torch.where(sign > 0, ic + dc, ic - dc)
     valid = val <= t * t

@@ -18,7 +18,8 @@ import torch
 
 from ..config import FiestaConfig
 from ..grid import (INF_D2, UNDEFINED_DIST, const_vec, f32_scalar,
-                    occupied_grid, pos_in_map, pos_to_vox, vox_to_pos)
+                    occupied_grid, pos_in_map, pos_to_vox, sqrt_f32,
+                    vox_to_pos)
 from .edt import trunc_vox_for, truncated_edt_d2
 
 
@@ -40,7 +41,7 @@ def distance_grid(cfg: FiestaConfig, d2: torch.Tensor,
     """Dense metric distances [X,Y,Z] f32; unobserved or unreached voxels
     read ``cfg.infinity_distance`` (ESDFMap.cpp:246-248, 477-479)."""
     known = (seen != 0) & (d2 < INF_D2)
-    dist = torch.sqrt(d2.to(torch.float32)) * cfg.resolution
+    dist = sqrt_f32(d2.to(torch.float32)) * cfg.resolution
     return torch.where(known, dist, cfg.infinity_distance)
 
 
@@ -146,7 +147,7 @@ def get_closest_obstacle(
     seen_v = _at(seen, vx, vy, vz)
     defined = in_map & (seen_v != 0) & (c[..., 0] >= 0) & (d2_v < INF_D2)
     pts = vox_to_pos(cfg, c)
-    dist = torch.sqrt(d2_v.to(torch.float32)) * cfg.resolution
+    dist = sqrt_f32(d2_v.to(torch.float32)) * cfg.resolution
     return (torch.where(defined[..., None], pts, float("nan")),
             torch.where(defined, dist, cfg.infinity_distance))
 
@@ -161,7 +162,7 @@ def signed_distance_grid(cfg: FiestaConfig, d2: torch.Tensor,
     outside = distance_grid(cfg, d2, seen)
     t_m = cfg.trunc_dist
     d2_in = truncated_edt_d2(~occupied, trunc_vox_for(cfg.resolution, t_m))
-    inside = torch.clamp(torch.sqrt(d2_in.to(torch.float32)) * cfg.resolution,
+    inside = torch.clamp(sqrt_f32(d2_in.to(torch.float32)) * cfg.resolution,
                          max=t_m)
     return torch.where(occupied, -inside, outside)
 

@@ -27,6 +27,7 @@ divisors (``grid.f32_scalar``) so that every division is IEEE.
 from __future__ import annotations
 
 import math
+import os
 from typing import NamedTuple, Tuple
 
 import numpy as np
@@ -34,7 +35,21 @@ import torch
 
 from .. import kernels
 from ..config import FiestaConfig
-from ..grid import f32_scalar
+from ..grid import (const_vec, f32_scalar, pos_to_vox, sqrt_f32,
+                    vox_in_grid, vox_in_window, vox_to_idx, window_mask)
+from . import sort
+
+
+#: endpoint splat order, with the JAX package's switches and values
+#: (``fiesta_tpu/ops/raycast.py:83-90``): "direct" splats the rays as
+#: produced, "sorted" sorts them by flat index first
+#: (``FIESTA_SPLAT_SORT_IMPL=pallas``: the bitonic ``ops.sort.sort_pairs``;
+#: any other value, as there: ``torch.sort``).  The seeds are the same
+#: either way: the splat's scatter-max commutes.
+_SPLAT_ORDER = os.environ.get("FIESTA_SPLAT", "direct")
+if _SPLAT_ORDER not in ("direct", "sorted"):
+    raise ValueError(f"FIESTA_SPLAT={_SPLAT_ORDER!r}: expected direct|sorted")
+_SPLAT_SORT_IMPL = os.environ.get("FIESTA_SPLAT_SORT_IMPL", "lax")
 
 
 class ScanResult(NamedTuple):
@@ -140,15 +155,17 @@ def _scanline_splat_prep(cfg: FiestaConfig, points, valid, origins=None,
     placement, endpoint or box-exit voxel and the packed value per ray.
 
     points [K,P,3] f32 world-frame, or sensor-frame when ``transforms``
-    [K,4,4] is given (origins are then the transforms' translations);
-    valid [K,P] bool.  Returns (starts [K,3] i32, po_box [K,3] f32,
+    [K,4,4] is given (origins are then the transforms' translations), or
+    the components (px, py, pz), each [K,P] (the depth tick); valid [K,P]
+    bool.  Returns (starts [K,3] i32, po_box [K,3] f32,
     lin_flat [K*P] i32 flat target index (K*BX*BY*BZ = dropped),
     val_flat [K*P] f32 packed value, rvalid [K,P] bool).
     """
     gx, gy, gz = cfg.grid_shape
     bx, by, bz = _carve_box_shape(cfg)
     nb = bx * by * bz
-    k = points.shape[0]
+    components = isinstance(points, (tuple, list))
+    k = points[0].shape[0] if components else points.shape[0]
     if k * nb >= 2**31:
         # the flat index k*nb + lin_w is int32; past 2^31 it wraps
         raise ValueError(
@@ -156,10 +173,12 @@ def _scanline_splat_prep(cfg: FiestaConfig, points, valid, origins=None,
             f"{nb} box voxels = {k * nb} >= 2^31; reduce scans_per_tick "
             "or the carve box (max_ray_length/resolution)")
     res = cfg.resolution
-    res_t = f32_scalar(res, points)
+    dev = points[0].device if components else points.device
+    res_t = torch.full((), res, dtype=torch.float32, device=dev)
     mx, my, mz = (float(np.float32(o)) for o in cfg.origin)
 
-    px, py, pz = (points[..., j] for j in range(3))          # [K,P]
+    px, py, pz = (points if components
+                  else (points[..., j] for j in range(3)))  # [K,P]
     if transforms is not None:
         r = transforms[:, :3, :3]
         px, py, pz = [
@@ -173,7 +192,7 @@ def _scanline_splat_prep(cfg: FiestaConfig, points, valid, origins=None,
     valid = valid & torch.isfinite(px) & torch.isfinite(py) \
         & torch.isfinite(pz)
     dx, dy, dz = px - ox, py - oy, pz - oz
-    length = torch.sqrt(dx * dx + dy * dy + dz * dz)
+    length = sqrt_f32(dx * dx + dy * dy + dz * dz)
     rvalid = valid & (length >= cfg.min_ray_length)
     is_hit = length <= cfg.max_ray_length
     scale = torch.where(
@@ -213,7 +232,7 @@ def _scanline_splat_prep(cfg: FiestaConfig, points, valid, origins=None,
         torch.minimum(torch.minimum(t_axis(ux, lwx, hwx, ox),
                                     t_axis(uy, lwy, hwy, oy)),
                       t_axis(uz, lwz, hwz, oz)), 0.0, 1.0)
-    ulen = torch.sqrt(ux * ux + uy * uy + uz * uz)
+    ulen = sqrt_f32(ux * ux + uy * uy + uz * uz)
     exit_dist = s_exit * ulen - 0.5 * res
     f = exit_dist / torch.clamp(ulen, min=1e-9)
     ebx = torch.clamp(torch.floor((ox + ux * f - mx) / res_t).to(torch.int32)
@@ -232,25 +251,49 @@ def _scanline_splat_prep(cfg: FiestaConfig, points, valid, origins=None,
         1000.0 + torch.where(inside, cfg.max_ray_length + cfg.resolution,
                              exit_dist + cfg.resolution))
     lin_w = sxx * (by * bz) + syy * bz + szz
-    scan = torch.arange(k, dtype=torch.int32, device=points.device) * nb
+    scan = torch.arange(k, dtype=torch.int32, device=dev) * nb
     biglin = lin_w + scan[:, None]
     lin_flat = torch.where(rvalid, biglin, k * nb).reshape(-1)
     return starts, po_box, lin_flat, packed_val.reshape(-1), rvalid
+
+
+def _sort_splat(lin_flat: torch.Tensor, val_flat: torch.Tensor):
+    """The sorted splat's reordering (``raycast.py:878-895``): the pairs in
+    ascending flat-index order, by the bitonic ``sort_pairs`` (the ``sort``
+    kernel on the card) under ``FIESTA_SPLAT_SORT_IMPL=pallas``, else by
+    ``torch.sort`` and a gather.  The drop slot K*BX*BY*BZ is the largest
+    key, so dropped rays sort last."""
+    if _SPLAT_SORT_IMPL == "pallas":
+        return sort.sort_pairs(lin_flat, val_flat)
+    lin_sorted, order = torch.sort(lin_flat)
+    return lin_sorted, val_flat[order]
 
 
 def _scanline_seeds_batch(cfg: FiestaConfig, points, valid, origins=None,
                           transforms=None):
     """Batched endpoint splat (``_scanline_seeds_batch``,
     ops/raycast.py:757-910): the per-ray prep, then ONE flat splat over
-    all K scans.  Returns (starts [K,3] i32, po_box [K,3] f32,
-    seeds [K,BX,BY,BZ] f32, hit_b u8, epfree_b u8, rvalid [K,P] bool)."""
+    all K scans, in ray order or (``FIESTA_SPLAT=sorted``) in flat-index
+    order; the scatter-max commutes, so both give the same seeds.  Returns
+    (starts [K,3] i32, po_box [K,3] f32, seeds [K,BX,BY,BZ] f32, hit_b u8,
+    epfree_b u8, rvalid [K,P] bool)."""
     starts, po_box, lin_flat, val_flat, rvalid = _scanline_splat_prep(
         cfg, points, valid, origins, transforms)
-    box = (points.shape[0],) + _carve_box_shape(cfg)
+    if _SPLAT_ORDER == "sorted":
+        lin_flat, val_flat = _sort_splat(lin_flat, val_flat)
+    box = (starts.shape[0],) + _carve_box_shape(cfg)
     seeds, hit_b, epfree_b = splat_packed(
         lin_flat, val_flat, math.prod(box), _epfree_threshold(cfg))
     return (starts, po_box, seeds.reshape(box), hit_b.reshape(box),
             epfree_b.reshape(box), rvalid)
+
+
+def _scanline_seeds(cfg: FiestaConfig, points, valid, origin):
+    """Single-scan endpoint splat (K = 1 wrapper, ``raycast.py:913-922``):
+    points [R,3] world frame, valid [R], origin [3].  Returns (starts [3],
+    po_box [3], seeds [BX,BY,BZ], hit_b, epfree_b, rvalid [R])."""
+    out = _scanline_seeds_batch(cfg, points[None], valid[None], origin[None])
+    return tuple(a[0] for a in out)
 
 
 # ---------------------------------------------------------------------------
@@ -393,6 +436,13 @@ def carve_free_mask_batch(cfg: FiestaConfig, seeds: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
+def carve_free_mask(cfg: FiestaConfig, seeds: torch.Tensor,
+                    po: torch.Tensor) -> torch.Tensor:
+    """One scan's carve (K = 1 wrapper, ``raycast.py:300-314``): seeds
+    [BX,BY,BZ] f32, po [3] f32 -> free mask [BX,BY,BZ]."""
+    return carve_free_mask_batch(cfg, seeds[None], po[None])[0]
+
+
 def _apply_box_counts_plain(hit_cnt, miss_cnt, starts, hitc, missc):
     """Plain version of the counter apply: one saturating u8 add per scan,
     in scan order (the JAX ``rmw`` mode), into the given grids in place.
@@ -428,24 +478,333 @@ def apply_box_counts(hit_cnt, miss_cnt, starts, hitc, missc):
     return _apply_box_counts_plain(hit_cnt, miss_cnt, starts, hitc, missc)
 
 
-def scanline_batch_boxes(cfg: FiestaConfig, points, valid, transforms):
-    """Box-local observation contributions of K sensor-frame scans (carve
-    included): (starts [K,3] i32, hitc [K,BX,BY,BZ] u8, missc u8,
-    n_rays i32, n_endpoints i32)."""
+def _box_window_mask(cfg: FiestaConfig, starts, window, box_shape):
+    """The window in carve-box coordinates (``raycast.py:925-938``):
+    starts [..., 3] i32 -> bool [..., BX, BY, BZ]."""
+    wmin, wmax = window
+    dev = starts.device
+
+    def axis_ok(n_, j):
+        c = torch.arange(n_, dtype=torch.int32, device=dev) + starts[..., j,
+                                                                      None]
+        return (c >= wmin[j]) & (c <= wmax[j])
+
+    bx, by, bz = box_shape
+    return (axis_ok(bx, 0)[..., :, None, None]
+            & axis_ok(by, 1)[..., None, :, None]
+            & axis_ok(bz, 2)[..., None, None, :])
+
+
+def scanline_batch_boxes(cfg: FiestaConfig, points, valid, transforms=None,
+                         origins=None, window=None):
+    """Box-local observation contributions of K scans (carve included,
+    ``raycast.py:1036-1073``): (starts [K,3] i32, hitc [K,BX,BY,BZ] u8,
+    missc u8, n_rays i32, n_endpoints i32).  Sensor-frame points with
+    ``transforms`` [K,4,4], or world-frame points with ``origins`` [K,3].
+    ``window`` (wmin [3] i32, wmax [3] i32, inclusive) gates which
+    counters change; the carve geometry ignores it."""
     starts, po_box, seeds, hit_b, epfree_b, rvalid = _scanline_seeds_batch(
-        cfg, points, valid, transforms=transforms)
+        cfg, points, valid, origins, transforms)
+    if window is not None:
+        wmask_b = _box_window_mask(cfg, starts, window, _carve_box_shape(cfg))
+        zero = torch.zeros((), dtype=torch.uint8, device=hit_b.device)
+        hit_b = torch.where(wmask_b, hit_b, zero)
+        epfree_b = torch.where(wmask_b, epfree_b, zero)
     free = carve_free_mask_batch(cfg, seeds, po_box)
+    if window is not None:
+        free = free & wmask_b
     missc = torch.maximum(hit_b, epfree_b) + free.to(torch.uint8)
     return (starts, hit_b, missc, rvalid.sum(dtype=torch.int32),
             hit_b.sum(dtype=torch.int32) + epfree_b.sum(dtype=torch.int32))
 
 
 def integrate_scan_scanline_batch(cfg: FiestaConfig, hit_cnt, miss_cnt,
-                                  points, valid, transforms) -> ScanResult:
+                                  points, valid, transforms,
+                                  window=None) -> ScanResult:
     """K sensor-frame scans integrated with one batched splat and carve
-    (global update; same observation semantics as K sequential scans)."""
+    (same observation semantics as K sequential scans); ``window`` as in
+    ``scanline_batch_boxes``."""
     starts, hitc, missc, n_rays, n_endpoints = scanline_batch_boxes(
-        cfg, points, valid, transforms)
+        cfg, points, valid, transforms, window=window)
     hit_cnt, miss_cnt = apply_box_counts(hit_cnt, miss_cnt, starts,
                                          hitc, missc)
     return ScanResult(hit_cnt, miss_cnt, n_rays, n_endpoints)
+
+
+def integrate_scan_scanline(cfg: FiestaConfig, hit_cnt, miss_cnt, points,
+                            valid, origin, window=None) -> ScanResult:
+    """One world-frame scan (points [R,3] f32, valid [R] bool, origin [3]
+    f32) integrated by octant shadow-casting (``raycast.py:1076-1129``):
+    the batched splat, carve and box add with K = 1 (the box add is the
+    JAX package's dynamic-slice saturating add at the same corner).  The
+    counters are added to in place and returned."""
+    starts, hitc, missc, n_rays, n_endpoints = scanline_batch_boxes(
+        cfg, points[None], valid[None], origins=origin[None], window=window)
+    hit_cnt, miss_cnt = apply_box_counts(hit_cnt, miss_cnt, starts,
+                                         hitc, missc)
+    return ScanResult(hit_cnt, miss_cnt, n_rays, n_endpoints)
+
+
+# ---------------------------------------------------------------------------
+# Single-scan helpers shared by the DDA and projective integrators
+# (ops/raycast.py:110-166)
+# ---------------------------------------------------------------------------
+
+
+def _sumsq3(d: torch.Tensor) -> torch.Tensor:
+    """Sum of squares over the last axis of [..., 3], as (x^2 + y^2) + z^2."""
+    x, y, z = d[..., 0], d[..., 1], d[..., 2]
+    return x * x + y * y + z * z
+
+
+def _norm3(d: torch.Tensor) -> torch.Tensor:
+    """Euclidean norm over the last axis of [..., 3] with a correctly
+    rounded sqrt (``jnp.linalg.norm``)."""
+    return sqrt_f32(_sumsq3(d))
+
+
+def _prep_rays(cfg: FiestaConfig, points, valid, origin):
+    """Length gating and max-ray clipping (``raycast.py:110-121``,
+    RaycastProcess, Fiesta.h:208-215): returns (clipped [R,3], valid [R],
+    is_hit [R])."""
+    valid = valid & torch.all(torch.isfinite(points), dim=-1)
+    delta = points - origin
+    length = _norm3(delta)
+    valid = valid & (length >= cfg.min_ray_length)
+    is_hit = length <= cfg.max_ray_length
+    scale = torch.where(
+        is_hit, 1.0,
+        f32_scalar(cfg.max_ray_length, length) / torch.clamp(length, min=1e-9))
+    clipped = origin + delta * scale[..., None]
+    return clipped, valid, is_hit
+
+
+def _mark(n: int, lin: torch.Tensor, device) -> torch.Tensor:
+    """u8 [n] mask with 1 at the indices ``lin`` (values >= n dropped into
+    a spare slot): the scatter-max of the constant 1 (``.at[].max(1,
+    mode="drop")``), as an index fill of 1 (a fill takes the value as a
+    kernel argument, where an index write would copy it to the device)."""
+    m = torch.zeros(n + 1, dtype=torch.uint8, device=device)
+    return m.index_fill_(0, torch.clamp(lin, max=n).long(), 1)[:n]
+
+
+def _endpoint_masks(cfg: FiestaConfig, clipped, valid, is_hit, win):
+    """Endpoint observations as dedup masks, hit winning ties
+    (``raycast.py:124-146``): returns (hit_m, epfree_m) u8 grids."""
+    gx, gy, gz = cfg.grid_shape
+    vox = pos_to_vox(cfg, clipped)
+    in_grid = vox_in_grid(cfg, vox)
+    if win is not None:
+        in_grid = in_grid & vox_in_window(vox, win[0], win[1])
+    lin = vox_to_idx(cfg, vox)
+    n = gx * gy * gz
+    drop = torch.full_like(lin, n)
+    hit_m = _mark(n, torch.where(valid & is_hit & in_grid, lin, drop),
+                  clipped.device)
+    epfree_m = _mark(n, torch.where(valid & ~is_hit & in_grid, lin, drop),
+                     clipped.device)
+    epfree_m = torch.where(hit_m > 0, torch.zeros_like(epfree_m), epfree_m)
+    return hit_m.reshape(cfg.grid_shape), epfree_m.reshape(cfg.grid_shape)
+
+
+def _sat_add_u8(cnt, inc):
+    """Saturating u8 add (``raycast.py:149-156``): counters pin at 255."""
+    inc = inc.to(cnt.dtype)
+    return torch.where(cnt > 255 - inc, torch.full_like(cnt, 255), cnt + inc)
+
+
+def _apply_counts(hit_cnt, miss_cnt, hit_m, epfree_m, pathfree_m):
+    """Full-grid counter apply (``raycast.py:159-166``)."""
+    dt = hit_cnt.dtype
+    hit_d, ep_d, path_d = (m.to(dt) for m in (hit_m, epfree_m, pathfree_m))
+    return (_sat_add_u8(hit_cnt, hit_d),
+            _sat_add_u8(miss_cnt, torch.maximum(hit_d, ep_d) + path_d))
+
+
+def _scan_counts(rvalid, hit_m, epfree_m):
+    """(num_rays, num_endpoints) of one scan, i32."""
+    return (rvalid.sum(dtype=torch.int32),
+            hit_m.sum(dtype=torch.int32) + epfree_m.sum(dtype=torch.int32))
+
+
+# ---------------------------------------------------------------------------
+# Exact batched DDA (Amanatides-Woo, ops/raycast.py:174-287)
+# ---------------------------------------------------------------------------
+
+
+def _intbound(s, ds):
+    """Smallest positive t with s + t*ds integral (raycast.cpp:14-23); the
+    fraction is a floor modulo, as Python's ``%``."""
+    s_ = torch.where(ds < 0, -s, s)
+    ds_ = torch.abs(ds)
+    frac = torch.remainder(s_, 1.0)
+    return torch.where(ds_ == 0, float("inf"), (1.0 - frac) / ds_)
+
+
+def integrate_scan_dda(cfg: FiestaConfig, hit_cnt, miss_cnt, points, valid,
+                       origin, window=None) -> ScanResult:
+    """Exact per-ray DDA integration (``raycast.py:182-287``): every ray
+    advances in lock-step for ``cfg.ray_steps`` steps (all of them: no
+    early exit, so nothing is read back to the host), marking each emitted
+    voxel free once a later voxel is emitted on its ray.  points [R,3]
+    world frame, valid [R], origin [3]; ``window`` (wmin, wmax) inclusive.
+    Returns new counter grids."""
+    res = cfg.resolution
+    gx, gy, gz = cfg.grid_shape
+    n = gx * gy * gz
+    dev = points.device
+    res_t = f32_scalar(res, points)
+    map_origin = const_vec(cfg.origin, torch.float32, points)
+
+    clipped, rvalid, is_hit = _prep_rays(cfg, points, valid, origin)
+    hit_m, epfree_m = _endpoint_masks(cfg, clipped, rvalid, is_hit, window)
+
+    start = origin / res_t                                   # [3]
+    end = clipped / res_t                                    # [R,3]
+    v0 = torch.floor(start).to(torch.int32)
+    ev = torch.floor(end).to(torch.int32)
+    d = (ev - v0[None]).to(torch.float32)
+    step = torch.sign(d).to(torch.int32)
+    t_max0 = _intbound(start[None], d)
+    t_delta = torch.where(d == 0, float("inf"), step.to(torch.float32) / d)
+    max_dist2 = _sumsq3(end - start[None])
+
+    aabb_min = map_origin / res_t
+    aabb_max = (map_origin + const_vec(cfg.map_size, torch.float32, points)
+                ) / res_t
+    alive = rvalid & ~torch.all(step == 0, dim=-1)
+    min2 = cfg.min_ray_length ** 2
+    max2 = cfg.max_ray_length ** 2
+
+    v = v0[None].expand_as(ev).clone()
+    tm = t_max0
+    prev_lin = torch.full(ev.shape[:-1], n, dtype=torch.int32, device=dev)
+    drop = torch.full_like(prev_lin, n)
+    free_flat = torch.zeros(n + 1, dtype=torch.uint8, device=dev)
+    for _ in range(cfg.ray_steps):
+        vf = v.to(torch.float32)
+        in_aabb = torch.all((vf >= aabb_min) & (vf < aabb_max), dim=-1)
+        over = in_aabb & (_sumsq3(vf - start[None]) > max_dist2)
+        at_end = torch.all(v == ev, dim=-1)
+        center = (vf + 0.5) * res
+        clen2 = _sumsq3(center - origin[None])
+        gate = (clen2 >= min2) & (clen2 <= max2)
+        mv = pos_to_vox(cfg, center)
+        in_grid = vox_in_grid(cfg, mv)
+        if window is not None:
+            in_grid = in_grid & vox_in_window(mv, window[0], window[1])
+        # the reference frees every emitted voxel but the last: a voxel is
+        # marked once a later voxel is emitted on its ray
+        emitted = alive & in_aabb
+        free_flat.index_fill_(0, torch.where(emitted, prev_lin, drop).long(),
+                              1)
+        lin = vox_to_idx(cfg, mv)
+        prev_lin = torch.where(
+            emitted, torch.where(gate & in_grid, lin, drop), prev_lin)
+        alive = alive & ~at_end & ~over
+        tmx, tmy, tmz = tm[..., 0], tm[..., 1], tm[..., 2]
+        take_x = (tmx < tmy) & (tmx < tmz)
+        take_y = (tmx >= tmy) & (tmy < tmz)
+        take_z = ~take_x & ~take_y
+        adv = torch.stack([take_x, take_y, take_z], dim=-1) & alive[..., None]
+        v = v + torch.where(adv, step, 0)
+        tm = tm + torch.where(adv, t_delta, 0.0)
+    pathfree_m = free_flat[:n].reshape(cfg.grid_shape)
+
+    hit_cnt, miss_cnt = _apply_counts(hit_cnt, miss_cnt, hit_m, epfree_m,
+                                      pathfree_m)
+    return ScanResult(hit_cnt, miss_cnt, *_scan_counts(rvalid, hit_m,
+                                                       epfree_m))
+
+
+# ---------------------------------------------------------------------------
+# Projective (depth-panorama) carving (ops/raycast.py:1132-1253)
+# ---------------------------------------------------------------------------
+
+
+def _spherical_coords(delta, az_bins: int, el_bins: int):
+    """Direction vectors [..., 3] -> (range, az index, el index)."""
+    r = _norm3(delta)
+    az = torch.atan2(delta[..., 1], delta[..., 0])
+    el = torch.asin(torch.clamp(
+        delta[..., 2] / torch.clamp(r, min=1e-9), -1.0, 1.0))
+    two_pi = f32_scalar(2 * math.pi, delta)
+    pi = f32_scalar(math.pi, delta)
+    ai = torch.clamp(torch.floor((az / two_pi + 0.5) * az_bins
+                                 ).to(torch.int32), 0, az_bins - 1)
+    ei = torch.clamp(torch.floor((el / pi + 0.5) * el_bins
+                                 ).to(torch.int32), 0, el_bins - 1)
+    return r, ai, ei
+
+
+def integrate_scan_projective(cfg: FiestaConfig, hit_cnt, miss_cnt, points,
+                              valid, origin, window=None, az_bins: int = 1024,
+                              el_bins: int = 512, levels: int = 7
+                              ) -> ScanResult:
+    """Depth-panorama free-space carving with a max-depth mip pyramid
+    (``raycast.py:1148-1253``): the scan's ranges are scatter-maxed into an
+    az x el panorama, and every voxel reads the max depth of its angular
+    footprint from the pyramid level whose bin matches it; a voxel is free
+    when it lies within the ray gates and a voxel closer than that depth.
+    points [R,3] world frame, valid [R], origin [3]."""
+    dev = points.device
+    clipped, rvalid, is_hit = _prep_rays(cfg, points, valid, origin)
+    hit_m, epfree_m = _endpoint_masks(cfg, clipped, rvalid, is_hit, window)
+
+    # 1) scatter-max the scan into the panorama (farthest evidence per
+    #    direction; unclipped ranges, so long rays carve to max range)
+    delta = points - origin
+    r, ai, ei = _spherical_coords(delta, az_bins, el_bins)
+    n_pix = az_bins * el_bins
+    pix = torch.where(rvalid, ai * el_bins + ei,
+                      torch.full_like(ai, n_pix)).long()
+    pano = torch.full((n_pix + 1,), -float("inf"), dtype=torch.float32,
+                      device=dev)
+    pano.scatter_reduce_(
+        0, pix, torch.minimum(r, f32_scalar(
+            cfg.max_ray_length + cfg.resolution, r)), reduce="amax")
+    pano = pano[:n_pix].reshape(az_bins, el_bins)
+
+    # 2) the max-mip pyramid, flattened with per-level offsets
+    levels = min(levels, int(math.log2(az_bins & -az_bins)),
+                 int(math.log2(el_bins & -el_bins)))
+    pyramid = [pano]
+    for _ in range(levels - 1):
+        p = pyramid[-1]
+        a, e = p.shape
+        pyramid.append(p.reshape(a // 2, 2, e // 2, 2).amax(dim=(1, 3)))
+    flat = torch.cat([p.reshape(-1) for p in pyramid])
+    offsets = np.concatenate(
+        [[0], np.cumsum([p.numel() for p in pyramid])[:-1]]).astype(np.int64)
+
+    # 3) every voxel gathers its footprint's max depth from its mip level
+    gx, gy, gz = cfg.grid_shape
+    res = cfg.resolution
+    axes = []
+    for g, o, c in zip((gx, gy, gz), cfg.origin, origin.unbind(0)):
+        centers = ((torch.arange(g, dtype=torch.float32, device=dev) + 0.5)
+                   * res + f32_scalar(o, origin))
+        axes.append(centers - c)
+    dvox = torch.stack(torch.broadcast_tensors(
+        axes[0][:, None, None], axes[1][None, :, None],
+        axes[2][None, None, :]), dim=-1)
+    rv, vai, vei = _spherical_coords(dvox, az_bins, el_bins)
+
+    base_ang = f32_scalar(2 * math.pi / az_bins, rv)
+    foot = f32_scalar(res, rv) / torch.clamp(rv, min=res)
+    lvl = torch.clamp(torch.ceil(torch.log2(torch.clamp(
+        foot / base_ang, min=1.0))).to(torch.int32), 0, levels - 1)
+    el_l = el_bins >> lvl          # the level's el extent
+    idx = (const_vec(offsets.tolist(), torch.int64, rv)[lvl.long()]
+           + ((vai >> lvl) * el_l + (vei >> lvl)).long())
+    depth = flat[idx.reshape(-1)].reshape(cfg.grid_shape)
+
+    free = ((rv >= cfg.min_ray_length) & (rv <= cfg.max_ray_length)
+            & (rv < depth - res))     # -inf depth: unobserved, never free
+    if window is not None:
+        free = free & window_mask(cfg, window[0], window[1])
+
+    hit_cnt, miss_cnt = _apply_counts(hit_cnt, miss_cnt, hit_m, epfree_m,
+                                      free.to(torch.uint8))
+    return ScanResult(hit_cnt, miss_cnt, *_scan_counts(rvalid, hit_m,
+                                                       epfree_m))

@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Where the port's cow_and_lady tick spends its time, on one CUDA card.
+"""Where the port's time goes, on one CUDA card: the cow_and_lady tick,
+the app engine's frames and the demo preset's windowed depth tick.
 
     python3 profile_torch.py [--ticks N]
 
@@ -22,6 +23,14 @@ object:
 * ``derive_closest``: the lazy closest derivation on the final map, three
   calls under the profiler after a warm one: device busy and hand-kernel
   time per call, wall time per call, and the top kernels;
+* ``demo``: the same for the demo preset's ``fused_depth_stream`` with
+  the local window (``chip_smoke.demo_config``, depth ticks staged as
+  there), per tick;
+* ``engine``: ``FiestaPipeline(cfg, "scanline")`` streaming the replay's
+  frames with ``update()`` every third (after three warm frames): ms per
+  frame from the host clock around the whole run, ended by one
+  synchronise (``process()`` never waits), then the device time of the
+  same frames run again under the profiler, per frame;
 * the card's name and power limit beside the numbers.
 
 Kernel names are cut at their argument list.
@@ -83,6 +92,92 @@ def summary(by_name, hand):
     return sum(by_name.values()), hand_ms, dict(top)
 
 
+def stream_breakdown(run, units, hand):
+    """Three unprofiled runs of ``units`` ticks (``run()`` returns the
+    CUDA-event ms of its ticks, its input state made outside them), then
+    one run under the profiler: per-tick ms, device busy, idle share,
+    hand-kernel ms and the top kernels."""
+    windows = []
+    for _ in range(3):
+        windows.append(run() / units)
+    by_name, wall_ms = profiled(run, 1)
+    busy, hand_ms, top = summary({k: v / units for k, v in by_name.items()},
+                                 hand)
+    ms = statistics.median(windows)
+    return {"ms_per_tick": ms, "ms_per_tick_windows": windows,
+            "device_busy_ms_per_tick": busy or None,
+            "device_idle_share": 1 - busy / ms if busy else None,
+            "hand_kernels_ms_per_tick": hand_ms,
+            "wall_ms_per_tick_under_profiler": wall_ms / units,
+            "top_kernels_ms_per_tick": top}
+
+
+def timed_events(fn):
+    """ms of ``fn()`` between two CUDA events."""
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b)
+
+
+def demo_breakdown(ticks, dev, hand):
+    dcfg = chip_smoke.demo_config()
+    d, t, p = chip_smoke.demo_batches(dcfg, chip_smoke.DH, chip_smoke.DW,
+                                      ticks + 1, dev)
+    warm_state, _ = ft.fused_depth_stream(dcfg, ft.make_state(dcfg, dev),
+                                          d[:1], t[:1], p[:1],
+                                          use_window=True)
+
+    def run():
+        state = ft.copy_state(warm_state)
+        return timed_events(lambda: ft.fused_depth_stream(
+            dcfg, state, d[1:], t[1:], p[1:], use_window=True))
+
+    return stream_breakdown(run, ticks, hand)
+
+
+def engine_breakdown(cfg, frames, dev, hand):
+    """Three warm frames, then the rest streamed twice (host clock, then
+    the profiler), each into its own engine warmed the same way."""
+    warm, rest = frames[:3], frames[3:]
+
+    def engine():
+        pipe = ft.FiestaPipeline(cfg, method="scanline", device=dev)
+        feed(pipe, warm)
+        pipe.sync_device()
+        return pipe
+
+    def feed(pipe, chunk):
+        n = 0
+        for i, (t, (pos, quat), scan) in enumerate(chunk):
+            pipe.observe_pose(t, pos, quat)
+            pipe.observe_cloud(t, scan)
+            n += pipe.process()
+            if i % 3 == 2:
+                pipe.update()
+        return n
+
+    pipe = engine()
+    t0 = time.perf_counter()
+    n = feed(pipe, rest)
+    pipe.sync_device()
+    ms = (time.perf_counter() - t0) * 1e3 / n
+    pipe = engine()
+    by_name, wall_ms = profiled(lambda: feed(pipe, rest), 1)
+    busy, hand_ms, top = summary({k: v / n for k, v in by_name.items()},
+                                 hand)
+    return {"frames": n, "ms_per_frame": ms,
+            "device_busy_ms_per_frame": busy or None,
+            "device_idle_share": 1 - busy / ms if busy else None,
+            "hand_kernels_ms_per_frame": hand_ms,
+            "wall_ms_per_frame_under_profiler": wall_ms / n,
+            "top_kernels_ms_per_frame": top}
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--ticks", type=int, default=6)
@@ -128,6 +223,8 @@ def main():
     closest, closest_wall = profiled(
         lambda: ft.derive_closest(cfg, logodds), 3)
     c_busy, c_hand, c_top = summary(closest, hand)
+    demo = demo_breakdown(ticks, dev, hand)
+    engine = engine_breakdown(cfg, frames, dev, hand)
     print(json.dumps({
         "card": card, "ticks": ticks,
         "ms_per_tick": ms_per_tick,
@@ -146,7 +243,9 @@ def main():
             "device_busy_ms": c_busy, "hand_kernels_ms": c_hand,
             "wall_ms_under_profiler": closest_wall,
             "top_kernels_ms": c_top,
-        }}, indent=1))
+        },
+        "demo": demo,
+        "engine": engine}, indent=1))
 
 
 if __name__ == "__main__":

@@ -9,8 +9,10 @@ there with:
 Every kernel must equal its plain version bit for bit, at small shapes
 chosen for their edges: odd sizes, ragged tiles, t >= axis length,
 duplicate and dropped splat indices, square and non-square carve boxes,
-saturating and overlapping boxes on an unaligned grid, and both closest
-layouts (x-lead, and the widest-C fallback).
+saturating and overlapping boxes on an unaligned grid, both closest
+layouts (x-lead, and the widest-C fallback), sort lengths below, at and
+above one shared-memory tile with duplicate and sentinel keys, and
+windows of the drain that cut, cover or miss the grid.
 """
 
 import dataclasses
@@ -24,7 +26,7 @@ import fiesta_tpu_torch as ft  # noqa: E402
 from fiesta_tpu_torch import kernels  # noqa: E402
 from fiesta_tpu_torch import pipeline  # noqa: E402
 from fiesta_tpu_torch.io import replay  # noqa: E402
-from fiesta_tpu_torch.ops import edt, fusion, raycast  # noqa: E402
+from fiesta_tpu_torch.ops import edt, fusion, raycast, sort  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -206,7 +208,7 @@ def test_stream_kernels_equal_plain(dev, monkeypatch):
     assert kernels.LAUNCHES == {
         "splat": 4, "carve": 4, "edt_binary": 4, "edt_minplus": 8,
         "fuse": 4, "boxadd": 4, "closest_binary": 0, "closest_window": 0,
-        "closest_split": 0}
+        "closest_split": 0, "sort": 0}
     monkeypatch.setattr(raycast, "splat_packed", raycast._splat_packed_plain)
     monkeypatch.setattr(raycast, "carve_free_mask_batch",
                         raycast._carve_free_plain)
@@ -222,3 +224,123 @@ def test_stream_kernels_equal_plain(dev, monkeypatch):
     for a, b in zip(k_stats, p_stats):
         _eq(a, b)
     assert kernels.LAUNCHES["splat"] == 4          # the plain run: none
+
+
+@pytest.mark.parametrize("n", [1, 255, 256, 1000, 4096, (1 << 18) + 3])
+def test_sort_kernel(dev, n):
+    g = torch.Generator().manual_seed(n)
+    keys = torch.randint(0, 1 << 25, (n,), generator=g, dtype=torch.int32)
+    keys[torch.randint(0, n, (max(n // 5, 1),), generator=g)] = 777
+    keys[: n // 9] = 1 << 25                       # drop sentinels
+    vals = torch.rand(n, generator=g)
+    keys, vals = keys.to(dev), vals.to(dev)
+    kernels.reset_launch_counts()
+    got = sort.sort_pairs(keys, vals)
+    assert kernels.LAUNCHES["sort"] == 1
+    ref = sort._sort_pairs_plain(keys, vals)
+    _eq(got[0], ref[0])
+    _eq(got[1].view(torch.int32), ref[1].view(torch.int32))
+    assert bool((got[0][1:] >= got[0][:-1]).all())
+
+
+@pytest.mark.parametrize("window", [((3, 5, 2), (20, 30, 11)),
+                                    ((0, 0, 0), (99, 99, 99)),
+                                    ((9, 9, 9), (8, 30, 12))],
+                         ids=["inner", "whole", "empty"])
+@pytest.mark.parametrize("shape", [(48, 40, 24), (23, 37, 13)])
+def test_fuse_kernel_window(dev, shape, window):
+    rng = np.random.default_rng(sum(shape))
+    lo = rng.uniform(-2.0, 3.5, shape).astype(np.float32)
+    seen = (rng.random(shape) < 0.5).astype(np.uint8)
+    hit = rng.integers(0, 256, shape).astype(np.uint8)
+    miss = np.where(rng.random(shape) < 0.3, 0,
+                    rng.integers(0, 256, shape)).astype(np.uint8)
+    args = [torch.from_numpy(a).to(dev) for a in (lo, seen, hit, miss)]
+    win = tuple(torch.tensor(w, dtype=torch.int32, device=dev)
+                for w in window)
+    kw = dict(l_hit=0.85, l_miss=-0.4, clamp_min=-2.0, clamp_max=3.5,
+              occ_thresh=0.4, occ_is_eq=False, window=win)
+    kernels.reset_launch_counts()
+    got = fusion.fuse_drain(*args, **kw)
+    assert kernels.LAUNCHES["fuse"] == 1
+    ref = fusion._fuse_drain_plain(*args, **kw)
+    for a, b in zip(got, ref):
+        _eq(a, b)
+
+
+def test_sorted_stream_launches_sort(dev, monkeypatch):
+    """The stream in sorted-splat mode with the bitonic sort: the sort
+    kernel launches once a tick and the state equals the direct splat's."""
+    cfg = replay.scale_intrinsics(ft.FiestaConfig(
+        resolution=0.1, origin=(-2.4, -2.4, -1.0), map_size=(4.8, 4.8, 3.2),
+        min_ray_length=0.3, max_ray_length=1.5, trunc_dist=1.2,
+        edt_fine_dist=1.2, max_points_per_scan=24 * 32), 24, 32)
+    _, frames = replay.make_sequence(cfg, n_frames=9, n_boxes=5, seed=1,
+                                     height=24, width=32, orbit_radius=0.8)
+    batches = replay.stage_update_batches(cfg, frames, device=dev)
+    direct, d_stats = pipeline.fused_stream(cfg, ft.make_state(cfg, dev),
+                                            *batches)
+    monkeypatch.setattr(raycast, "_SPLAT_ORDER", "sorted")
+    monkeypatch.setattr(raycast, "_SPLAT_SORT_IMPL", "pallas")
+    kernels.reset_launch_counts()
+    srt, s_stats = pipeline.fused_stream(cfg, ft.make_state(cfg, dev),
+                                         *batches)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["sort"] == 3
+    for f in dataclasses.fields(direct):
+        _eq(getattr(srt, f.name), getattr(direct, f.name))
+    for a, b in zip(s_stats, d_stats):
+        _eq(a, b)
+
+
+@pytest.mark.parametrize("kind", ["cloud", "depth"])
+@pytest.mark.parametrize("method", ["scanline", "dda", "projective"])
+def test_engine_kernels_equal_plain(dev, monkeypatch, method, kind):
+    """``FiestaPipeline`` on the card, kernels against plain versions, in
+    local-window mode (the windowed drain); with the kernels, ``process()``
+    and ``update()`` never wait for the device."""
+    cfg = dataclasses.replace(replay.scale_intrinsics(ft.FiestaConfig(
+        resolution=0.1, origin=(-2.4, -2.4, -0.5), map_size=(4.8, 4.8, 2.0),
+        min_ray_length=0.3, max_ray_length=2.0, trunc_dist=1.2,
+        edt_fine_dist=1.2, max_points_per_scan=24 * 32, global_update=False,
+        radius=(1.8, 1.8, 0.5)), 24, 32))
+    _, frames = replay.make_sequence(cfg, n_frames=6, n_boxes=5, seed=3,
+                                     height=24, width=32, orbit_radius=0.6,
+                                     kind=kind)
+
+    def run(sync_mode):
+        pipe, n = ft.FiestaPipeline(cfg, method=method, device=dev), 0
+        torch.cuda.set_sync_debug_mode(sync_mode)
+        try:
+            for i, (t, (pos, quat), scan) in enumerate(frames):
+                pipe.observe_pose(t, pos, quat)
+                (pipe.observe_cloud if kind == "cloud"
+                 else pipe.observe_depth)(t, scan)
+                n += pipe.process()
+                if i % 3 == 2:
+                    pipe.update()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        pipe.sync_device()
+        return pipe, n
+
+    kernels.reset_launch_counts()
+    k_pipe, n = run("error")
+    # the last frame waits for a newer pose; depth mode drops the first
+    assert n == (5 if kind == "cloud" else 4)
+    assert kernels.LAUNCHES["fuse"] == 2 and kernels.LAUNCHES["edt_binary"] \
+        == 2
+    if method == "scanline":
+        assert kernels.LAUNCHES["splat"] == kernels.LAUNCHES["carve"] == n
+    monkeypatch.setattr(raycast, "splat_packed", raycast._splat_packed_plain)
+    monkeypatch.setattr(raycast, "carve_free_mask_batch",
+                        raycast._carve_free_plain)
+    monkeypatch.setattr(raycast, "apply_box_counts",
+                        raycast._apply_box_counts_plain)
+    monkeypatch.setattr(fusion, "fuse_drain", fusion._fuse_drain_plain)
+    monkeypatch.setattr(edt, "binary_pass", edt._binary_pass_plain)
+    monkeypatch.setattr(edt, "minplus_pass", edt._minplus_pass_plain)
+    p_pipe, _ = run("default")
+    for f in dataclasses.fields(k_pipe.state):
+        _eq(getattr(k_pipe.state, f.name), getattr(p_pipe.state, f.name))
+    assert int(k_pipe.occupied().sum()) > 50

@@ -217,8 +217,9 @@ def test_tick_gives_up_its_input_state():
 
 
 def test_tick_raises_for_paths_not_ported():
-    """Window mode, the hierarchical EDT (with and without closest) and
-    the incremental engine are not ported: each raises."""
+    """The drain's shard offset (multi-GPU), the hierarchical EDT (with and
+    without closest) and the incremental engine are not ported: each
+    raises."""
     cfg = ft.config_from_fields(dataclasses.asdict(GRIDS["aligned"]))
     occ = torch.zeros(cfg.grid_shape, dtype=torch.bool)
     hier = dataclasses.replace(cfg, edt_fine_dist=0.5)
@@ -236,7 +237,8 @@ def test_tick_raises_for_paths_not_ported():
             l_hit=0.8, l_miss=-0.4, clamp_min=-2.0, clamp_max=3.5,
             occ_thresh=0.8, occ_is_eq=False,
             window=(torch.zeros(3, dtype=torch.int32),
-                    torch.full((3,), 7, dtype=torch.int32)))
+                    torch.full((3,), 7, dtype=torch.int32)),
+            x_offset=torch.zeros((), dtype=torch.int32))
     with pytest.raises(NotImplementedError):
         tpipe.esdf_update(dataclasses.replace(cfg, esdf_mode="incremental"),
                           state)
