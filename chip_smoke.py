@@ -52,7 +52,13 @@ exits non-zero:
    the EDT and closest passes on the stream's final occupancy, the
    windowed drain at the demo's shapes): exact equality, and median
    times (CUDA events) beside the plain version's, a library call's where
-   one computes the same function, and the card's bound;
+   one computes the same function, and the card's bound.  A kernel's
+   ``ms`` is host-paced (calls back to back, as the main path makes
+   them); beside it, queued behind a device sleep, the card's time
+   alone.  The sort and the splat also print their CUDA launches per call
+   and device time by kernel name (``torch.profiler``), beside their times
+   before their redesign (``EARLIER_MS``); the splat's zero fill has a row
+   of its own;
 8. a JSON line of per-kernel numbers, the nvidia-smi line, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -96,6 +102,12 @@ HBM_BYTES_PER_S = 3.35e12
 # build with -fmad=false, so each f32 operation is one instruction
 F32_OPS_PER_S = 67e12 / 2
 I32_OPS_PER_S = 132 * 64 * 1.98e9      # 64 INT32 lanes/SM x 132 SMs x boost
+SLEEP_CYCLES = 40_000_000   # ~20 ms at the H100's 1.98 GHz boost clock
+MARK_CYCLES = 100_000       # ~50 us: the profiler's first kernel
+# host-paced ms per call of the splat (three launches) and the sort (28
+# launches at 2^18 pairs) before their redesign, at the same shapes on an
+# H100 80GB HBM3 at 700 W (PERF.md, kernel table)
+EARLIER_MS = {"splat": 0.0714, "sort": 0.1716}
 # int32 operations per voxel of an exact O(A) min-plus pass: a lower
 # envelope of parabolas (Felzenszwalb-Huttenlocher) builds with amortised
 # two intersection tests of ~8 operations per element, then one evaluation
@@ -188,6 +200,57 @@ def time_ms(fn, calls=5, windows=5):
     return statistics.median(per_call)
 
 
+def kernel_times(fn, calls=5, windows=5):
+    """Times per call of ``fn``: ``ms`` host-paced (``time_ms``: the host
+    enqueues while the card runs, so a call whose host cost exceeds its
+    device time reads as its host time), and ``device_ms``, the card's time
+    alone: the median over windows that wait on the card behind a 20 ms
+    device sleep, so that every call is enqueued before the first starts."""
+    ms = time_ms(fn, calls, windows)
+    device = []
+    for _ in range(windows):
+        torch.cuda._sleep(SLEEP_CYCLES)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(calls):
+            fn()
+        b.record()
+        b.synchronize()
+        device.append(a.elapsed_time(b) / calls)
+    return dict(ms=ms, device_ms=statistics.median(device))
+
+
+def profiled(fn, calls):
+    """Run ``fn`` ``calls`` times under ``torch.profiler``: returns (device
+    ms per call by kernel name, launches per call by kernel name, names cut
+    at their argument list, and wall ms per call).  The trace drops the
+    first kernel launched in it, so a short device sleep goes first and is
+    left out."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        torch.cuda._sleep(MARK_CYCLES)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    by_name, count = {}, {}
+    for e in prof.key_averages():
+        dt = getattr(e, "device_time_total", None)
+        if dt is None:
+            dt = getattr(e, "cuda_time_total", 0.0)
+        if dt and e.device_type == torch.autograd.DeviceType.CUDA and \
+                "spin_kernel" not in e.key:
+            name = e.key.split("(")[0]
+            by_name[name] = by_name.get(name, 0.0) + dt / 1e3 / calls
+            count[name] = count.get(name, 0) + e.count / calls
+    return by_name, count, wall_ms / calls
+
+
 def max_abs_err(got, ref):
     """Largest |got - ref| over matching outputs; raises unless equal."""
     err = 0.0
@@ -258,7 +321,7 @@ def closest_rows(cfg, occupied):
     rows = [dict(
         name="closest_binary", source="fiesta_tpu_torch/kernels/closest.cu",
         replaces="fiesta_tpu/ops/pallas/edt.py:614", err=err,
-        ms=time_ms(lambda: kernels.closest_binary(occ, plan, a)),
+        **kernel_times(lambda: kernels.closest_binary(occ, plan, a)),
         plain_ms=time_ms(lambda: edt._binary_packed_plain(occ, plan, a)),
         library_ms=None, bound=bound(5 * nvox, 4 * nvox, I32_OPS_PER_S))]
     p2 = kernels.closest_window(p1, plan, b)
@@ -274,7 +337,7 @@ def closest_rows(cfg, occupied):
             name=name, source="fiesta_tpu_torch/kernels/closest.cu",
             replaces=f"fiesta_tpu/ops/pallas/edt.py:{line}",
             err=max_abs_err([kern(x, plan, axis)], [plain(x, plan, axis)]),
-            ms=time_ms(lambda: kern(x, plan, axis)),
+            **kernel_times(lambda: kern(x, plan, axis)),
             plain_ms=time_ms(lambda: plain(x, plan, axis), calls=1,
                              windows=3),
             library_ms=None,
@@ -584,17 +647,33 @@ def run(dev, cfg, h, w, ticks, dcfg, dh, dw, dticks):
     got = kernels.splat(lin, val, n, thr)
     ref = raycast._splat_packed_plain(lin, val, n, thr)
     idx = torch.clamp(lin, max=n).long()
+    splat_kernels, splat_counts, _ = profiled(
+        lambda: kernels.splat(lin, val, n, thr), 10)
+    library = kernel_times(lambda: torch.zeros(
+        n + 1, device=dev).scatter_reduce_(0, idx, val, "amax"))
     rows.append(dict(
         name="splat", source="fiesta_tpu_torch/kernels/splat.cu",
         replaces="fiesta_tpu/ops/pallas/fill.py:39, "
                  "fiesta_tpu/ops/pallas/fill.py:66",
         err=max_abs_err(got, ref),
-        ms=time_ms(lambda: kernels.splat(lin, val, n, thr)),
+        **kernel_times(lambda: kernels.splat(lin, val, n, thr)),
         plain_ms=time_ms(lambda: raycast._splat_packed_plain(
             lin, val, n, thr)),
-        library_ms=time_ms(lambda: torch.zeros(
-            n + 1, device=dev).scatter_reduce_(0, idx, val, "amax")),
+        library_ms=library["ms"], library_device_ms=library["device_ms"],
+        cuda_launches=sum(splat_counts.values()), by_kernel=splat_kernels,
         bound=bound(lin.numel() * 8 + n * 6, 0, F32_OPS_PER_S)))
+    # its zero fill of the f32 target (fill.py:39): the card's time by
+    # kernel name, beside torch.zeros of the same bytes on the card alone,
+    # which is also its plain version (timed once, in both columns); the
+    # splat row's equality covers its output
+    zeros_ms = kernel_times(lambda: torch.zeros(n, device=dev))["device_ms"]
+    rows.append(dict(
+        name="splat_fill", counted_as="splat",
+        source="fiesta_tpu_torch/kernels/splat.cu",
+        replaces="fiesta_tpu/ops/pallas/fill.py:39", err=rows[-1]["err"],
+        ms=splat_kernels["splat_fill"], device_ms=splat_kernels["splat_fill"],
+        plain_ms=zeros_ms, library_ms=zeros_ms,
+        bound=bound(4 * n, 0, F32_OPS_PER_S)))
 
     # the sorted splat's sort on the same rays: keys and values bit-equal
     ksorted = kernels.sort_pairs(lin, val)
@@ -602,19 +681,32 @@ def run(dev, cfg, h, w, ticks, dcfg, dh, dw, dticks):
     err = max_abs_err([ksorted[0], ksorted[1].view(torch.int32)],
                       [psorted[0], psorted[1].view(torch.int32)])
     n_rays = lin.numel()
+    sort_kernels, sort_counts, _ = profiled(
+        lambda: kernels.sort_pairs(lin, val), 10)
+    library = kernel_times(lambda: val[torch.sort(lin)[1]])
     rows.append(dict(
         name="sort", source="fiesta_tpu_torch/kernels/sort.cu",
         replaces="fiesta_tpu/ops/pallas/sort.py:54", err=err,
-        ms=time_ms(lambda: kernels.sort_pairs(lin, val)),
+        **kernel_times(lambda: kernels.sort_pairs(lin, val)),
         plain_ms=time_ms(lambda: sort._sort_pairs_plain(lin, val),
                          calls=1, windows=3),
-        library_ms=time_ms(lambda: val[torch.sort(lin)[1]]),
+        library_ms=library["ms"], library_device_ms=library["device_ms"],
+        cuda_launches=sum(sort_counts.values()), by_kernel=sort_kernels,
         # 8 bytes per pair in and out; the cheapest exact method is a radix
         # sort of the keys (below 2^24 here): 3 passes of ~10 integer
         # operations per pair
         bound=bound(16 * n_rays, 30 * n_rays, I32_OPS_PER_S)))
     log(f"sort: {n_rays} pairs padded to "
         f"{kernels.sort_padded_size(n_rays)}, keys and values bit-equal")
+    for r, before in ((rows[0], "3"), (rows[-1], "28 at 2^18 pairs")):
+        log(f"{r['name']}: {r['cuda_launches']:g} CUDA launches per call "
+            f"({before} before the redesign); {r['ms']:.4f} ms host-paced "
+            f"(before the redesign {EARLIER_MS[r['name']]}, host-paced, in "
+            f"an earlier call), {r['device_ms']:.4f} ms on the card alone; "
+            f"library {r['library_ms']:.4f} ms host-paced, "
+            f"{r['library_device_ms']:.4f} on the card alone; device ms by "
+            f"kernel { {k: round(v, 4) for k, v in r['by_kernel'].items()} }"
+            f"; on {card}")
 
     seeds = got[0].view((3,) + box)
     kfree = kernels.carve(seeds, po, cfg.resolution, cfg.min_ray_length,
@@ -624,7 +716,7 @@ def run(dev, cfg, h, w, ticks, dcfg, dh, dw, dticks):
         name="carve", source="fiesta_tpu_torch/kernels/carve.cu",
         replaces="fiesta_tpu/ops/pallas/carve.py:76",
         err=max_abs_err([kfree], [pfree]),
-        ms=time_ms(lambda: kernels.carve(
+        **kernel_times(lambda: kernels.carve(
             seeds, po, cfg.resolution, cfg.min_ray_length,
             cfg.max_ray_length)),
         plain_ms=time_ms(lambda: raycast._carve_free_plain(cfg, seeds, po),
@@ -651,7 +743,7 @@ def run(dev, cfg, h, w, ticks, dcfg, dh, dw, dticks):
         replaces="fiesta_tpu/ops/pallas/fuse.py:72",
         err=max_abs_err(kernels.fuse(*fin, **kw),
                         fusion._fuse_drain_plain(*fin, **kw)),
-        ms=time_ms(lambda: kernels.fuse(*fin, **kw)),
+        **kernel_times(lambda: kernels.fuse(*fin, **kw)),
         plain_ms=time_ms(lambda: fusion._fuse_drain_plain(*fin, **kw)),
         library_ms=None,
         # 15 bytes per voxel; ~8 f32 operations (add, clamp, selects, two
@@ -704,7 +796,7 @@ def run(dev, cfg, h, w, ticks, dcfg, dh, dw, dticks):
         name="boxadd", source="fiesta_tpu_torch/kernels/boxadd.cu",
         replaces="fiesta_tpu/ops/pallas/boxadd.py:101",
         err=max_abs_err(got, ref),
-        ms=time_ms(lambda: kernels.boxadd(*scratch, *bargs)),
+        **kernel_times(lambda: kernels.boxadd(*scratch, *bargs)),
         plain_ms=time_ms(lambda: raycast._apply_box_counts_plain(
             *scratch, *bargs)),
         library_ms=None,
@@ -724,18 +816,18 @@ def run(dev, cfg, h, w, ticks, dcfg, dh, dw, dticks):
     rows.append(dict(
         name="edt_binary", source="fiesta_tpu_torch/kernels/edt.cu",
         replaces="fiesta_tpu/ops/pallas/edt.py:195", err=err,
-        ms=time_ms(lambda: kernels.edt_binary(f, t)),
+        **kernel_times(lambda: kernels.edt_binary(f, t)),
         plain_ms=time_ms(lambda: edt._binary_pass_plain(f, t)),
         library_ms=None, bound=bound(nvox * 8, 4 * nvox, I32_OPS_PER_S)))
 
     # the main path runs the min-plus pass along axis 1, then axis 2; the
     # row reports the mean over the two launches of a tick
     p2 = kernels.edt_minplus(p1, t, 1)
-    err, ms, plain_ms, bounds = 0.0, [], [], []
+    err, times, plain_ms, bounds = 0.0, [], [], []
     for axis, x in ((1, p1), (2, p2)):
         err = max(err, max_abs_err([kernels.edt_minplus(x, t, axis)],
                                    [edt._minplus_pass_plain(x, t, axis)]))
-        ms.append(time_ms(lambda: kernels.edt_minplus(x, t, axis)))
+        times.append(kernel_times(lambda: kernels.edt_minplus(x, t, axis)))
         plain_ms.append(time_ms(lambda: edt._minplus_pass_plain(x, t, axis),
                                 calls=1, windows=3))
         # the cheapest exact pass is O(A) per column: the lower envelope
@@ -749,27 +841,41 @@ def run(dev, cfg, h, w, ticks, dcfg, dh, dw, dticks):
     rows.append(dict(
         name="edt_minplus", source="fiesta_tpu_torch/kernels/edt.cu",
         replaces="fiesta_tpu/ops/pallas/edt.py:105", err=err,
-        ms=statistics.mean(ms), plain_ms=statistics.mean(plain_ms),
+        **{k: statistics.mean(tm[k] for tm in times) for k in times[0]},
+        plain_ms=statistics.mean(plain_ms),
         library_ms=None, bound=(statistics.mean(b for b, _ in bounds),
                                 max(bounds)[1])))
-    log(f"edt_minplus per axis (1, 2): {ms[0]:.4f} / {ms[1]:.4f} ms, "
+    log(f"edt_minplus per axis (1, 2): {times[0]['ms']:.4f} / "
+        f"{times[1]['ms']:.4f} ms, "
         f"plain {plain_ms[0]:.3f} / {plain_ms[1]:.3f} ms, bounds {bounds}")
 
     rows.extend(closest_rows(cfg, occupied))
 
     out = []
     for r in rows:
-        log(f"{r['name']}: {r['ms']:.4f} ms/launch (plain {r['plain_ms']:.4f}"
-            f", library {r['library_ms']}, bound {r['bound'][0]:.4f} ms by "
-            f"{r['bound'][1]}), {launches[r['name']]} launches, max abs err "
+        calls = launches[r.get("counted_as", r["name"])]
+        log(f"{r['name']}: {r['ms']:.4f} ms/launch (on the card alone "
+            f"{r['device_ms']:.4f}; plain {r['plain_ms']:.4f}, library "
+            f"{r['library_ms']}, bound {r['bound'][0]:.4f} ms by "
+            f"{r['bound'][1]}), {calls} launches, max abs err "
             f"{r['err']} on {card}")
         out.append({
             "name": r["name"], "route": "cuda", "source": r["source"],
-            "replaces": r["replaces"], "launches": launches[r["name"]],
+            "replaces": r["replaces"], "launches": calls,
             "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
             "library_ms": r["library_ms"]})
-    print(json.dumps({"kernels": out, "ms_per_tick": k_ms,
+    print(json.dumps({"kernels": out,
+                      "device_ms": {r["name"]: r["device_ms"] for r in rows},
+                      "library_device_ms": {
+                          r["name"]: r["library_device_ms"]
+                          for r in rows if "library_device_ms" in r},
+                      "cuda_launches_per_call": {
+                          r["name"]: r["cuda_launches"]
+                          for r in rows if "cuda_launches" in r},
+                      "by_kernel_ms": {r["name"]: r["by_kernel"]
+                                       for r in rows if "by_kernel" in r},
+                      "ms_per_tick": k_ms,
                       "plain_ms_per_tick": p_ms, "ticks": ticks,
                       "sorted_ms_per_tick": s_ms,
                       "derive_closest_ms": derive_ms,

@@ -50,7 +50,7 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
 #: kernel -> (source, C symbol, argtypes); every symbol returns cudaError_t
 _SIGNATURES = {
     "splat": ("splat.cu", "fiesta_splat",
-              [_P, _P, _L, _P, _P, _P, _L, _F, _P]),
+              [_P, _P, _L, _P, _P, _L, _F, _P]),
     "carve": ("carve.cu", "fiesta_carve",
               [_P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _P, _P, _P, _P]),
     "edt_binary": ("edt.cu", "fiesta_edt_binary",
@@ -133,10 +133,17 @@ def build() -> dict:
 
 def _launch(name: str, device: torch.device, *args) -> None:
     src, sym, _ = _SIGNATURES[name]
-    lib = build()[src]
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = getattr(lib, sym)(*args, stream)
+    lib = _libs.get(src) or build()[src]
+    fn = getattr(lib, sym)
+    # PyTorch's current stream on ``device``, as a raw handle; the launch
+    # goes to the calling thread's current device, so switch only when the
+    # tensors lie on another
+    stream = torch._C._cuda_getCurrentRawStream(device.index)
+    if device.index == torch.cuda.current_device():
+        rc = fn(*args, stream)
+    else:
+        with torch.cuda.device(device):
+            rc = fn(*args, stream)
     if rc:
         msg = lib.fiesta_cuda_error_string(rc).decode()
         raise RuntimeError(f"{name} kernel launch failed: {msg} ({rc})")
@@ -168,7 +175,8 @@ def splat(lin: torch.Tensor, val: torch.Tensor, n: int, thr: float):
     """Zero-fill an f32 target of ``n`` cells, scatter-max ``val`` [R] at
     ``lin`` [R] (indices outside [0, n) dropped), decode into (seeds f32,
     hit u8, epfree u8) [n].  Replaces ``fill.zeros_f32``,
-    ``fill.decode_packed_splat`` and the scatter-max between them."""
+    ``fill.decode_packed_splat`` and the scatter-max between them.  With
+    R = 0 only the zero fills launch (two CUDA launches, else four)."""
     _check(lin, torch.int32, "splat lin")
     _check(val, torch.float32, "splat val")
     if lin.shape != val.shape or lin.dim() != 1:
@@ -176,13 +184,15 @@ def splat(lin: torch.Tensor, val: torch.Tensor, n: int, thr: float):
     if lin.device != val.device:
         raise ValueError("splat: lin and val on different devices")
     dev = lin.device
-    seeds = torch.empty(n, dtype=torch.float32, device=dev)
-    hit = torch.empty(n, dtype=torch.uint8, device=dev)
-    epfree = torch.empty(n, dtype=torch.uint8, device=dev)
-    _launch("splat", dev, lin.data_ptr(), val.data_ptr(), lin.numel(),
-            seeds.data_ptr(), hit.data_ptr(), epfree.data_ptr(), n,
-            float(np.float32(thr)))
-    return seeds, hit, epfree
+    # fresh allocations, 16-byte aligned as the fills' stores need: the
+    # seeds with the gather's per-ray scratch after them, and both masks
+    r = lin.numel()
+    seeds = torch.empty(n + r, dtype=torch.float32, device=dev)
+    masks = torch.empty((2, n), dtype=torch.uint8, device=dev)
+    _launch("splat", dev, lin.data_ptr(), val.data_ptr(), r,
+            seeds.data_ptr(), masks.data_ptr(), n, float(np.float32(thr)))
+    hit, epfree = masks.unbind(0)
+    return seeds[:n], hit, epfree
 
 
 def carve(seeds: torch.Tensor, po: torch.Tensor, res: float,
@@ -390,8 +400,9 @@ def sort_padded_size(n: int) -> int:
 def sort_pairs(keys: torch.Tensor, vals: torch.Tensor):
     """Bitonic sort of (keys i32 [N], vals f32 [N]) ascending by key, on a
     padded scratch of ``sort_padded_size(N)`` pairs (pad key
-    ``SORT_SENTINEL``, pad value 0).  Returns (keys [N], vals [N]), views of
-    the scratch's first N pairs.  Replaces ``sort.sort_pairs``."""
+    ``SORT_SENTINEL``, pad value 0), in one cooperative CUDA launch.  Returns
+    (keys [N], vals [N]), views of the scratch's first N pairs.  Replaces
+    ``sort.sort_pairs``."""
     _check(keys, torch.int32, "sort keys")
     _check(vals, torch.float32, "sort vals")
     if keys.dim() != 1 or keys.shape != vals.shape or keys.numel() == 0:

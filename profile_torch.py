@@ -56,32 +56,10 @@ def hand_kernel_names():
     and their shared header."""
     names = set()
     for src in Path(kernels.__file__).parent.glob("*.cu*"):
-        names |= set(re.findall(r"__global__\s+void\s+(\w+)",
-                                src.read_text()))
+        names |= set(re.findall(
+            r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?(\w+)",
+            src.read_text()))
     return names
-
-
-def profiled(fn, calls):
-    """Run ``fn`` ``calls`` times under ``torch.profiler``: returns (device
-    ms per call by kernel name, wall ms per call)."""
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    by_name = {}
-    for e in prof.key_averages():
-        dt = getattr(e, "device_time_total", None)
-        if dt is None:
-            dt = getattr(e, "cuda_time_total", 0.0)
-        if dt and e.device_type == torch.autograd.DeviceType.CUDA:
-            name = e.key.split("(")[0]
-            by_name[name] = by_name.get(name, 0.0) + dt / 1e3 / calls
-    return by_name, wall_ms / calls
 
 
 def summary(by_name, hand):
@@ -100,7 +78,7 @@ def stream_breakdown(run, units, hand):
     windows = []
     for _ in range(3):
         windows.append(run() / units)
-    by_name, wall_ms = profiled(run, 1)
+    by_name, _, wall_ms = chip_smoke.profiled(run, 1)
     busy, hand_ms, top = summary({k: v / units for k, v in by_name.items()},
                                  hand)
     ms = statistics.median(windows)
@@ -167,7 +145,8 @@ def engine_breakdown(cfg, frames, dev, hand):
     pipe.sync_device()
     ms = (time.perf_counter() - t0) * 1e3 / n
     pipe = engine()
-    by_name, wall_ms = profiled(lambda: feed(pipe, rest), 1)
+    by_name, _, wall_ms = chip_smoke.profiled(lambda: feed(pipe, rest),
+                                              1)
     busy, hand_ms, top = summary({k: v / n for k, v in by_name.items()},
                                  hand)
     return {"frames": n, "ms_per_frame": ms,
@@ -214,13 +193,13 @@ def main():
     # the same ticks under the profiler, then the lazy closest derivation
     hand = hand_kernel_names()
     final = [ft.copy_state(warm_state)]
-    tick, wall_ms = profiled(
+    tick, _, wall_ms = chip_smoke.profiled(
         lambda: final.append(ft.fused_stream(cfg, final[0], *timed)[0]), 1)
     busy, hand_ms, top = summary({k: v / ticks for k, v in tick.items()},
                                  hand)
     logodds = final[-1].logodds
     ft.derive_closest(cfg, logodds)
-    closest, closest_wall = profiled(
+    closest, _, closest_wall = chip_smoke.profiled(
         lambda: ft.derive_closest(cfg, logodds), 3)
     c_busy, c_hand, c_top = summary(closest, hand)
     demo = demo_breakdown(ticks, dev, hand)

@@ -11,8 +11,10 @@ chosen for their edges: odd sizes, ragged tiles, t >= axis length,
 duplicate and dropped splat indices, square and non-square carve boxes,
 saturating and overlapping boxes on an unaligned grid, both closest
 layouts (x-lead, and the widest-C fallback), sort lengths below, at and
-above one shared-memory tile with duplicate and sentinel keys, and
-windows of the drain that cut, cover or miss the grid.
+above one shared-memory tile (up to 2^20 + 5 pairs, where the merge
+levels split, and the cow splat's 147 456) with duplicate and sentinel
+keys, equal, sorted and reverse-sorted keys, the splat at the cow box
+size, and windows of the drain that cut, cover or miss the grid.
 """
 
 import dataclasses
@@ -46,18 +48,49 @@ def _eq(a, b):
     assert torch.equal(a, b), int((a != b).sum())
 
 
-@pytest.mark.parametrize("n", [1, 4099, 60000])
-def test_splat_kernel(dev, n):
+def _cuda_kernels(fn):
+    """(fn(), the names of the CUDA kernels it launched, in order), read
+    from ``torch.profiler``.  The trace drops the first kernel launched in
+    it, so a short device sleep goes first and is left out."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        torch.cuda._sleep(100_000)
+        torch.cuda.synchronize()
+        out = fn()
+        torch.cuda.synchronize()
+    events = sorted((e for e in prof.events()
+                     if e.device_type == torch.autograd.DeviceType.CUDA
+                     and "spin_kernel" not in e.name),
+                    key=lambda e: e.time_range.start)
+    return out, [e.name.split("(")[0] for e in events]
+
+
+@pytest.mark.parametrize("n,r", [(1, 5000), (4099, 5000), (60000, 5000),
+                                 (3 * 216 * 216 * 80, 3 * 192 * 256)],
+                         ids=["1", "4099", "60000", "cow"])
+def test_splat_kernel(dev, n, r):
     g = torch.Generator().manual_seed(n)
-    r = 5000
     lin = torch.randint(0, n + 3, (r,), generator=g, dtype=torch.int32)
-    lin[:500] = lin[500:1000]                              # duplicates
+    lin[:r // 10] = lin[r // 10:2 * (r // 10)]             # duplicates
+    lin[-r // 20:] = n                                     # the drop slot
     val = 1000.0 + 2000.0 * torch.rand(r, generator=g)
     lin, val = lin.to(dev), val.to(dev)
-    got = raycast.splat_packed(lin, val, n, 1.2)
+    kernels.reset_launch_counts()
+    got, names = _cuda_kernels(lambda: raycast.splat_packed(lin, val, n, 1.2))
+    assert kernels.LAUNCHES["splat"] == 1
+    assert names == ["splat_fill", "splat_scatter_max", "splat_gather",
+                     "splat_write"]
     ref = raycast._splat_packed_plain(lin, val, n, 1.2)
     for a, b in zip(got, ref):
         _eq(a, b)
+    # no rays: the zero fills alone
+    empty, names = _cuda_kernels(lambda: kernels.splat(lin[:0], val[:0], n,
+                                                       1.2))
+    assert names == ["splat_fill", "splat_scatter_max"]
+    for a in empty:
+        _eq(a, torch.zeros_like(a))
 
 
 def _cfg(map_size, origin, max_ray):
@@ -226,17 +259,36 @@ def test_stream_kernels_equal_plain(dev, monkeypatch):
     assert kernels.LAUNCHES["splat"] == 4          # the plain run: none
 
 
-@pytest.mark.parametrize("n", [1, 255, 256, 1000, 4096, (1 << 18) + 3])
-def test_sort_kernel(dev, n):
-    g = torch.Generator().manual_seed(n)
+def _sort_keys(kind, n, g):
+    """Keys i32 [n]: random with heavy duplicates and drop sentinels, all
+    equal, already sorted or reverse sorted."""
     keys = torch.randint(0, 1 << 25, (n,), generator=g, dtype=torch.int32)
-    keys[torch.randint(0, n, (max(n // 5, 1),), generator=g)] = 777
-    keys[: n // 9] = 1 << 25                       # drop sentinels
+    if kind == "random":
+        keys[torch.randint(0, n, (max(n // 5, 1),), generator=g)] = 777
+        keys[: n // 9] = 1 << 25                   # drop sentinels
+    elif kind == "equal":
+        keys[:] = 777
+    elif kind == "sorted":
+        keys = keys.sort().values
+    else:
+        keys = keys.sort(descending=True).values
+    return keys
+
+
+@pytest.mark.parametrize("kind,n", [
+    ("random", 1), ("random", 255), ("random", 256), ("random", 1000),
+    ("random", 4096), ("random", (1 << 18) + 3), ("random", 147456),
+    ("random", (1 << 20) + 5), ("equal", 147456), ("sorted", 147456),
+    ("reversed", 147456)])
+def test_sort_kernel(dev, kind, n):
+    g = torch.Generator().manual_seed(n)
+    keys = _sort_keys(kind, n, g)
     vals = torch.rand(n, generator=g)
     keys, vals = keys.to(dev), vals.to(dev)
     kernels.reset_launch_counts()
-    got = sort.sort_pairs(keys, vals)
+    got, names = _cuda_kernels(lambda: sort.sort_pairs(keys, vals))
     assert kernels.LAUNCHES["sort"] == 1
+    assert names == ["sort_network"]               # one cooperative launch
     ref = sort._sort_pairs_plain(keys, vals)
     _eq(got[0], ref[0])
     _eq(got[1].view(torch.int32), ref[1].view(torch.int32))

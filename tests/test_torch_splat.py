@@ -131,6 +131,61 @@ def test_splat_drops_out_of_range_and_keeps_max():
     np.testing.assert_array_equal(ep.numpy(), [0, 0, 0, 0, 0, 1, 0, 0])
 
 
+def _splat_four_steps(lin, val, n, thr):
+    """The CUDA splat's four launches (``kernels/splat.cu``) in torch: zero
+    fills (seeds, then the masks beside the scatter), scatter-max on the
+    int32 bit patterns, per-ray gather of the voxel's maximum, and per-ray
+    decode written at the voxel."""
+    seeds = torch.zeros(n, dtype=torch.float32)
+    hit = torch.zeros(n, dtype=torch.uint8)
+    epfree = torch.zeros(n, dtype=torch.uint8)
+    at = lin[(lin >= 0) & (lin < n)].to(torch.int64)
+    seeds.view(torch.int32).scatter_reduce_(
+        0, at, val[(lin >= 0) & (lin < n)].view(torch.int32), "amax")
+    p = seeds[at]                                    # a copy: the gather
+    h = p >= 2000.0
+    freeish = (p >= 1000.0) & (p < 2000.0)
+    free_range = p - torch.tensor(1000.0)
+    seeds[at] = torch.where(h, p - torch.tensor(2000.0),
+                            torch.where(freeish, free_range,
+                                        torch.tensor(0.0)))
+    hit[at] = h.to(torch.uint8)
+    epfree[at] = (freeish & (free_range >= thr)).to(torch.uint8)
+    return seeds, hit, epfree
+
+
+@pytest.mark.parametrize("n,r", [(1, 7), (4099, 5000), (60000, 5000),
+                                 (3 * 20 * 20 * 8, 30000)])
+def test_four_step_splat_matches_plain(n, r):
+    """Decoding only the voxels a ray touched, after a dense zero fill,
+    equals the dense decode of the plain splat bit for bit: duplicates,
+    dropped indices (>= n), values on both sides of 2000 and on the class
+    and threshold edges."""
+    rng = np.random.default_rng(n)
+    lin = rng.integers(0, n + 3, r).astype(np.int32)
+    lin[: r // 10] = lin[r // 10: 2 * (r // 10)]               # duplicates
+    thr = np.float32(1.2)
+    val = (1000.0 + 2000.0 * rng.random(r)).astype(np.float32)
+    val[::7] = rng.choice(np.float32([1000.0, 2000.0, 1000.0 + thr,
+                                      np.nextafter(np.float32(2000.0), 0),
+                                      2000.0 + thr]), val[::7].size)
+    lin_t, val_t = torch.from_numpy(lin), torch.from_numpy(val)
+    got = _splat_four_steps(lin_t, val_t, n, float(thr))
+    ref = trc._splat_packed_plain(lin_t, val_t, n, float(thr))
+    for g, f in zip(got, ref):
+        assert g.dtype == f.dtype
+        np.testing.assert_array_equal(g.numpy().view(np.uint8),
+                                      f.numpy().view(np.uint8))
+    assert bool((lin >= n).any())
+    if n > 1:
+        assert int(ref[1].sum()) > 0 and int(ref[2].sum()) > 0
+    # no rays: the fill alone is the splat
+    none = torch.zeros(0, dtype=torch.int32), torch.zeros(0)
+    for g, f in zip(_splat_four_steps(*none, n, float(thr)),
+                    trc._splat_packed_plain(*none, n, float(thr))):
+        np.testing.assert_array_equal(g.numpy(), f.numpy())
+
+
 def test_box_placement_matches_jax():
     rng = np.random.default_rng(3)
     for cfg in (ALIGNED, UNALIGNED):
