@@ -55,10 +55,13 @@ exits non-zero:
    one computes the same function, and the card's bound.  A kernel's
    ``ms`` is host-paced (calls back to back, as the main path makes
    them); beside it, queued behind a device sleep, the card's time
-   alone.  The sort and the splat also print their CUDA launches per call
-   and device time by kernel name (``torch.profiler``), beside their times
-   before their redesign (``EARLIER_MS``); the splat's zero fill has a row
-   of its own;
+   alone.  The four redesigned kernels (splat, sort, carve, min-plus)
+   also print their CUDA launches per call and device time by kernel name
+   (``torch.profiler``), beside their times before their redesign
+   (``EARLIER_MS``); the splat's zero fill has a row of its own.  The
+   carve is also timed at the demo box (on the demo's first tick) and
+   prints its wavefronts' steps; the min-plus pass prints its window
+   offsets per voxel (``minplus_taps``) beside the brute-force window's;
 8. a JSON line of per-kernel numbers, the nvidia-smi line, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -104,10 +107,15 @@ F32_OPS_PER_S = 67e12 / 2
 I32_OPS_PER_S = 132 * 64 * 1.98e9      # 64 INT32 lanes/SM x 132 SMs x boost
 SLEEP_CYCLES = 40_000_000   # ~20 ms at the H100's 1.98 GHz boost clock
 MARK_CYCLES = 100_000       # ~50 us: the profiler's first kernel
-# host-paced ms per call of the splat (three launches) and the sort (28
-# launches at 2^18 pairs) before their redesign, at the same shapes on an
-# H100 80GB HBM3 at 700 W (PERF.md, kernel table)
-EARLIER_MS = {"splat": 0.0714, "sort": 0.1716}
+# host-paced ms per call of the splat (three launches), the sort (28
+# launches at 2^18 pairs), the carve (217 launches at cow) and the min-plus
+# pass (mean of axes 1 and 2) before their redesign, at the same shapes on
+# an H100 80GB HBM3 at 700 W (PERF.md, kernel table), and the launches
+EARLIER_MS = {"splat": 0.0714, "sort": 0.1716, "carve": 1.3794,
+              "edt_minplus": 0.4933}
+EARLIER_MINPLUS_AXIS_MS = (0.6378, 0.3488)
+EARLIER_LAUNCHES = {"splat": "3", "sort": "28 at 2^18 pairs",
+                    "carve": "217 at cow", "edt_minplus": "1"}
 # int32 operations per voxel of an exact O(A) min-plus pass: a lower
 # envelope of parabolas (Felzenszwalb-Huttenlocher) builds with amortised
 # two intersection tests of ~8 operations per element, then one evaluation
@@ -353,6 +361,66 @@ def box_union(starts, box, grid):
     for x, y, z in starts.tolist():
         cover[x:x + box[0], y:y + box[1], z:z + box[2]] = True
     return int(cover.sum())
+
+
+def carve_steps(po, box):
+    """Steps of each carve wavefront (the kernel's half-space walks: the
+    forward one while f32(idx) - po <= 0, the reverse one while > 0) for
+    sensors ``po`` [K,3] in a box: the most, the mean, and the cell visits
+    per call (C2 * C3 cells a step)."""
+    lengths, visits = [], 0
+    for o in range(3):
+        a = box[o]
+        cells = box[0] * box[1] * box[2] // a
+        d = torch.arange(a, dtype=torch.float32, device=po.device)[None] - \
+            po[:, o, None]
+        fwd = (d <= 0).sum(1).tolist()
+        for n in fwd:
+            lengths += [n, a - n]
+        visits += a * cells * po.shape[0]
+    return dict(max=max(lengths), mean=statistics.mean(lengths),
+                visits=visits)
+
+
+def minplus_taps(x, t, axis):
+    """The min-plus kernel's work on input ``x`` along ``axis``: window
+    offsets per voxel of the bounded loop (``edt.minplus_window_taps``:
+    mean and a histogram), beside the brute-force window's (t_local
+    offsets for every voxel of a 32-column tile holding a value below
+    far)."""
+    _, taps = edt.minplus_window_taps(x, t, axis)
+    a = x.shape[axis]
+    tl = min(t, a - 1)
+    cols = (x < edt._INF_EDT).any(dim=axis).reshape(-1)
+    pad = -cols.numel() % 32
+    tiles = torch.cat([cols, cols.new_zeros(pad)]).view(-1, 32).any(1)
+    brute = min(int(tiles.sum()) * 32, cols.numel()) * a * tl
+    edges = [0, 1, 2, 4, 8, 16, 32, 64, 128, 256, 1 << 30]
+    tf = taps.reshape(-1)
+    hist = {f"{lo}-{hi - 1}": int(((tf >= lo) & (tf < hi)).sum())
+            for lo, hi in zip(edges[:-1], edges[1:])}
+    return dict(mean_taps=float(tf.double().mean()),
+                brute_mean_taps=brute / x.numel(),
+                max_taps=int(tf.max()), hist=hist)
+
+
+def demo_seeds(dcfg, dbatches):
+    """The demo's first tick of three depth frames through the depth
+    conversion and the splat: (seeds [3,BX,BY,BZ], po [3,3])."""
+    depths, tfs = dbatches[0][0], dbatches[1][0]
+    comps, vals = [[], [], []], []
+    ld, lt = depths[0], tfs[0]
+    for i in range(depths.shape[0]):
+        *xyz, v = pipeline.depth_to_cloud_components(dcfg, depths[i], tfs[i],
+                                                     lt, ld)
+        for c, a in zip(comps, xyz):
+            c.append(a.reshape(-1))
+        vals.append(v.reshape(-1))
+        ld, lt = depths[i], tfs[i]
+    _, po, seeds, _, _, _ = raycast._scanline_seeds_batch(
+        dcfg, tuple(torch.stack(c) for c in comps), torch.stack(vals),
+        transforms=tfs)
+    return seeds, po
 
 
 def bound(nbytes, ops, rate):
@@ -698,35 +766,43 @@ def run(dev, cfg, h, w, ticks, dcfg, dh, dw, dticks):
         bound=bound(16 * n_rays, 30 * n_rays, I32_OPS_PER_S)))
     log(f"sort: {n_rays} pairs padded to "
         f"{kernels.sort_padded_size(n_rays)}, keys and values bit-equal")
-    for r, before in ((rows[0], "3"), (rows[-1], "28 at 2^18 pairs")):
-        log(f"{r['name']}: {r['cuda_launches']:g} CUDA launches per call "
-            f"({before} before the redesign); {r['ms']:.4f} ms host-paced "
-            f"(before the redesign {EARLIER_MS[r['name']]}, host-paced, in "
-            f"an earlier call), {r['device_ms']:.4f} ms on the card alone; "
-            f"library {r['library_ms']:.4f} ms host-paced, "
-            f"{r['library_device_ms']:.4f} on the card alone; device ms by "
-            f"kernel { {k: round(v, 4) for k, v in r['by_kernel'].items()} }"
-            f"; on {card}")
-
     seeds = got[0].view((3,) + box)
-    kfree = kernels.carve(seeds, po, cfg.resolution, cfg.min_ray_length,
-                          cfg.max_ray_length)
+    carve = (cfg.resolution, cfg.min_ray_length, cfg.max_ray_length)
+    kfree = kernels.carve(seeds, po, *carve)
     pfree = raycast._carve_free_plain(cfg, seeds, po)
+    carve_kernels, carve_counts, _ = profiled(
+        lambda: kernels.carve(seeds, po, *carve), 10)
     rows.append(dict(
         name="carve", source="fiesta_tpu_torch/kernels/carve.cu",
         replaces="fiesta_tpu/ops/pallas/carve.py:76",
         err=max_abs_err([kfree], [pfree]),
-        **kernel_times(lambda: kernels.carve(
-            seeds, po, cfg.resolution, cfg.min_ray_length,
-            cfg.max_ray_length)),
+        **kernel_times(lambda: kernels.carve(seeds, po, *carve)),
         plain_ms=time_ms(lambda: raycast._carve_free_plain(cfg, seeds, po),
                          calls=1, windows=3),
-        library_ms=None,
+        library_ms=None, cuda_launches=sum(carve_counts.values()),
+        by_kernel=carve_kernels,
         # 3 wavefront visits per voxel (it lies in one half-space of each
         # orientation), ~20 f32 ops each (offsets, two divisions and
         # floors, four taps, octant test, r2, free test)
         bound=bound(n * 4 + n + po.numel() * 4, 3 * 20 * n, F32_OPS_PER_S)))
-    log(f"carve: {int(kfree.sum())} free voxels of {n}")
+    steps = carve_steps(po, box)
+    steps["cluster_size"] = kernels.carve_cluster_size(seeds.shape)
+    log(f"carve: {int(kfree.sum())} free voxels of {n}; wavefront steps "
+        f"and cluster size {steps}")
+    # the same at the demo box, on the demo's first tick of depth frames
+    dseeds, dpo = demo_seeds(dcfg, dbatches)
+    dcarve = (dcfg.resolution, dcfg.min_ray_length, dcfg.max_ray_length)
+    dn = dseeds.numel()
+    carve_demo = dict(
+        box=list(dseeds.shape), steps=carve_steps(dpo, dseeds.shape[1:]),
+        err=max_abs_err([kernels.carve(dseeds, dpo, *dcarve)],
+                        [raycast._carve_free_plain(dcfg, dseeds, dpo)]),
+        **kernel_times(lambda: kernels.carve(dseeds, dpo, *dcarve)),
+        bound_ms=bound(dn * 5, 3 * 20 * dn, F32_OPS_PER_S)[0])
+    log(f"carve at the demo box {carve_demo['box']}: "
+        f"{carve_demo['ms']:.4f} ms host-paced, {carve_demo['device_ms']:.4f}"
+        f" on the card alone (bound {carve_demo['bound_ms']:.4f} ms), "
+        f"bit-equal; wavefront steps {carve_demo['steps']}; on {card}")
 
     # the drain and the box add on one more tick of counters
     ticked = pipeline.integrate_scan_batch(cfg, ft.copy_state(k_state),
@@ -823,11 +899,12 @@ def run(dev, cfg, h, w, ticks, dcfg, dh, dw, dticks):
     # the main path runs the min-plus pass along axis 1, then axis 2; the
     # row reports the mean over the two launches of a tick
     p2 = kernels.edt_minplus(p1, t, 1)
-    err, times, plain_ms, bounds = 0.0, [], [], []
+    err, times, plain_ms, bounds, taps, profs = 0.0, [], [], [], [], []
     for axis, x in ((1, p1), (2, p2)):
         err = max(err, max_abs_err([kernels.edt_minplus(x, t, axis)],
                                    [edt._minplus_pass_plain(x, t, axis)]))
         times.append(kernel_times(lambda: kernels.edt_minplus(x, t, axis)))
+        profs.append(profiled(lambda: kernels.edt_minplus(x, t, axis), 10))
         plain_ms.append(time_ms(lambda: edt._minplus_pass_plain(x, t, axis),
                                 calls=1, windows=3))
         # the cheapest exact pass is O(A) per column: the lower envelope
@@ -838,16 +915,38 @@ def run(dev, cfg, h, w, ticks, dcfg, dh, dw, dticks):
         near_cols = int((x < edt._INF_EDT).any(dim=axis).sum())
         ops = ENVELOPE_OPS * near_cols * x.shape[axis]
         bounds.append(bound(nvox * 8, ops, I32_OPS_PER_S))
+        taps.append(minplus_taps(x, t, axis))
+    by_kernel = collections.Counter()
+    for by_name, _, _ in profs:
+        by_kernel.update({k: v / 2 for k, v in by_name.items()})
     rows.append(dict(
         name="edt_minplus", source="fiesta_tpu_torch/kernels/edt.cu",
         replaces="fiesta_tpu/ops/pallas/edt.py:105", err=err,
         **{k: statistics.mean(tm[k] for tm in times) for k in times[0]},
         plain_ms=statistics.mean(plain_ms),
         library_ms=None, bound=(statistics.mean(b for b, _ in bounds),
-                                max(bounds)[1])))
+                                max(bounds)[1]),
+        cuda_launches=statistics.mean(sum(c.values()) for _, c, _ in profs),
+        by_kernel=dict(by_kernel)))
     log(f"edt_minplus per axis (1, 2): {times[0]['ms']:.4f} / "
-        f"{times[1]['ms']:.4f} ms, "
-        f"plain {plain_ms[0]:.3f} / {plain_ms[1]:.3f} ms, bounds {bounds}")
+        f"{times[1]['ms']:.4f} ms host-paced (before the redesign "
+        f"{EARLIER_MINPLUS_AXIS_MS[0]} / {EARLIER_MINPLUS_AXIS_MS[1]}), "
+        f"{times[0]['device_ms']:.4f} / {times[1]['device_ms']:.4f} on the "
+        f"card alone; plain {plain_ms[0]:.3f} / {plain_ms[1]:.3f} ms, "
+        f"bounds {bounds}; window offsets per voxel {taps}; on {card}")
+
+    for r in rows:
+        if r["name"] not in EARLIER_LAUNCHES:
+            continue
+        log(f"{r['name']}: {r['cuda_launches']:g} CUDA launches per call "
+            f"({EARLIER_LAUNCHES[r['name']]} before the redesign); "
+            f"{r['ms']:.4f} ms host-paced (before the redesign "
+            f"{EARLIER_MS[r['name']]}, host-paced, in an earlier call), "
+            f"{r['device_ms']:.4f} ms on the card alone; library "
+            f"{r.get('library_ms')}, on the card alone "
+            f"{r.get('library_device_ms')}; device ms by kernel "
+            f"{ {k: round(v, 4) for k, v in r['by_kernel'].items()} }"
+            f"; on {card}")
 
     rows.extend(closest_rows(cfg, occupied))
 
@@ -889,7 +988,9 @@ def run(dev, cfg, h, w, ticks, dcfg, dh, dw, dticks):
                       "demo_ms_per_tick": d_ms,
                       "demo_plain_ms_per_tick": pd_ms,
                       "demo_occupied": n_demo,
-                      "fuse_window_demo": fuse_window}))
+                      "fuse_window_demo": fuse_window,
+                      "carve_steps": steps, "carve_demo": carve_demo,
+                      "minplus_taps": taps}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -52,7 +52,7 @@ _SIGNATURES = {
     "splat": ("splat.cu", "fiesta_splat",
               [_P, _P, _L, _P, _P, _L, _F, _P]),
     "carve": ("carve.cu", "fiesta_carve",
-              [_P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _P, _P, _P, _P]),
+              [_P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _P, _P]),
     "edt_binary": ("edt.cu", "fiesta_edt_binary",
                    [_P, _P, _I, _L, _I, _I, _I, _P]),
     "edt_minplus": ("edt.cu", "fiesta_edt_minplus",
@@ -123,6 +123,9 @@ def build() -> dict:
         lib = ctypes.CDLL(str(targets[src]))
         lib.fiesta_cuda_error_string.argtypes = [_I]
         lib.fiesta_cuda_error_string.restype = ctypes.c_char_p
+        if src == "carve.cu":
+            lib.fiesta_carve_cluster_size.argtypes = [_I] * 4
+            lib.fiesta_carve_cluster_size.restype = _I
         for s, sym, argtypes in _SIGNATURES.values():
             if s == src:
                 getattr(lib, sym).argtypes = argtypes
@@ -198,8 +201,9 @@ def splat(lin: torch.Tensor, val: torch.Tensor, n: int, thr: float):
 def carve(seeds: torch.Tensor, po: torch.Tensor, res: float,
           min_ray: float, max_ray: float) -> torch.Tensor:
     """Octant wavefront carve of K scans: seeds [K,BX,BY,BZ] f32, po [K,3]
-    f32 (sensor in box index units) -> free mask [K,BX,BY,BZ] bool.
-    Replaces ``carve.octant_free_sweep_pallas``."""
+    f32 (sensor in box index units) -> free mask [K,BX,BY,BZ] bool, in two
+    CUDA launches (the mask's zero fill, then every wavefront's sweep).
+    Allocates only the mask.  Replaces ``carve.octant_free_sweep_pallas``."""
     _check(seeds, torch.float32, "carve seeds")
     _check(po, torch.float32, "carve po")
     if seeds.dim() != 4 or tuple(po.shape) != (seeds.shape[0], 3):
@@ -207,17 +211,26 @@ def carve(seeds: torch.Tensor, po: torch.Tensor, res: float,
     if po.device != seeds.device:
         raise ValueError("carve: seeds and po on different devices")
     k, bx, by, bz = seeds.shape
-    dev = seeds.device
-    cells = max(by * bz, bx * bz, bx * by)
-    carry = torch.empty(2 * k * 6 * cells, dtype=torch.float32, device=dev)
-    planes = torch.empty(3 * seeds.numel(), dtype=torch.uint8, device=dev)
-    free = torch.empty(seeds.shape, dtype=torch.uint8, device=dev)
-    _launch("carve", dev, seeds.data_ptr(), po.data_ptr(), k, bx, by, bz,
-            float(np.float32(res)), float(np.float32(1.0 / res)),
+    # a fresh allocation: 16-byte aligned, as the zero fill's stores need
+    free = torch.empty(seeds.shape, dtype=torch.uint8, device=seeds.device)
+    _launch("carve", seeds.device, seeds.data_ptr(), po.data_ptr(), k, bx,
+            by, bz, float(np.float32(res)), float(np.float32(1.0 / res)),
             float(np.float32((min_ray / res) ** 2)),
-            float(np.float32((max_ray / res) ** 2)),
-            carry.data_ptr(), planes.data_ptr(), free.data_ptr())
+            float(np.float32((max_ray / res) ** 2)), free.data_ptr())
     return free.view(torch.bool)
+
+
+def carve_cluster_size(shape) -> int:
+    """Thread blocks per wavefront cluster of the carve's sweep for seeds
+    of ``shape`` [K,BX,BY,BZ] on the current CUDA device (chosen once per
+    device and shape)."""
+    lib = _libs.get("carve.cu") or build()["carve.cu"]
+    cs = lib.fiesta_carve_cluster_size(*(int(n) for n in shape))
+    if cs <= 0:
+        msg = lib.fiesta_cuda_error_string(-cs).decode() if cs else \
+            "no cluster size fits the box"
+        raise RuntimeError(f"carve cluster size for {tuple(shape)}: {msg}")
+    return cs
 
 
 _INF_EDT = 1 << 20

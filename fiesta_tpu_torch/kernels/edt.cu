@@ -16,15 +16,33 @@
 // is one coalesced row access.
 //
 // Min-plus pass.  out[i] = min(f[i], min_{1<=k<=t} min(f[i-k], f[i+k]) + k^2)
-// with INF beyond the column ends, along any axis of a contiguous volume
-// viewed as [outer, A, inner], through the shared column-tile kernel
-// (fiesta_kernels.cuh: tc whole columns per block in shared memory,
-// coalesced loads and stores); the window loop is skipped when every value
-// of the tile is far, as the TPU kernel skips an all-far block.
-// This brute-force window does 3 int32 ops per offset pair per voxel; an
-// exact O(A) pass (lower envelope, or a convex min-plus convolution where
-// the window is shorter than the column) needs ~24 per voxel, so the bound
-// is bytes: one i32 read and one i32 write per voxel, 102 MB at cow scale.
+// with INF beyond the column ends and 0 <= f <= INF, along any axis of a
+// contiguous volume viewed as [outer, A, inner]: tc whole columns per
+// block as an [A][tc + 1] tile in shared memory (the pad column keeps the
+// load's and the window's accesses free of bank conflicts), loaded and
+// stored coalesced (fiesta_kernels.cuh's element order).  Each voxel's
+// window is bounded, exactly, from both sides:
+//   * below by k0, the distance along the column to the nearest value
+//     below INF: every offset k < k0 reads INF on both sides, and
+//     INF + k^2 > INF >= acc cannot win.  k0 comes from two sweeps of the
+//     column split into segments, one per thread (each thread's segment
+//     ends, a barrier, then its carries from the other segments), and is
+//     kept in the tile word's top 11 bits (capped: a smaller k0 is still
+//     a lower bound);
+//   * above by the first k with k^2 >= acc: every candidate at offset k
+//     is >= k^2, since f >= 0.  The loop takes four offsets a turn, their
+//     loads independent (an offset past the stop cannot win, one past t
+//     reads INF), and tests the stop between turns.
+// A voxel with k0 > t keeps f[i] with no loop.  Warps take 32 neighbouring
+// columns at one row, whose bounds are alike.  A strided axis (inner > 1)
+// writes results from registers in the load's order; a contiguous one
+// stages them in a second tile.  Each block computes its columns' base
+// addresses once (no 64-bit division per element).  Bound: bytes, one
+// i32 read and one i32 write per voxel (102 MB at cow scale), against an
+// exact O(A) pass (a lower envelope, ~24 int32 operations per voxel of a
+// column holding a value below INF).  What holds it above that: the
+// window loop, whose warps run their slowest lane (about twice the mean
+// offsets per voxel on axis 1), and the load, k0 and store phases.
 
 #include "fiesta_kernels.cuh"
 
@@ -51,26 +69,132 @@ __global__ void edt_binary_kernel(const int* __restrict__ f,
   }
 }
 
-// The min-plus pass's prologue and window for fiesta_tile_window_kernel.
-struct EdtMinplus {
-  int tl;
-  int fill;  // EDT_INF: beyond the column ends
-  __device__ int load(int raw, int, int& near) const {
-    near |= raw < EDT_INF;
-    return raw;
+namespace {
+
+constexpr int kMinplusThreads = 256;
+constexpr unsigned kValMask = (1u << 21) - 1;  // f <= EDT_INF = 2^20
+constexpr int kK0Shift = 21;
+constexpr int kK0Cap = (1 << 11) - 1;
+constexpr int kNone = 1 << 20;  // no value below INF on that side
+constexpr int kWindowUnroll = 4;
+bool g_minplus_ready[kFiestaMaxDevices];
+
+// Columns per block: 32 (one warp-wide row) while the tiles fit in 200 KB
+// of shared memory, fewer for very long columns.
+int minplus_tile_cols(int A, bool staged) {
+  int tc = 32;
+  while (tc > 1 && (long long)A * (tc + 1) * sizeof(int) * (staged ? 2 : 1) >
+                       200 * 1024)
+    tc /= 2;
+  return tc;
+}
+
+size_t minplus_smem(int A, int tc, bool staged) {
+  const int segs = kMinplusThreads / tc;
+  return ((size_t)A * (tc + 1) * (staged ? 2 : 1) + 2 * (size_t)segs * tc) *
+             sizeof(int) +
+         tc * sizeof(long long);
+}
+
+}  // namespace
+
+__global__ void __launch_bounds__(kMinplusThreads)
+    edt_minplus_kernel(const int* __restrict__ f, int* __restrict__ out,
+                       long long outer, int A, long long inner, int tc,
+                       int tl) {
+  extern __shared__ long long sm[];
+  const int pitch = tc + 1;
+  const int segs = blockDim.x / tc;
+  long long* base = sm;                       // [tc]: address of row 0
+  unsigned* tile = (unsigned*)(base + tc);    // [A][pitch]: f | k0 << 21
+  int* first = (int*)(tile + A * pitch);      // [segs][tc]
+  int* last = first + segs * tc;              // [segs][tc]
+  int* res = last + segs * tc;                // [A][pitch], inner == 1
+  const long long ncols = outer * inner;
+  const long long col0 = (long long)blockIdx.x * tc;
+  const int total = A * tc;
+
+  for (int c = threadIdx.x; c < tc; c += blockDim.x)
+    base[c] = col0 + c < ncols ? fiesta_col_addr(col0 + c, 0, A, inner) : -1;
+  __syncthreads();
+  int near = 0;
+  for (int e = threadIdx.x; e < total; e += blockDim.x) {
+    int i, c;
+    fiesta_tile_pos(e, A, tc, inner, i, c);
+    const int v = base[c] >= 0 ? f[base[c] + i * inner] : EDT_INF;
+    near |= v < EDT_INF;
+    tile[i * pitch + c] = (unsigned)v;
   }
-  __device__ int window(const int* col, int i, int A, int tc,
-                        bool any_near) const {
-    if (!any_near) return EDT_INF;
-    int acc = col[i * tc];
-    for (int k = 1; k <= tl; ++k) {
-      const int lo = i - k >= 0 ? col[(i - k) * tc] : EDT_INF;
-      const int hi = i + k < A ? col[(i + k) * tc] : EDT_INF;
-      acc = min(acc, min(lo, hi) + k * k);
+  const bool any_near = __syncthreads_or(near);
+  if (any_near) {
+    // k0: thread (seg, c) sweeps rows [r0, r1) of tile column c
+    const int c = threadIdx.x % tc, seg = threadIdx.x / tc;
+    const int len = (A + segs - 1) / segs;
+    const int r0 = min(A, seg * len), r1 = min(A, r0 + len);
+    int fn = -1, ln = -1;
+    for (int i = r0; i < r1; ++i)
+      if ((tile[i * pitch + c] & kValMask) < EDT_INF) {
+        if (fn < 0) fn = i;
+        ln = i;
+      }
+    first[seg * tc + c] = fn;
+    last[seg * tc + c] = ln;
+    __syncthreads();
+    int lp = -kNone, nn = A + kNone;  // nearest rows in the other segments
+    for (int j = 0; j < seg; ++j)
+      if (last[j * tc + c] >= 0) lp = last[j * tc + c];
+    for (int j = segs - 1; j > seg; --j)
+      if (first[j * tc + c] >= 0) nn = first[j * tc + c];
+    for (int i = r0; i < r1; ++i) {
+      const unsigned v = tile[i * pitch + c] & kValMask;
+      if (v < EDT_INF) lp = i;
+      tile[i * pitch + c] = v | (unsigned)min(i - lp, kK0Cap) << kK0Shift;
     }
-    return acc;
+    for (int i = r1 - 1; i >= r0; --i) {
+      const unsigned w = tile[i * pitch + c];
+      if ((w & kValMask) < EDT_INF) nn = i;
+      const int k0 = min((int)(w >> kK0Shift), min(nn - i, kK0Cap));
+      tile[i * pitch + c] = (w & kValMask) | (unsigned)k0 << kK0Shift;
+    }
   }
-};
+  __syncthreads();
+
+  // c fastest, so a warp reads 32 consecutive shared words; for a strided
+  // axis this is also the load's order
+  for (int e = threadIdx.x; e < total; e += blockDim.x) {
+    const int i = e / tc, c = e % tc;
+    const unsigned* col = tile + c;
+    const unsigned w = col[i * pitch];
+    int acc = (int)(w & kValMask);
+    // an all-far tile keeps its values: k0 was not swept there
+    const int k1 = any_near ? max(1, (int)(w >> kK0Shift)) : tl + 1;
+    for (int k = k1; k <= tl && k * k < acc; k += kWindowUnroll) {
+#pragma unroll
+      for (int u = 0; u < kWindowUnroll; ++u) {
+        const int kk = k + u;
+        const int lo = kk <= tl && i - kk >= 0
+                           ? (int)(col[(i - kk) * pitch] & kValMask)
+                           : EDT_INF;
+        const int hi = kk <= tl && i + kk < A
+                           ? (int)(col[(i + kk) * pitch] & kValMask)
+                           : EDT_INF;
+        acc = min(acc, min(lo, hi) + kk * kk);
+      }
+    }
+    if (inner != 1) {
+      if (base[c] >= 0) out[base[c] + i * inner] = acc;
+    } else {
+      res[i * pitch + c] = acc;
+    }
+  }
+  if (inner != 1) return;
+  __syncthreads();
+  for (int e = threadIdx.x; e < total; e += blockDim.x) {
+    int i, c;
+    fiesta_tile_pos(e, A, tc, inner, i, c);
+    if (base[c] >= 0) out[base[c] + i] = res[i * pitch + c];
+  }
+}
 
 FIESTA_EXPORT int fiesta_edt_binary(const int* f, int* out, int A,
                                     long long inner, int tl, int far_value,
@@ -87,6 +211,15 @@ FIESTA_EXPORT int fiesta_edt_minplus(const int* f, int* out,
                                      long long outer, int A,
                                      long long inner, int tl,
                                      cudaStream_t stream) {
-  return fiesta_tile_window(EdtMinplus{tl, EDT_INF}, f, out, outer, A, inner,
-                            stream);
+  const cudaError_t err =
+      fiesta_allow_max_smem(edt_minplus_kernel, g_minplus_ready);
+  if (err != cudaSuccess) return (int)err;
+  const bool staged = inner == 1;
+  const int tc = minplus_tile_cols(A, staged);
+  const long long blocks = (outer * inner + tc - 1) / tc;
+  edt_minplus_kernel<<<(unsigned)blocks, kMinplusThreads,
+                       minplus_smem(A, tc, staged), stream>>>(
+      f, out, outer, A, inner, tc, tl);
+  FIESTA_LAUNCH_CHECK();
+  return 0;
 }

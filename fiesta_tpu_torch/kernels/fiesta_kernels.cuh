@@ -27,6 +27,29 @@ static inline unsigned fiesta_blocks(long long n, int threads) {
   return (unsigned)(b < 1 ? 1 : (b > cap ? cap : b));
 }
 
+constexpr int kFiestaMaxDevices = 64;
+
+// Lift `kernel`'s cap on dynamic shared memory to the device's opt-in
+// maximum (needed above 48 KB), once per device: `ready` holds the
+// kernel's per-device flags.  The launch's own size still sets occupancy.
+template <class Kernel>
+static cudaError_t fiesta_allow_max_smem(Kernel kernel,
+                                         bool (&ready)[kFiestaMaxDevices]) {
+  int device;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  if (device < kFiestaMaxDevices && ready[device]) return cudaSuccess;
+  int optin;
+  err = cudaDeviceGetAttribute(&optin,
+                               cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                               device);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
+  if (err == cudaSuccess && device < kFiestaMaxDevices) ready[device] = true;
+  return err;
+}
+
 // Column tiles of a contiguous volume viewed as [outer, A, inner], walked
 // along A (the EDT and closest window passes, fiesta_tile_window_kernel
 // below): a block holds tc whole columns as an [A][tc] tile in shared
@@ -64,11 +87,11 @@ static inline int fiesta_tile_cols(int A) {
   return tc;
 }
 
-// The windowed passes along one axis (the EDT min-plus pass and the
-// closest window and split passes) share one kernel: a block loads tc whole
-// columns into shared memory, coalesced, through the pass's prologue
-// `pass.load(raw, i, near)`, which returns the tile word and ORs into `near`
-// whether the value is below "far"; columns past the end read `pass.fill`.
+// The closest window and split passes share one kernel: a block loads tc
+// whole columns into shared memory, coalesced, through the pass's prologue
+// `pass.load(raw, i, near)`, which returns the tile word and ORs into
+// `near` whether the value is below "far"; columns past the end read
+// `pass.fill`.
 // The block votes on `near`, then each element's result is
 // `pass.window(column, i, A, tc, any_near)`, evaluated from shared memory
 // (`column` points at row 0 of the element's tile column, rows tc apart;
@@ -120,12 +143,12 @@ template <class Pass>
 static int fiesta_tile_window(const Pass& pass, const int* f, int* out,
                               long long outer, int A, long long inner,
                               cudaStream_t stream) {
+  static bool ready[kFiestaMaxDevices];
+  const cudaError_t err =
+      fiesta_allow_max_smem(fiesta_tile_window_kernel<Pass>, ready);
+  if (err != cudaSuccess) return (int)err;
   const int tc = fiesta_tile_cols(A);
   const size_t smem = 2 * (size_t)A * tc * sizeof(int);
-  const cudaError_t err = cudaFuncSetAttribute(
-      fiesta_tile_window_kernel<Pass>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
   const long long blocks = (outer * inner + tc - 1) / tc;
   fiesta_tile_window_kernel<Pass><<<(unsigned)blocks, 256, smem, stream>>>(
       f, out, outer, A, inner, tc, pass);

@@ -98,6 +98,43 @@ def _minplus_pass_plain(f: torch.Tensor, t: int, axis: int) -> torch.Tensor:
     return acc.movedim(0, axis).contiguous()
 
 
+def minplus_window_taps(f: torch.Tensor, t: int, axis: int):
+    """The CUDA min-plus kernel's bounded window (``kernels/edt.cu``), as
+    plain PyTorch on any device: each voxel's loop runs from
+    k = max(1, k0), with k0 the distance along the column to the nearest
+    value below _INF_EDT, while k <= t and k^2 < acc.  Returns (out, taps):
+    ``out`` equals ``_minplus_pass_plain``; ``taps`` (i32) counts the
+    offsets each voxel's loop needs (for t < 2047, the kernel's cap on
+    k0; the kernel takes them four at a time, so it may evaluate up to
+    three more).  The kernel's work model, for tests and for predicting
+    its time."""
+    x = f.movedim(axis, 0)
+    a = x.shape[0]
+    tl = min(t, a - 1)
+    idx = _lead_iota(a, x.dim(), x.device).to(torch.int64).expand(x.shape)
+    near = x < _INF_EDT
+    none = 1 << 20
+    last = torch.where(near, idx, -none).cummax(0).values
+    nxt = torch.where(near, idx, a + none).flip(0).cummin(0).values.flip(0)
+    k0 = torch.minimum(idx - last, nxt - idx)
+    k = torch.clamp(k0, min=1)
+    xp = _padded(x, tl, _INF_EDT)
+    acc = x.clone()
+    taps = torch.zeros(x.shape, dtype=torch.int32, device=x.device)
+    live = (k <= tl) & (k * k < acc)
+    while bool(live.any()):
+        kk = torch.where(live, k, 0)
+        pair = torch.minimum(xp.gather(0, tl + idx - kk),
+                             xp.gather(0, tl + idx + kk))
+        acc = torch.where(live, torch.minimum(acc, pair + (kk * kk).to(
+            acc.dtype)), acc)
+        taps += live.to(torch.int32)
+        k = k + live.to(k.dtype)
+        live = live & (k <= tl) & (k * k < acc)
+    return (acc.movedim(0, axis).contiguous(),
+            taps.movedim(0, axis).contiguous())
+
+
 def binary_pass(f: torch.Tensor, t: int, square: bool = True) -> torch.Tensor:
     """First EDT pass along axis 0 of a binary (0 / _INF_EDT) i32 volume.
     CUDA tensor: the ``edt_binary`` kernel; CPU tensor: the plain version."""

@@ -112,6 +112,47 @@ def test_carve_kernel(dev, cfg):
     val = torch.tensor(rng.uniform(size=(k, p)) < 0.9)
     _, po, seeds, _, _, _ = raycast._scanline_seeds_batch(
         cfg, pts.to(dev), val.to(dev), origins.to(dev))
+    kernels.reset_launch_counts()
+    got, names = _cuda_kernels(
+        lambda: raycast.carve_free_mask_batch(cfg, seeds, po))
+    assert kernels.LAUNCHES["carve"] == 1
+    assert names == ["carve_zero", "carve_sweep"]  # 217 at cow before
+    ref = raycast._carve_free_plain(cfg, seeds, po)
+    _eq(got, ref)
+    assert bool(ref.any())
+    _eq(got[:1], raycast._carve_free_plain(cfg, seeds[:1], po[:1]))  # K = 1
+    _eq(raycast.carve_free_mask_batch(cfg, seeds[:1], po[:1]), got[:1])
+
+
+def _range_seeds(box, po, res, density, g):
+    """Seeds [K, *box]: a sparse set of voxels holding their range from
+    the sensor (metres, a little beyond)."""
+    axes = torch.meshgrid(*[torch.arange(n, dtype=torch.float32)
+                            for n in box], indexing="ij")
+    grid = torch.stack(axes, -1)
+    rng_m = (grid[None] - po[:, None, None, None]).norm(dim=-1)
+    keep = torch.rand(rng_m.shape, generator=g) < density
+    val = rng_m * res + 0.1 * torch.rand(rng_m.shape, generator=g)
+    return torch.where(keep, val, 0.0)
+
+
+@pytest.mark.parametrize("box,po", [
+    ((23, 17, 11), [[11.0, 8.0, 5.0], [3.0, 16.0, 0.0]]),       # slab edge
+    ((23, 17, 11), [[0.0, 8.5, 5.5], [22.0, 16.0, 10.0]]),      # at a face
+    ((23, 17, 11), [[-3.5, 8.2, 5.1], [25.25, -2.0, 13.0]]),    # outside
+    ((216, 216, 80), [[108.3, 107.6, 40.2], [20.5, 190.0, 3.0],
+                      [230.0, -5.0, 79.0]]),                    # cow box
+    ((120, 120, 36), [[61.3, 58.7, 17.2]])],                    # demo box
+    ids=["integer_slab", "at_face", "outside", "cow_box", "demo_box"])
+def test_carve_kernel_sensor_edges(dev, box, po):
+    """Sensors on an integer slab, at and past a box face, and the cow
+    and demo boxes (their z plane, 216 x 216 and 120 x 120 cells, is split
+    over a cluster's blocks)."""
+    cfg = _cfg((12.0, 12.0, 4.8), (-6.0, -6.0, -2.4), 3.0)
+    g = torch.Generator().manual_seed(len(po))
+    po = torch.tensor(po, dtype=torch.float32)
+    seeds = _range_seeds(box, po, cfg.resolution, 0.01, g)
+    seeds, po = seeds.to(dev), po.to(dev)
     got = raycast.carve_free_mask_batch(cfg, seeds, po)
     ref = raycast._carve_free_plain(cfg, seeds, po)
     _eq(got, ref)
@@ -137,6 +178,38 @@ def test_minplus_pass_kernel(dev, axis, t):
         f = torch.where(near, torch.randint(0, 40, shape, generator=g), INF)
         f = f.to(torch.int32).to(dev)
         _eq(edt.minplus_pass(f, t, axis), edt._minplus_pass_plain(f, t, axis))
+
+
+def _minplus_edges(shape, axis, t, g):
+    """Inputs at the bounded window's edges, along ``axis``: random
+    values in [0, INF], values about t^2, all-far columns, and lone values
+    at distance t_local and t_local + 1 from a column's first row."""
+    a = shape[axis]
+    tl = min(t, a - 1)
+    rand = torch.randint(0, INF + 1, shape, generator=g)
+    rand[torch.rand(shape, generator=g) < 0.7] = INF
+    pick = torch.tensor([t * t - 1, t * t, t * t + 1, t * t + 5, INF])
+    near_t2 = pick[torch.randint(0, 5, shape, generator=g)]
+    lone = torch.full(shape, INF).movedim(axis, 0)
+    lone[:, ::2] = INF                              # all-far columns
+    lone[0, 1::4] = 0
+    lone[min(tl + 1, a - 1), 3::4] = 0
+    lone[a - 1, 1::4] = 3
+    return [x.to(torch.int32) for x in (rand, near_t2,
+                                        lone.movedim(0, axis))]
+
+
+@pytest.mark.parametrize("axis", [0, 1, 2])
+@pytest.mark.parametrize("t", [5, 100])
+def test_minplus_pass_kernel_edges(dev, axis, t):
+    """The bounded window at its edges, with t < A and t >= A, and columns
+    longer than a tile's sweep segment (450 rows at t = 100)."""
+    g = torch.Generator().manual_seed(t + axis)
+    for shape in ((45, 37, 33), (450, 9, 7), (6, 450, 40), (5, 7, 450)):
+        for f in _minplus_edges(shape, axis, t, g):
+            f = f.to(dev)
+            _eq(edt.minplus_pass(f, t, axis),
+                edt._minplus_pass_plain(f, t, axis))
 
 
 @pytest.mark.parametrize("probabilistic", [True, False])

@@ -93,3 +93,123 @@ def test_trunc_and_closest_capability_match():
         assert tedt.closest_plan(shape, t) == jedt.closest_plan(shape, t)
         assert tedt.closest_plan_wide(shape, t) == \
             jedt.closest_plan_wide(shape, t)
+
+
+# ---------------------------------------------------------------------------
+# The CUDA min-plus kernel's bounded window (kernels/edt.cu), emulated
+# ---------------------------------------------------------------------------
+
+
+def _minplus_inputs(kind, t, seed):
+    """Columns along axis 0 (length 48) for each edge of the bound."""
+    rng = np.random.default_rng(seed)
+    shape = (48, 9, 7)
+    if kind == "random":
+        f = rng.integers(0, INF + 1, shape)
+        f[rng.uniform(size=shape) < 0.6] = INF
+    elif kind == "near_t2":
+        # values at, just below and just above t^2, and far
+        f = rng.choice([t * t - 1, t * t, t * t + 1, t * t + 2, INF], shape)
+    elif kind == "all_far":
+        f = np.full(shape, INF)
+        f[:, 0, 0] = 3                          # one column with values
+    else:                                       # "single": one 0 per column
+        f = np.full(shape, INF)
+        tl = min(t, shape[0] - 1)
+        f[0, :, :] = 0                          # distance tl at row tl ...
+        f[:, 1, :] = INF
+        f[min(tl + 1, shape[0] - 1), 1, :] = 0  # ... and tl + 1 from row 0
+        f[:, 2, :] = INF
+        f[shape[0] - 1, 2, 3] = 5               # a non-zero lone value
+    return np.asarray(f, np.int32)
+
+
+@pytest.mark.parametrize("t", [1, 6, 30, 47, 100])
+@pytest.mark.parametrize("kind", ["random", "near_t2", "all_far", "single"])
+def test_bounded_window_matches_plain_and_pallas(kind, t):
+    """The kernel's loop bounds (k0 from below, k^2 >= acc from above) give
+    the plain pass on every value, above t^2 and on all-far columns too;
+    t = 47, 100 cover t >= A - 1 (A = 48), the rest t < A."""
+    f = _minplus_inputs(kind, t, t)
+    got, taps = tedt.minplus_window_taps(torch.from_numpy(f), t, 0)
+    plain = tedt._minplus_pass_plain(torch.from_numpy(f), t, 0).numpy()
+    np.testing.assert_array_equal(got.numpy(), plain)
+    ref = np.asarray(jedt._minplus_pass_pallas(jnp.asarray(f), t,
+                                               interpret=True))
+    np.testing.assert_array_equal(got.numpy(), ref)
+    tl = min(t, f.shape[0] - 1)
+    assert int(taps.max()) <= tl
+    far_cols = (f >= INF).all(axis=0)
+    assert not taps.numpy()[:, far_cols].any()  # all-far columns: no loop
+    assert not taps.numpy()[f == 0].any()       # acc = 0 stops at once
+
+
+@pytest.mark.parametrize("axis", [0, 1, 2])
+def test_bounded_window_any_axis(axis):
+    rng = np.random.default_rng(axis + 20)
+    f = np.where(rng.uniform(size=(14, 17, 11)) < 0.05,
+                 rng.integers(0, 400, (14, 17, 11)), INF).astype(np.int32)
+    got, _ = tedt.minplus_window_taps(torch.from_numpy(f), 9, axis)
+    np.testing.assert_array_equal(
+        got.numpy(), tedt._minplus_pass_plain(torch.from_numpy(f), 9,
+                                              axis).numpy())
+
+
+def test_bounded_window_tap_counts():
+    """Taps on one column, counted by hand: a lone 0 at row 0, t = 10.
+    Row i (1 <= i <= 10) starts at k0 = i, where the 0 gives acc = i^2,
+    so it stops there: one tap; rows past t have k0 > t: none."""
+    f = np.full((16, 1, 1), INF, np.int32)
+    f[0] = 0
+    _, taps = tedt.minplus_window_taps(torch.from_numpy(f), 10, 0)
+    np.testing.assert_array_equal(taps.numpy()[:, 0, 0],
+                                  [0] + [1] * 10 + [0] * 5)
+
+
+def _segmented_k0(col, segs, cap=2047, none=1 << 20):
+    """edt.cu's k0 sweep of one tile column, thread by thread: each of
+    ``segs`` threads finds the first and last value below INF in its
+    segment, then (after the barrier) sweeps its rows forward from the
+    nearest such row before it and backward from the nearest after it."""
+    a = len(col)
+    seg_len = -(-a // segs)
+    bounds = [(min(a, s * seg_len), min(a, min(a, s * seg_len) + seg_len))
+              for s in range(segs)]
+    first, last = [], []
+    for r0, r1 in bounds:
+        rows = [i for i in range(r0, r1) if col[i] < INF]
+        first.append(rows[0] if rows else -1)
+        last.append(rows[-1] if rows else -1)
+    k0 = [0] * a
+    for s, (r0, r1) in enumerate(bounds):
+        lp, nn = -none, a + none
+        for j in range(s):
+            if last[j] >= 0:
+                lp = last[j]
+        for j in range(segs - 1, s, -1):
+            if first[j] >= 0:
+                nn = first[j]
+        for i in range(r0, r1):
+            if col[i] < INF:
+                lp = i
+            k0[i] = min(i - lp, cap)
+        for i in range(r1 - 1, r0 - 1, -1):
+            if col[i] < INF:
+                nn = i
+            k0[i] = min(k0[i], nn - i, cap)
+    return k0
+
+
+@pytest.mark.parametrize("a,segs", [(48, 8), (400, 8), (80, 8), (5, 8),
+                                    (401, 16), (3000, 256)])
+def test_segmented_k0_is_the_nearest_distance(a, segs):
+    """The segmented sweep gives the distance to the nearest value below
+    INF (capped at 2047), empty segments and near-free columns included."""
+    rng = np.random.default_rng(a)
+    for p in (0.0, 0.002, 0.05, 0.5):
+        col = np.where(rng.uniform(size=a) < p, 7, INF)
+        near = np.flatnonzero(col < INF)
+        want = [min(int(np.abs(near - i).min()), 2047) if near.size else 2047
+                for i in range(a)]
+        assert _segmented_k0(col, segs) == want
+
