@@ -55,14 +55,17 @@ exits non-zero:
    one computes the same function, and the card's bound.  A kernel's
    ``ms`` is host-paced (calls back to back, as the main path makes
    them); beside it, queued behind a device sleep, the card's time
-   alone.  The four redesigned kernels (splat, sort, carve, min-plus)
-   also print their CUDA launches per call and device time by kernel name
-   (``torch.profiler``), beside their times before their redesign
-   (``EARLIER_MS``); the splat's zero fill has a row of its own.  The
-   carve is also timed at the demo box (on the demo's first tick) and
-   prints its wavefronts' steps; the min-plus pass prints its window
-   offsets per voxel (``minplus_taps``) beside the brute-force window's;
-8. a JSON line of per-kernel numbers, the nvidia-smi line, and last
+   alone.  The six redesigned kernels (splat, sort, carve, min-plus, EDT
+   binary, closest split) also print their CUDA launches per call and
+   device time by kernel name (``torch.profiler``), beside their times
+   before their redesign (``EARLIER_MS``); the splat's zero fill has a row
+   of its own.  The carve is also timed at the demo box (on the demo's
+   first tick) and prints its wavefronts' steps; the min-plus pass prints
+   its window offsets per voxel (``minplus_taps``) and the closest split
+   pass those of each side (``split_taps``), each beside the brute-force
+   window's;
+8. a JSON line of per-kernel numbers (with the launches, device times,
+   carve steps and window offsets above), the nvidia-smi line, and last
    ``{"ok": true, "device": {...}}``.
 
 The script needs a CUDA card and the rest of the repository; without
@@ -108,14 +111,18 @@ I32_OPS_PER_S = 132 * 64 * 1.98e9      # 64 INT32 lanes/SM x 132 SMs x boost
 SLEEP_CYCLES = 40_000_000   # ~20 ms at the H100's 1.98 GHz boost clock
 MARK_CYCLES = 100_000       # ~50 us: the profiler's first kernel
 # host-paced ms per call of the splat (three launches), the sort (28
-# launches at 2^18 pairs), the carve (217 launches at cow) and the min-plus
-# pass (mean of axes 1 and 2) before their redesign, at the same shapes on
-# an H100 80GB HBM3 at 700 W (PERF.md, kernel table), and the launches
+# launches at 2^18 pairs), the carve (217 launches at cow), the min-plus
+# pass (mean of axes 1 and 2), the EDT binary pass (a thread a column) and
+# the closest split pass (the brute-force window) before their redesign,
+# at the same shapes on an H100 80GB HBM3 at 700 W (PERF.md, kernel
+# table), and the launches
 EARLIER_MS = {"splat": 0.0714, "sort": 0.1716, "carve": 1.3794,
-              "edt_minplus": 0.4933}
+              "edt_minplus": 0.4933, "edt_binary": 0.1663,
+              "closest_split": 0.6178}
 EARLIER_MINPLUS_AXIS_MS = (0.6378, 0.3488)
 EARLIER_LAUNCHES = {"splat": "3", "sort": "28 at 2^18 pairs",
-                    "carve": "217 at cow", "edt_minplus": "1"}
+                    "carve": "217 at cow", "edt_minplus": "1",
+                    "edt_binary": "1", "closest_split": "1"}
 # int32 operations per voxel of an exact O(A) min-plus pass: a lower
 # envelope of parabolas (Felzenszwalb-Huttenlocher) builds with amortised
 # two intersection tests of ~8 operations per element, then one evaluation
@@ -229,34 +236,40 @@ def kernel_times(fn, calls=5, windows=5):
     return dict(ms=ms, device_ms=statistics.median(device))
 
 
-def profiled(fn, calls):
+def profiled(fn, calls, attempts=3):
     """Run ``fn`` ``calls`` times under ``torch.profiler``: returns (device
     ms per call by kernel name, launches per call by kernel name, names cut
     at their argument list, and wall ms per call).  The trace drops the
     first kernel launched in it, so a short device sleep goes first and is
-    left out."""
+    left out.  Now and then the profiler returns a trace with no kernel at
+    all: that trace is taken again, up to ``attempts`` times, and raises
+    if none lists a kernel."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=acts) as prof:
-        torch.cuda._sleep(MARK_CYCLES)
+    for _ in range(attempts):
         torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    by_name, count = {}, {}
-    for e in prof.key_averages():
-        dt = getattr(e, "device_time_total", None)
-        if dt is None:
-            dt = getattr(e, "cuda_time_total", 0.0)
-        if dt and e.device_type == torch.autograd.DeviceType.CUDA and \
-                "spin_kernel" not in e.key:
-            name = e.key.split("(")[0]
-            by_name[name] = by_name.get(name, 0.0) + dt / 1e3 / calls
-            count[name] = count.get(name, 0) + e.count / calls
-    return by_name, count, wall_ms / calls
+        with torch.profiler.profile(activities=acts) as prof:
+            torch.cuda._sleep(MARK_CYCLES)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        by_name, count = {}, {}
+        for e in prof.key_averages():
+            dt = getattr(e, "device_time_total", None)
+            if dt is None:
+                dt = getattr(e, "cuda_time_total", 0.0)
+            if dt and e.device_type == torch.autograd.DeviceType.CUDA and \
+                    "spin_kernel" not in e.key:
+                name = e.key.split("(")[0]
+                by_name[name] = by_name.get(name, 0.0) + dt / 1e3 / calls
+                count[name] = count.get(name, 0) + e.count / calls
+        if by_name:
+            return by_name, count, wall_ms / calls
+    raise RuntimeError(f"torch.profiler listed no kernel in {attempts} "
+                       "traces")
 
 
 def max_abs_err(got, ref):
@@ -351,6 +364,10 @@ def closest_rows(cfg, occupied):
             library_ms=None,
             bound=bound(8 * nvox, ENVELOPE_OPS * near_cols * x.shape[axis],
                         I32_OPS_PER_S)))
+    by_name, counts, _ = profiled(lambda: kernels.closest_split(p2, plan, c),
+                                  10)
+    rows[-1].update(cuda_launches=sum(counts.values()), by_kernel=by_name,
+                    taps=split_taps(p2, plan, c))
     return rows
 
 
@@ -382,26 +399,46 @@ def carve_steps(po, box):
                 visits=visits)
 
 
-def minplus_taps(x, t, axis):
-    """The min-plus kernel's work on input ``x`` along ``axis``: window
-    offsets per voxel of the bounded loop (``edt.minplus_window_taps``:
-    mean and a histogram), beside the brute-force window's (t_local
-    offsets for every voxel of a 32-column tile holding a value below
-    far)."""
-    _, taps = edt.minplus_window_taps(x, t, axis)
-    a = x.shape[axis]
-    tl = min(t, a - 1)
-    cols = (x < edt._INF_EDT).any(dim=axis).reshape(-1)
-    pad = -cols.numel() % 32
-    tiles = torch.cat([cols, cols.new_zeros(pad)]).view(-1, 32).any(1)
-    brute = min(int(tiles.sum()) * 32, cols.numel()) * a * tl
+def taps_summary(taps):
+    """Mean, most and a histogram of window offsets per voxel."""
     edges = [0, 1, 2, 4, 8, 16, 32, 64, 128, 256, 1 << 30]
     tf = taps.reshape(-1)
     hist = {f"{lo}-{hi - 1}": int(((tf >= lo) & (tf < hi)).sum())
             for lo, hi in zip(edges[:-1], edges[1:])}
-    return dict(mean_taps=float(tf.double().mean()),
-                brute_mean_taps=brute / x.numel(),
-                max_taps=int(tf.max()), hist=hist)
+    return dict(mean_taps=float(tf.double().mean()), max_taps=int(tf.max()),
+                hist=hist)
+
+
+def brute_mean_taps(near, axis, tl):
+    """Offsets per voxel of the brute-force window (t_local for every
+    voxel of a 32-column tile holding a value below far, ``near``)."""
+    cols = near.any(dim=axis).reshape(-1)
+    pad = -cols.numel() % 32
+    tiles = torch.cat([cols, cols.new_zeros(pad)]).view(-1, 32).any(1)
+    return min(int(tiles.sum()) * 32, cols.numel()) * near.shape[axis] * tl \
+        / near.numel()
+
+
+def minplus_taps(x, t, axis):
+    """The min-plus kernel's work on input ``x`` along ``axis``: window
+    offsets per voxel of the bounded loop (``edt.minplus_window_taps``),
+    beside the brute-force window's."""
+    _, taps = edt.minplus_window_taps(x, t, axis)
+    tl = min(t, x.shape[axis] - 1)
+    return dict(**taps_summary(taps), brute_mean_taps=brute_mean_taps(
+        x < edt._INF_EDT, axis, tl))
+
+
+def split_taps(x, plan, axis):
+    """The closest split kernel's work on input ``x`` along ``axis``:
+    window offsets per voxel of each side's bounded loop
+    (``edt.split_window_taps``), beside the brute-force window's, a
+    side."""
+    _, taps_n, taps_p = edt.split_window_taps(x, plan, axis)
+    tl = min(plan["t"], x.shape[axis] - 1)
+    return dict(n=taps_summary(taps_n), p=taps_summary(taps_p),
+                brute_mean_taps=brute_mean_taps(
+                    (x >> plan["s"]) < plan["cap"], axis, tl))
 
 
 def demo_seeds(dcfg, dbatches):
@@ -889,12 +926,15 @@ def run(dev, cfg, h, w, ticks, dcfg, dh, dw, dticks):
     err = max(err, max_abs_err([kernels.edt_binary(f, t, square=False)],
                                [edt._binary_pass_plain(f, t, False)]))
     nvox = f.numel()
+    binary_kernels, binary_counts, _ = profiled(
+        lambda: kernels.edt_binary(f, t), 10)
     rows.append(dict(
         name="edt_binary", source="fiesta_tpu_torch/kernels/edt.cu",
         replaces="fiesta_tpu/ops/pallas/edt.py:195", err=err,
         **kernel_times(lambda: kernels.edt_binary(f, t)),
         plain_ms=time_ms(lambda: edt._binary_pass_plain(f, t)),
-        library_ms=None, bound=bound(nvox * 8, 4 * nvox, I32_OPS_PER_S)))
+        library_ms=None, bound=bound(nvox * 8, 4 * nvox, I32_OPS_PER_S),
+        cuda_launches=sum(binary_counts.values()), by_kernel=binary_kernels))
 
     # the main path runs the min-plus pass along axis 1, then axis 2; the
     # row reports the mean over the two launches of a tick
@@ -935,6 +975,12 @@ def run(dev, cfg, h, w, ticks, dcfg, dh, dw, dticks):
         f"card alone; plain {plain_ms[0]:.3f} / {plain_ms[1]:.3f} ms, "
         f"bounds {bounds}; window offsets per voxel {taps}; on {card}")
 
+    rows.extend(closest_rows(cfg, occupied))
+    split = next(r for r in rows if r["name"] == "closest_split")
+    log(f"closest_split window offsets per voxel: side n "
+        f"{split['taps']['n']}, side p {split['taps']['p']}; the "
+        f"brute-force window {split['taps']['brute_mean_taps']:.2f} a side")
+
     for r in rows:
         if r["name"] not in EARLIER_LAUNCHES:
             continue
@@ -947,8 +993,6 @@ def run(dev, cfg, h, w, ticks, dcfg, dh, dw, dticks):
             f"{r.get('library_device_ms')}; device ms by kernel "
             f"{ {k: round(v, 4) for k, v in r['by_kernel'].items()} }"
             f"; on {card}")
-
-    rows.extend(closest_rows(cfg, occupied))
 
     out = []
     for r in rows:
@@ -990,7 +1034,7 @@ def run(dev, cfg, h, w, ticks, dcfg, dh, dw, dticks):
                       "demo_occupied": n_demo,
                       "fuse_window_demo": fuse_window,
                       "carve_steps": steps, "carve_demo": carve_demo,
-                      "minplus_taps": taps}))
+                      "minplus_taps": taps, "split_taps": split["taps"]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -25,18 +25,44 @@
 //     shift, payload 0) never tie at value L.
 // Bound: bytes (u8 in, i32 out: 5 bytes per voxel, 64 MB at cow scale).
 //
-// Window pass (payload b* << ba | a*) and split pass (two half-window
-// accumulators, one output word val << (s+1) | sign << s | pay) run on the
-// shared column-tile kernel (fiesta_kernels.cuh): tc whole columns per
-// block in shared memory, coalesced loads and stores, the window pass's
-// repack as the load's prologue, the brute-force window from shared
-// memory.  Out-of-range neighbours read cap << s with payload 0.  A tile
-// whose every value equals cap is all far: the centre wins every
-// comparison (a neighbour or the fill adds k^2 >= 1 to the value), so the
-// window loop is skipped and the epilogue gives exactly what the loop
-// would.  Bound: bytes (one i32 read and write per voxel, 102 MB
-// at cow scale) against the cheapest exact O(A) pass; the brute-force
-// window does 3 (window) or 4 (split) int32 operations per offset.
+// Window pass (payload b* << ba | a*): the shared column-tile kernel
+// (fiesta_kernels.cuh): tc whole columns per block in shared memory,
+// coalesced loads and stores, the repack as the load's prologue, the
+// brute-force window from shared memory.  Out-of-range neighbours read
+// cap << s with payload 0.  A tile whose every value equals cap is all
+// far: the centre wins every comparison (a neighbour or the fill adds
+// k^2 >= 1 to the value), so the window loop is skipped and the epilogue
+// gives exactly what the loop would.  Bound: bytes (one i32 read and
+// write per voxel, 102 MB at cow scale) against the cheapest exact O(A)
+// pass; the brute-force window does 3 int32 operations per offset.
+//
+// Split pass (two half-window accumulators, one output word
+// val << (s+1) | sign << s | pay): its own kernel, each side's window
+// bounded exactly.  Inputs are <= cap, so a neighbour whose value is cap
+// (or the fill beyond a column end, cap << s with payload 0) adds k^2 >= 1
+// to a value >= the centre's and never wins:
+//   * side n starts at k0n, the distance to the nearest row below i whose
+//     value is below cap, and side p at k0p, the nearest row above i
+//     (none: the side keeps the centre).  Both come from a segmented
+//     two-sweep pass over each tile column, one segment per thread (the
+//     segment's first and last such rows, a barrier, carries from the
+//     other segments); k0n is carried as the thread walks its rows
+//     upward and k0p is kept in a u8 side array (capped at 254, a lower
+//     bound; 255 for none), since the words have no spare bits;
+//   * each side stops at the first k with (k^2 << s) >= acc: a candidate
+//     at offset k is a whole word >= k^2 << s, so it cannot be below acc,
+//     and a tie leaves the word as it is.  The sides are bounded
+//     independently, so each accumulator is exact and the strict
+//     vp < vn (ties to n) is that of the brute-force window.
+// Offsets go four a turn with independent loads (an offset past the
+// side's reach re-reads its last one).  A tile with no value below cap
+// skips the sweeps and the loops.  Warps take 32 neighbouring columns
+// row by row, so their bounds are alike.  A strided axis (cow: inner =
+// 80) writes results from registers; a contiguous one stages them.
+// Each block computes its columns' base addresses once.  Bound: bytes, as
+// for the window pass; what holds it above that: the window loops (the
+// offsets per voxel follow the distance to the nearest obstacle), the
+// sweeps, and divergence within a warp.
 
 #include "fiesta_kernels.cuh"
 
@@ -97,31 +123,141 @@ struct ClosestWindow {
   }
 };
 
-// Split pass: two half-window accumulators, one output word.
-struct ClosestSplit {
-  int tl, s, cap;
-  int fill;  // cap << s, payload 0: beyond the column ends
-  __device__ int load(int raw, int, int& near) const {
-    near |= (raw >> s) != cap;
-    return raw;
+namespace {
+
+constexpr int kSplitThreads = 512;
+constexpr int kSplitUnroll = 4;
+constexpr int kK0Far = 254;             // farther k0p is stored as this
+constexpr unsigned char kK0None = 255;  // no value below cap above the row
+bool g_split_ready[kFiestaMaxDevices];
+
+// Row pitch of the tile: tc, so that lanes on different rows still use
+// different banks, or tc + 1 when the column is contiguous (inner == 1),
+// so that the load, which walks a column, is free of bank conflicts.
+__host__ __device__ int split_pitch(int tc, bool staged) {
+  return staged ? tc + 1 : tc;
+}
+
+// Shared memory of a split block of tc columns: base addresses, the tile
+// (and the result tile when staged), the segments' rows, the u8 k0p.
+size_t split_smem(int A, int tc, bool staged) {
+  const int segs = kSplitThreads / tc;
+  const size_t words = (size_t)A * split_pitch(tc, staged) * (staged ? 2 : 1);
+  return tc * sizeof(long long) + (words + 2 * (size_t)segs * tc) *
+         sizeof(int) + (size_t)A * tc;
+}
+
+}  // namespace
+
+__global__ void __launch_bounds__(kSplitThreads)
+    closest_split_kernel(const int* __restrict__ f, int* __restrict__ out,
+                         long long outer, int A, long long inner, int tc,
+                         int tl, int s, int cap) {
+  extern __shared__ long long split_sm[];
+  const bool staged = inner == 1;
+  const int pitch = split_pitch(tc, staged);
+  const int segs = blockDim.x / tc;
+  long long* base = split_sm;                  // [tc]: address of row 0
+  int* tile = (int*)(base + tc);               // [A][pitch]: the words
+  int* first = tile + A * pitch;               // [segs][tc]
+  int* last = first + segs * tc;               // [segs][tc]
+  int* res = last + segs * tc;                 // [A][pitch], inner == 1
+  unsigned char* k0p =                         // [A][tc]
+      (unsigned char*)(res + (staged ? A * pitch : 0));
+  const int fill = cap << s;
+  const int mask = (1 << s) - 1;
+  const long long ncols = outer * inner;
+  const long long col0 = (long long)blockIdx.x * tc;
+  const int total = A * tc;
+
+  for (int c = threadIdx.x; c < tc; c += blockDim.x)
+    base[c] = col0 + c < ncols ? fiesta_col_addr(col0 + c, 0, A, inner) : -1;
+  __syncthreads();
+  int near = 0;
+  for (int e = threadIdx.x; e < total; e += blockDim.x) {
+    int i, c;
+    fiesta_tile_pos(e, A, tc, inner, i, c);
+    const int w = base[c] >= 0 ? f[base[c] + i * inner] : fill;
+    near |= (w >> s) < cap;
+    tile[i * pitch + c] = w;
   }
-  __device__ int window(const int* col, int i, int A, int tc,
-                        bool any_near) const {
-    int acc_n = col[i * tc], acc_p = acc_n;
-    if (any_near) {
-      for (int k = 1; k <= tl; ++k) {
-        const int kk = (k * k) << s;
-        acc_n = min(acc_n, (i - k >= 0 ? col[(i - k) * tc] : fill) + kk);
-        acc_p = min(acc_p, (i + k < A ? col[(i + k) * tc] : fill) + kk);
+  const bool any_near = __syncthreads_or(near);
+
+  // thread (seg, c) owns rows [r0, r1) of tile column c
+  const int c = threadIdx.x % tc, seg = threadIdx.x / tc;
+  const int len = (A + segs - 1) / segs;
+  const int r0 = min(A, seg * len), r1 = min(A, r0 + len);
+  const int* col = tile + c;
+  int lp = -1;  // the nearest row below i with a value below cap (-1: none)
+  if (any_near) {
+    int fn = -1, ln = -1;
+    for (int i = r0; i < r1; ++i)
+      if ((col[i * pitch] >> s) < cap) {
+        if (fn < 0) fn = i;
+        ln = i;
       }
+    first[seg * tc + c] = fn;
+    last[seg * tc + c] = ln;
+    __syncthreads();
+    int nn = A;  // the nearest row above i with a value below cap (A: none)
+    for (int j = 0; j < seg; ++j)
+      if (last[j * tc + c] >= 0) lp = last[j * tc + c];
+    for (int j = segs - 1; j > seg; --j)
+      if (first[j * tc + c] >= 0) nn = first[j * tc + c];
+    for (int i = r1 - 1; i >= r0; --i) {
+      k0p[i * tc + c] =
+          nn == A ? kK0None : (unsigned char)min(nn - i, kK0Far);
+      if ((col[i * pitch] >> s) < cap) nn = i;
+    }
+  }
+
+  for (int i = r0; i < r1; ++i) {
+    const int w = col[i * pitch];
+    int acc_n = w, acc_p = w;
+    if (any_near) {
+      if (lp >= 0) {
+        const int kmax = min(tl, i);
+        for (int k = i - lp; k <= kmax && ((k * k) << s) < acc_n;
+             k += kSplitUnroll) {
+#pragma unroll
+          for (int u = 0; u < kSplitUnroll; ++u) {
+            const int kq = min(k + u, kmax);
+            acc_n = min(acc_n, col[(i - kq) * pitch] + ((kq * kq) << s));
+          }
+        }
+      }
+      const int kp = k0p[i * tc + c];
+      if (kp != kK0None) {
+        const int kmax = min(tl, A - 1 - i);
+        for (int k = kp; k <= kmax && ((k * k) << s) < acc_p;
+             k += kSplitUnroll) {
+#pragma unroll
+          for (int u = 0; u < kSplitUnroll; ++u) {
+            const int kq = min(k + u, kmax);
+            acc_p = min(acc_p, col[(i + kq) * pitch] + ((kq * kq) << s));
+          }
+        }
+      }
+      if ((w >> s) < cap) lp = i;
     }
     const int vn = acc_n >> s, vp = acc_p >> s;
     const int use_p = vp < vn;  // strict: ties go to the negative side
     const int val = min(min(vn, vp), cap);
-    const int pay = (use_p ? acc_p : acc_n) & ((1 << s) - 1);
-    return (val << (s + 1)) | (use_p << s) | pay;
+    const int word =
+        (val << (s + 1)) | (use_p << s) | ((use_p ? acc_p : acc_n) & mask);
+    if (staged)
+      res[i * pitch + c] = word;
+    else if (base[c] >= 0)
+      out[base[c] + i * inner] = word;
   }
-};
+  if (!staged) return;
+  __syncthreads();
+  for (int e = threadIdx.x; e < total; e += blockDim.x) {
+    int i, cc;
+    fiesta_tile_pos(e, A, tc, inner, i, cc);
+    if (base[cc] >= 0) out[base[cc] + i] = res[i * pitch + cc];
+  }
+}
 
 FIESTA_EXPORT int fiesta_closest_binary(const uint8_t* occ, int* out,
                                         long long outer, int A,
@@ -149,6 +285,16 @@ FIESTA_EXPORT int fiesta_closest_split(const int* f, int* out,
                                        long long outer, int A,
                                        long long inner, int tl, int s,
                                        int cap, cudaStream_t stream) {
-  return fiesta_tile_window(ClosestSplit{tl, s, cap, cap << s}, f, out,
-                            outer, A, inner, stream);
+  const cudaError_t err =
+      fiesta_allow_max_smem(closest_split_kernel, g_split_ready);
+  if (err != cudaSuccess) return (int)err;
+  const bool staged = inner == 1;
+  const int tc = fiesta_fit_tile_cols(
+      [A, staged](int tc) { return split_smem(A, tc, staged); });
+  const long long blocks = (outer * inner + tc - 1) / tc;
+  closest_split_kernel<<<(unsigned)blocks, kSplitThreads,
+                         split_smem(A, tc, staged), stream>>>(
+      f, out, outer, A, inner, tc, tl, s, cap);
+  FIESTA_LAUNCH_CHECK();
+  return 0;
 }

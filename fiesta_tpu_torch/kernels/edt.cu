@@ -7,14 +7,21 @@
 //
 // Binary pass.  On a 0 / INF column, the first min-plus pass equals the
 // squared L1 distance to the nearest seed on the column.  The TPU kernel
-// gets it from O(log t) doubling shifts; here one thread walks its column
-// forward then backward (the two-sweep 1-D distance transform), with the
-// input clamped to t_local + 1 as the TPU kernel clamps it: every distance
-// <= t_local comes out exact, every other one reads as "far".  Bound:
-// bytes (one i32 read and one i32 write per voxel; 102 MB at cow scale).
-// Neighbouring threads own neighbouring columns, so every step of the walk
-// is one coalesced row access.
-//
+// gets it from O(log t) doubling shifts; here it is the two-sweep 1-D
+// distance transform, with the input clamped to t_local + 1 as the TPU
+// kernel clamps it: every distance <= t_local comes out exact, every other
+// one reads as "far".  A block holds tc whole columns as an [A][tc] tile
+// in shared memory (one row of 32 columns is 128 contiguous bytes, so the
+// load is coalesced), and splits each column into segments, one per
+// thread.  Each thread sweeps its segment from "far" both ways (the
+// distance at its last row from below, at its first row from above);
+// after a barrier it takes the carries of the other segments and sweeps
+// forward (in place) and backward, writing d^2, the raw d or the sentinel
+// as it goes: a warp writes one 128-byte row a step.  A tile with no value
+// below t_local + 1 writes the sentinel without sweeping (the TPU
+// kernel's all-far skip).  Bound: bytes (one i32 read and one i32 write
+// per voxel; 102 MB at cow scale).
+
 // Min-plus pass.  out[i] = min(f[i], min_{1<=k<=t} min(f[i-k], f[i+k]) + k^2)
 // with INF beyond the column ends and 0 <= f <= INF, along any axis of a
 // contiguous volume viewed as [outer, A, inner]: tc whole columns per
@@ -48,45 +55,30 @@
 
 #define EDT_INF (1 << 20)
 
-__global__ void edt_binary_kernel(const int* __restrict__ f,
-                                  int* __restrict__ out, int A,
-                                  long long inner, int tl, int far_value,
-                                  int square) {
-  const long long c = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= inner) return;
-  const int cap = tl + 1;
-  int g = cap;  // forward: distance to the nearest seed at or before i
-  for (int i = 0; i < A; ++i) {
-    const long long at = (long long)i * inner + c;
-    g = min(min(f[at], cap), g + 1);
-    out[at] = g;
-  }
-  int h = cap;  // backward: min over both sides
-  for (int i = A - 1; i >= 0; --i) {
-    const long long at = (long long)i * inner + c;
-    h = min(out[at], h + 1);
-    out[at] = h > tl ? far_value : (square ? h * h : h);
-  }
-}
-
 namespace {
 
+constexpr int kBinaryThreads = 512;
 constexpr int kMinplusThreads = 256;
 constexpr unsigned kValMask = (1u << 21) - 1;  // f <= EDT_INF = 2^20
 constexpr int kK0Shift = 21;
 constexpr int kK0Cap = (1 << 11) - 1;
 constexpr int kNone = 1 << 20;  // no value below INF on that side
 constexpr int kWindowUnroll = 4;
+bool g_binary_ready[kFiestaMaxDevices];
 bool g_minplus_ready[kFiestaMaxDevices];
 
-// Columns per block: 32 (one warp-wide row) while the tiles fit in 200 KB
-// of shared memory, fewer for very long columns.
+// Shared memory of a binary block of tc columns: the tile and the
+// segments' carries.
+size_t binary_smem(int A, int tc) {
+  const int segs = kBinaryThreads / tc;
+  return ((size_t)A * tc + 2 * (size_t)segs * tc) * sizeof(int);
+}
+
+// Columns per min-plus block, sized by its tiles alone.
 int minplus_tile_cols(int A, bool staged) {
-  int tc = 32;
-  while (tc > 1 && (long long)A * (tc + 1) * sizeof(int) * (staged ? 2 : 1) >
-                       200 * 1024)
-    tc /= 2;
-  return tc;
+  return fiesta_fit_tile_cols([A, staged](int tc) {
+    return (long long)A * (tc + 1) * sizeof(int) * (staged ? 2 : 1);
+  });
 }
 
 size_t minplus_smem(int A, int tc, bool staged) {
@@ -97,6 +89,67 @@ size_t minplus_smem(int A, int tc, bool staged) {
 }
 
 }  // namespace
+
+__global__ void __launch_bounds__(kBinaryThreads)
+    edt_binary_kernel(const int* __restrict__ f, int* __restrict__ out,
+                      int A, long long inner, int tc, int tl, int far_value,
+                      int square) {
+  extern __shared__ int binary_sm[];
+  const int cap = tl + 1;
+  const int segs = blockDim.x / tc;
+  int* tile = binary_sm;            // [A][tc]: min(f, cap)
+  int* up = tile + A * tc;          // [segs][tc]: at the segment's last row
+  int* down = up + segs * tc;       // [segs][tc]: at its first row
+  const long long col0 = (long long)blockIdx.x * tc;
+  const int cols = (int)min((long long)tc, inner - col0);
+  const int total = A * tc;
+
+  int near = 0;
+#pragma unroll 4
+  for (int e = threadIdx.x; e < total; e += blockDim.x) {
+    const int i = e / tc, c = e % tc;
+    const int v = c < cols ? min(f[i * inner + col0 + c], cap) : cap;
+    near |= v < cap;
+    tile[e] = v;
+  }
+  if (!__syncthreads_or(near)) {
+    for (int e = threadIdx.x; e < total; e += blockDim.x) {
+      const int i = e / tc, c = e % tc;
+      if (c < cols) out[i * inner + col0 + c] = far_value;
+    }
+    return;
+  }
+
+  // thread (seg, c) owns rows [r0, r1) of tile column c
+  const int c = threadIdx.x % tc, seg = threadIdx.x / tc;
+  const int len = (A + segs - 1) / segs;
+  const int r0 = min(A, seg * len), r1 = min(A, r0 + len);
+  int* col = tile + c;
+  int g = cap, h = cap;  // the segment alone: g at row r1 - 1, h at row r0
+  for (int i = r0; i < r1; ++i) {
+    const int v = col[i * tc];
+    g = min(g + 1, v);
+    h = min(h, v + (i - r0));
+  }
+  up[seg * tc + c] = g;
+  down[seg * tc + c] = h;
+  __syncthreads();
+  g = cap;  // at row r0 - 1, from the segments below
+  for (int j = 0; j < seg; ++j)
+    g = min(g + min(A, j * len + len) - min(A, j * len), up[j * tc + c]);
+  h = cap;  // at row r1, from the segments above
+  for (int j = segs - 1; j > seg; --j)
+    h = min(h + min(A, j * len + len) - min(A, j * len), down[j * tc + c]);
+  for (int i = r0; i < r1; ++i) {
+    g = min(g + 1, col[i * tc]);
+    col[i * tc] = g;
+  }
+  int* o = out + col0 + c;
+  for (int i = r1 - 1; i >= r0; --i) {
+    h = min(h + 1, col[i * tc]);
+    if (c < cols) o[i * inner] = h > tl ? far_value : (square ? h * h : h);
+  }
+}
 
 __global__ void __launch_bounds__(kMinplusThreads)
     edt_minplus_kernel(const int* __restrict__ f, int* __restrict__ out,
@@ -199,10 +252,14 @@ __global__ void __launch_bounds__(kMinplusThreads)
 FIESTA_EXPORT int fiesta_edt_binary(const int* f, int* out, int A,
                                     long long inner, int tl, int far_value,
                                     int square, cudaStream_t stream) {
-  const int threads = 128;
-  const long long blocks = (inner + threads - 1) / threads;
-  edt_binary_kernel<<<(unsigned)blocks, threads, 0, stream>>>(
-      f, out, A, inner, tl, far_value, square);
+  const cudaError_t err =
+      fiesta_allow_max_smem(edt_binary_kernel, g_binary_ready);
+  if (err != cudaSuccess) return (int)err;
+  const int tc =
+      fiesta_fit_tile_cols([A](int tc) { return binary_smem(A, tc); });
+  const long long blocks = (inner + tc - 1) / tc;
+  edt_binary_kernel<<<(unsigned)blocks, kBinaryThreads, binary_smem(A, tc),
+                      stream>>>(f, out, A, inner, tc, tl, far_value, square);
   FIESTA_LAUNCH_CHECK();
   return 0;
 }

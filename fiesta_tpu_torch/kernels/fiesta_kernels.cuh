@@ -51,7 +51,7 @@ static cudaError_t fiesta_allow_max_smem(Kernel kernel,
 }
 
 // Column tiles of a contiguous volume viewed as [outer, A, inner], walked
-// along A (the EDT and closest window passes, fiesta_tile_window_kernel
+// along A (the EDT and closest windowed passes; fiesta_tile_window_kernel
 // below): a block holds tc whole columns as an [A][tc] tile in shared
 // memory.
 //
@@ -78,18 +78,24 @@ __device__ __forceinline__ long long fiesta_col_addr(long long col, int i,
   return ((col / inner) * A + i) * inner + col % inner;
 }
 
-// Columns per block: 32 (one warp-wide row) while two [A][tc] i32 tiles fit
-// in 200 KB of shared memory, fewer for very long columns.
-static inline int fiesta_tile_cols(int A) {
+// Columns per block: 32 (one warp-wide row) while the block's shared
+// memory, `smem(tc)` bytes, fits in 200 KB; fewer for very long columns.
+template <class Smem>
+static int fiesta_fit_tile_cols(Smem smem) {
   int tc = 32;
-  while (tc > 1 && 2LL * A * tc * (long long)sizeof(int) > 200 * 1024)
-    tc /= 2;
+  while (tc > 1 && smem(tc) > 200 * 1024) tc /= 2;
   return tc;
 }
 
-// The closest window and split passes share one kernel: a block loads tc
-// whole columns into shared memory, coalesced, through the pass's prologue
-// `pass.load(raw, i, near)`, which returns the tile word and ORs into
+// Columns per block of the window kernel below: two [A][tc] i32 tiles.
+static inline int fiesta_tile_cols(int A) {
+  return fiesta_fit_tile_cols(
+      [A](int tc) { return 2LL * A * tc * (long long)sizeof(int); });
+}
+
+// The closest window pass's kernel, a template over the pass: a block
+// loads tc whole columns into shared memory, coalesced, through the pass's
+// prologue `pass.load(raw, i, near)`, which returns the tile word and ORs into
 // `near` whether the value is below "far"; columns past the end read
 // `pass.fill`.
 // The block votes on `near`, then each element's result is

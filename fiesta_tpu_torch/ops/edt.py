@@ -98,6 +98,16 @@ def _minplus_pass_plain(f: torch.Tensor, t: int, axis: int) -> torch.Tensor:
     return acc.movedim(0, axis).contiguous()
 
 
+def _near_rows(near: torch.Tensor, idx: torch.Tensor, none: int = 1 << 20):
+    """Per voxel of a [A, ...] mask, the nearest row at or below it and at
+    or above it where ``near`` holds (``-none`` and ``A + none`` where
+    there is none)."""
+    a = near.shape[0]
+    below = torch.where(near, idx, -none).cummax(0).values
+    above = torch.where(near, idx, a + none).flip(0).cummin(0).values.flip(0)
+    return below, above
+
+
 def minplus_window_taps(f: torch.Tensor, t: int, axis: int):
     """The CUDA min-plus kernel's bounded window (``kernels/edt.cu``), as
     plain PyTorch on any device: each voxel's loop runs from
@@ -112,10 +122,7 @@ def minplus_window_taps(f: torch.Tensor, t: int, axis: int):
     a = x.shape[0]
     tl = min(t, a - 1)
     idx = _lead_iota(a, x.dim(), x.device).to(torch.int64).expand(x.shape)
-    near = x < _INF_EDT
-    none = 1 << 20
-    last = torch.where(near, idx, -none).cummax(0).values
-    nxt = torch.where(near, idx, a + none).flip(0).cummin(0).values.flip(0)
+    last, nxt = _near_rows(x < _INF_EDT, idx)
     k0 = torch.minimum(idx - last, nxt - idx)
     k = torch.clamp(k0, min=1)
     xp = _padded(x, tl, _INF_EDT)
@@ -330,13 +337,62 @@ def _split_packed_plain(p2: torch.Tensor, plan,
         kk = (k * k) << s
         acc_n = torch.minimum(acc_n, xp[t - k:t - k + c] + kk)
         acc_p = torch.minimum(acc_p, xp[t + k:t + k + c] + kk)
+    return _split_word(acc_n, acc_p, s, cap).movedim(0, axis).contiguous()
+
+
+def _split_word(acc_n: torch.Tensor, acc_p: torch.Tensor, s: int,
+                cap: int) -> torch.Tensor:
+    """The split pass's output from its two half-window accumulators:
+    ``val << (s+1) | sign << s | pay``, sign 1 when the winner lies at
+    higher c (strict ``vp < vn``: ties go to the negative side)."""
     vn, vp = acc_n >> s, acc_p >> s
     use_p = vp < vn
     val = torch.clamp(torch.minimum(vn, vp), max=cap)
     mask_s = (1 << s) - 1
     pay = torch.where(use_p, acc_p & mask_s, acc_n & mask_s)
-    out = (val << (s + 1)) | (use_p.to(torch.int32) << s) | pay
-    return out.movedim(0, axis).contiguous()
+    return (val << (s + 1)) | (use_p.to(torch.int32) << s) | pay
+
+
+def split_window_taps(p2: torch.Tensor, plan, axis: int = 0):
+    """The CUDA split kernel's bounded windows (``kernels/closest.cu``), as
+    plain PyTorch on any device.  Each side runs its own loop: side n from
+    k0n, the distance to the nearest row below i whose value is below
+    cap, side p from k0p, the nearest such row above i (none: no loop),
+    while k <= t_local, the neighbour lies in the column and
+    (k^2 << s) < the side's accumulator.  Returns (out, taps_n, taps_p):
+    ``out`` equals ``_split_packed_plain``; ``taps_*`` (i32) count the
+    offsets each voxel's loops need (for t < 254, the kernel's cap on
+    k0p; the kernel takes them four at a time, so it may evaluate up to
+    three more).  The kernel's work model, for tests and for predicting
+    its time."""
+    x = p2.movedim(axis, 0)
+    a = x.shape[0]
+    tl = min(plan["t"], a - 1)
+    s, cap = plan["s"], plan["cap"]
+    idx = _lead_iota(a, x.dim(), x.device).to(torch.int64).expand(x.shape)
+    none = 1 << 20
+    at_or_below, at_or_above = _near_rows((x >> s) < cap, idx, none)
+    # strictly below / above: the centre is no neighbour of itself
+    below = torch.cat([torch.full_like(idx[:1], -none), at_or_below[:-1]])
+    above = torch.cat([at_or_above[1:], torch.full_like(idx[:1], a + none)])
+    xp = _padded(x, tl, cap << s).to(torch.int64)
+    sides = []
+    for k, kmax, sign in ((idx - below, torch.clamp(idx, max=tl), -1),
+                          (above - idx, torch.clamp(a - 1 - idx, max=tl), 1)):
+        acc = x.to(torch.int64)
+        taps = torch.zeros(x.shape, dtype=torch.int32, device=x.device)
+        live = (k <= kmax) & (((k * k) << s) < acc)
+        while bool(live.any()):
+            kk = torch.where(live, k, 0)
+            cand = xp.gather(0, tl + idx + sign * kk) + ((kk * kk) << s)
+            acc = torch.where(live, torch.minimum(acc, cand), acc)
+            taps += live.to(torch.int32)
+            k = k + live.to(k.dtype)
+            live = live & (k <= kmax) & (((k * k) << s) < acc)
+        sides.append((acc.to(torch.int32), taps))
+    (acc_n, taps_n), (acc_p, taps_p) = sides
+    return tuple(v.movedim(0, axis).contiguous()
+                 for v in (_split_word(acc_n, acc_p, s, cap), taps_n, taps_p))
 
 
 def binary_packed(occ: torch.Tensor, plan, axis: int = 0,

@@ -180,3 +180,195 @@ def test_eager_stream_closest_matches_lazy_and_jax():
     np.testing.assert_array_equal(
         lazy.numpy(), np.asarray(jpipe.derive_closest(
             cfg, jnp.asarray(got["logodds"]))))
+
+
+# ---------------------------------------------------------------------------
+# The CUDA split kernel's bounded windows (kernels/closest.cu), emulated
+# ---------------------------------------------------------------------------
+
+# the card tests' layouts (tests/test_torch_cuda.py), t < A and t >= A
+SPLIT_LAYOUTS = {"x_lead": ((40, 33, 8), 9),
+                 "x_lead_long_t": ((37, 29, 20), 23),
+                 "widest_c": ((64, 16, 8), 1500),
+                 "x_lead_t_ge_a": ((40, 33, 8), 40)}
+# closest.cu's split block at these column lengths: 512 threads, 32
+# columns, so 16 segments a column
+SPLIT_SEGS = 16
+
+
+def _split_words(kind, shape, plan, seed):
+    """Split-pass input words ``v << s | payload`` (v <= cap) along the
+    plan's c axis, for each edge of the kernel's bounds."""
+    s, cap, c_ax = plan["s"], plan["cap"], plan["c"]
+    rng = np.random.default_rng(seed)
+    lead = (shape[c_ax],) + tuple(n for i, n in enumerate(shape) if i != c_ax)
+    a = lead[0]
+    tl = min(plan["t"], a - 1)
+    pay = rng.integers(0, 1 << s, lead)
+    if kind == "random":
+        v = rng.integers(0, cap + 1, lead)
+        v[rng.uniform(size=lead) < 0.6] = cap
+    elif kind == "ties":
+        # candidates v + k^2 tie often (0 + 4 = 3 + 1, 0 + 9 = 8 + 1, ...):
+        # equal values on both sides, and equal values with small payloads
+        v = rng.choice([0, 1, 3, 4, 8, 9, cap, cap], lead)
+        pay = rng.integers(0, 3, lead)
+    elif kind == "cap":
+        v = rng.choice([cap - 1, cap, cap, cap], lead)
+    elif kind == "all_far":
+        v = np.full(lead, cap)
+        v[:, 0, 0] = rng.integers(0, cap, a)        # one column with values
+    else:                   # "lone": one near value per column, at t_local
+        v = np.full(lead, cap)      # and t_local + 1 from either column end
+        rows = [0, tl, tl + 1, a - 1 - tl, a - 2 - tl, a - 1]
+        flat = v.reshape(a, -1)
+        for j in range(flat.shape[1]):
+            r = rows[j % len(rows)]
+            if 0 <= r < a and j % 7:                 # every 7th: all far
+                flat[r, j] = j % 3
+    words = (np.asarray(v, np.int64) << s) | pay
+    return np.ascontiguousarray(np.moveaxis(words.astype(np.int32), 0, c_ax))
+
+
+def _split_kernel_column(w, tl, s, cap, segs=SPLIT_SEGS, unroll=4):
+    """closest.cu's split kernel on one tile column, thread by thread: the
+    segments' first and last rows below cap, the barrier, the carries,
+    k0p (u8: capped at 254, 255 for none) on a downward walk, then the
+    upward walk carrying k0n, each side's loop ``unroll`` offsets a turn
+    (an offset past the side's reach re-reads its last one).  Returns the
+    output words; asserts that no int32 sum overflows."""
+    a = len(w)
+    w = [int(x) for x in w]
+    near = [(x >> s) < cap for x in w]
+    seg_len = -(-a // segs)
+    bounds = [(min(a, j * seg_len), min(a, min(a, j * seg_len) + seg_len))
+              for j in range(segs)]
+    first = [next((i for i in range(r0, r1) if near[i]), -1)
+             for r0, r1 in bounds]
+    last = [next((i for i in range(r1 - 1, r0 - 1, -1) if near[i]), -1)
+            for r0, r1 in bounds]
+    any_near = any(near)
+    out = [0] * a
+
+    def side(acc, i, k, kmax, step):
+        while k <= kmax and ((k * k) << s) < acc:
+            for u in range(unroll):
+                kq = min(k + u, kmax)
+                cand = w[i + step * kq] + ((kq * kq) << s)
+                assert cand < 2 ** 31
+                acc = min(acc, cand)
+            k += unroll
+        return acc
+
+    for j, (r0, r1) in enumerate(bounds):
+        lp, k0p = -1, {}
+        if any_near:
+            nn = a
+            for q in range(j):
+                if last[q] >= 0:
+                    lp = last[q]
+            for q in range(segs - 1, j, -1):
+                if first[q] >= 0:
+                    nn = first[q]
+            for i in range(r1 - 1, r0 - 1, -1):
+                k0p[i] = 255 if nn == a else min(nn - i, 254)
+                if near[i]:
+                    nn = i
+        for i in range(r0, r1):
+            acc_n = acc_p = w[i]
+            if any_near:
+                if lp >= 0:
+                    acc_n = side(acc_n, i, i - lp, min(tl, i), -1)
+                if k0p[i] != 255:
+                    acc_p = side(acc_p, i, k0p[i], min(tl, a - 1 - i), 1)
+                if near[i]:
+                    lp = i
+            vn, vp = acc_n >> s, acc_p >> s
+            use_p = int(vp < vn)
+            word = (min(vn, vp, cap) << (s + 1)) | (use_p << s) \
+                | ((acc_p if use_p else acc_n) & ((1 << s) - 1))
+            assert word < 2 ** 31
+            out[i] = word
+    return out
+
+
+def _split_kernel(p2, plan):
+    """The kernel emulation over every column along the plan's c axis."""
+    x = np.moveaxis(p2, plan["c"], 0)
+    tl = min(plan["t"], x.shape[0] - 1)
+    flat = x.reshape(x.shape[0], -1)
+    got = np.stack([_split_kernel_column(flat[:, j], tl, plan["s"],
+                                         plan["cap"])
+                    for j in range(flat.shape[1])], 1)
+    return np.moveaxis(got.reshape(x.shape).astype(np.int32), 0, plan["c"])
+
+
+@pytest.mark.parametrize("kind", ["random", "ties", "cap", "all_far",
+                                  "lone"])
+@pytest.mark.parametrize("layout", sorted(SPLIT_LAYOUTS))
+def test_split_window_matches_plain_and_pallas(layout, kind):
+    """The split kernel's bounds, as ``split_window_taps`` models them and
+    as the kernel's threads run them, give the plain pass and the Pallas
+    kernel's words: side and payload ties, values at cap and cap - 1,
+    all-far columns, lone values at t_local and t_local + 1 from a column
+    end, columns of many segments; t < A and t >= A."""
+    shape, t = SPLIT_LAYOUTS[layout]
+    plan = tedt.closest_plan(shape, t)
+    c_ax = plan["c"]
+    p2 = _split_words(kind, shape, plan, len(layout) + len(kind))
+    x = torch.from_numpy(p2)
+    out, taps_n, taps_p = tedt.split_window_taps(x, plan, c_ax)
+    plain = tedt._split_packed_plain(x, plan, c_ax).numpy()
+    np.testing.assert_array_equal(out.numpy(), plain)
+    rest = tuple(i for i in range(3) if i != c_ax)
+    ref = np.asarray(jedt._split_packed_pallas(
+        jnp.asarray(p2.transpose((c_ax,) + rest)), plan, interpret=True))
+    np.testing.assert_array_equal(
+        plain, ref.transpose(tuple(int(i) for i in np.argsort(
+            (c_ax,) + rest))))
+    np.testing.assert_array_equal(_split_kernel(p2, plan), plain)
+    tl = min(t, shape[c_ax] - 1)
+    assert int(taps_n.max()) <= tl and int(taps_p.max()) <= tl
+    far_cols = ((p2 >> plan["s"]) >= plan["cap"]).all(axis=c_ax)
+    for taps in (taps_n, taps_p):
+        assert not np.moveaxis(taps.numpy(), c_ax, 0)[:, far_cols].any()
+
+
+@pytest.mark.parametrize("kind", ["random", "ties", "lone"])
+@pytest.mark.parametrize("shape,t", [((24, 400, 10), 100),
+                                     ((8, 450, 6), 100)])
+def test_split_window_long_columns(shape, t, kind):
+    """Columns of 400 and 450 rows (25 and 29 rows a segment) at the cow
+    truncation."""
+    plan = tedt.closest_plan(shape, t)
+    assert plan["c"] == 1
+    p2 = _split_words(kind, shape, plan, shape[1])
+    x = torch.from_numpy(p2)
+    plain = tedt._split_packed_plain(x, plan, 1).numpy()
+    out, taps_n, taps_p = tedt.split_window_taps(x, plan, 1)
+    np.testing.assert_array_equal(out.numpy(), plain)
+    np.testing.assert_array_equal(_split_kernel(p2, plan), plain)
+    assert max(int(taps_n.max()), int(taps_p.max())) <= t
+
+
+def test_split_window_tap_counts():
+    """Taps on one column, counted by hand: t = 10, 16 rows of far words
+    but value 0 at row 0 (payload 2) and at row 14 (payload 1).  Side n
+    of rows 1-10 starts at k0n = i, where row 0 gives i^2 << s, and stops
+    at once; rows 11-14 have k0n > t; row 15 takes row 14 at k0n = 1.
+    Side p alike for rows 4-13 from row 14; rows 14-15 have nothing
+    above.  Row 7 ties (49 from each side): n wins although p's payload
+    is smaller."""
+    plan = dict(t=10, s=4, cap=101)
+    w = np.full((16, 1, 1), (101 << 4) | 9, np.int32)
+    w[0], w[14] = 2, 1
+    out, taps_n, taps_p = tedt.split_window_taps(torch.from_numpy(w), plan)
+    np.testing.assert_array_equal(taps_n.numpy()[:, 0, 0],
+                                  [0] + [1] * 10 + [0] * 4 + [1])
+    np.testing.assert_array_equal(taps_p.numpy()[:, 0, 0],
+                                  [0] * 4 + [1] * 10 + [0] * 2)
+    np.testing.assert_array_equal(
+        out.numpy(), tedt._split_packed_plain(torch.from_numpy(w),
+                                              plan).numpy())
+    assert out.numpy()[7, 0, 0] == (49 << 5) | 2           # sign 0, n's pay
+    assert out.numpy()[10, 0, 0] == (16 << 5) | (1 << 4) | 1  # p wins

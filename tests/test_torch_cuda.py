@@ -10,8 +10,10 @@ Every kernel must equal its plain version bit for bit, at small shapes
 chosen for their edges: odd sizes, ragged tiles, t >= axis length,
 duplicate and dropped splat indices, square and non-square carve boxes,
 saturating and overlapping boxes on an unaligned grid, both closest
-layouts (x-lead, and the widest-C fallback), sort lengths below, at and
-above one shared-memory tile (up to 2^20 + 5 pairs, where the merge
+layouts (x-lead, and the widest-C fallback), the EDT binary and closest
+split passes at their bounds' edges on columns up to 450 rows, sort
+lengths below, at and above one shared-memory tile (up to 2^20 + 5
+pairs, where the merge
 levels split, and the cow splat's 147 456) with duplicate and sentinel
 keys, equal, sorted and reverse-sorted keys, the splat at the cow box
 size, and windows of the drain that cut, cover or miss the grid.
@@ -48,22 +50,30 @@ def _eq(a, b):
     assert torch.equal(a, b), int((a != b).sum())
 
 
-def _cuda_kernels(fn):
+def _cuda_kernels(fn, attempts=3):
     """(fn(), the names of the CUDA kernels it launched, in order), read
     from ``torch.profiler``.  The trace drops the first kernel launched in
-    it, so a short device sleep goes first and is left out."""
+    it, so a short device sleep goes first and is left out.  Now and then
+    the profiler returns a trace with no kernel at all: that trace is
+    taken again, up to ``attempts`` times, and ``kernels.LAUNCHES`` counts
+    one call."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=acts) as prof:
-        torch.cuda._sleep(100_000)
+    before = dict(kernels.LAUNCHES)
+    for attempt in range(attempts):
+        kernels.LAUNCHES.update(before)
         torch.cuda.synchronize()
-        out = fn()
-        torch.cuda.synchronize()
-    events = sorted((e for e in prof.events()
-                     if e.device_type == torch.autograd.DeviceType.CUDA
-                     and "spin_kernel" not in e.name),
-                    key=lambda e: e.time_range.start)
+        with torch.profiler.profile(activities=acts) as prof:
+            torch.cuda._sleep(100_000)
+            torch.cuda.synchronize()
+            out = fn()
+            torch.cuda.synchronize()
+        events = sorted((e for e in prof.events()
+                         if e.device_type == torch.autograd.DeviceType.CUDA
+                         and "spin_kernel" not in e.name),
+                        key=lambda e: e.time_range.start)
+        if events:
+            break
     return out, [e.name.split("(")[0] for e in events]
 
 
@@ -159,14 +169,39 @@ def test_carve_kernel_sensor_edges(dev, box, po):
     assert bool(ref.any())
 
 
+def _binary_edges(shape, t, g):
+    """0 / INF volumes [A, ...] at the binary kernel's edges: lone seeds
+    at t_local and t_local + 1 from either column end and from each
+    segment edge (16 segments a column), all-far tiles, random seeds."""
+    a = shape[0]
+    tl = min(t, a - 1)
+    seg_len = -(-a // 16)
+    rows = {0, a - 1, tl, tl + 1, a - 1 - tl, a - 2 - tl}
+    for edge in range(seg_len, a, seg_len):
+        rows |= {edge - tl, edge - 1 - tl, edge - 1 + tl, edge + tl}
+    rows = sorted(r for r in rows if 0 <= r < a)
+    lone = torch.full(shape, INF).reshape(a, -1)
+    for j in range(32, lone.shape[1]):          # the first tile: all far
+        lone[rows[j % len(rows)], j] = 0
+    rand = torch.where(torch.rand(shape, generator=g) < 0.03, 0, INF)
+    return [x.reshape(shape).to(torch.int32) for x in (lone, rand)]
+
+
 @pytest.mark.parametrize("square", [True, False])
 @pytest.mark.parametrize("t", [1, 5, 17, 47, 60])
 def test_binary_pass_kernel(dev, t, square):
+    """Ragged tiles, t >= A (A = 1, 5, 37, 48 at t = 47, 60), and columns
+    of 400 and 450 rows, lone seeds at each segment's edge; one CUDA
+    launch a call."""
     g = torch.Generator().manual_seed(t)
-    for shape in ((48, 20, 12), (1, 7, 3), (37, 1, 130)):
-        f = torch.where(torch.rand(shape, generator=g) < 0.03, 0, INF)
-        f = f.to(torch.int32).to(dev)
-        _eq(edt.binary_pass(f, t, square), edt._binary_pass_plain(f, t, square))
+    for shape in ((48, 20, 12), (1, 7, 3), (37, 1, 130), (5, 13, 40),
+                  (400, 9, 40), (450, 5, 33)):
+        for f in _binary_edges(shape, t, g):
+            f = f.to(dev)
+            _eq(edt.binary_pass(f, t, square),
+                edt._binary_pass_plain(f, t, square))
+    _, names = _cuda_kernels(lambda: edt.binary_pass(f, t, square))
+    assert names == ["edt_binary_kernel"]
 
 
 @pytest.mark.parametrize("axis", [0, 1, 2])
@@ -260,7 +295,39 @@ def test_boxadd_kernel(dev, grid, box, starts):
 
 
 CLOSEST = {"x_lead": ((40, 33, 8), 9), "x_lead_long_t": ((37, 29, 20), 23),
-           "widest_c": ((64, 16, 8), 1500)}
+           "widest_c": ((64, 16, 8), 1500), "long_c": ((24, 400, 10), 100),
+           "long_c_450": ((8, 450, 6), 100)}
+
+
+def _split_edges(shape, plan, g):
+    """Split-pass input words ``v << s | payload`` (v <= cap) along the
+    plan's c axis: random values; values whose candidates tie (v + k^2,
+    within a side and across the two) with payloads 0-2; values at cap
+    and cap - 1; all-far columns; lone values at t_local and t_local + 1
+    from either column end."""
+    s, cap, c_ax = plan["s"], plan["cap"], plan["c"]
+    a = shape[c_ax]
+    tl = min(plan["t"], a - 1)
+    lead = (a,) + tuple(n for i, n in enumerate(shape) if i != c_ax)
+    pay = torch.randint(0, 1 << s, lead, generator=g)
+    rand = torch.randint(0, cap + 1, lead, generator=g)
+    rand[torch.rand(lead, generator=g) < 0.6] = cap
+    pick = torch.tensor([0, 1, 3, 4, 8, 9, cap, cap])
+    ties = pick[torch.randint(0, 8, lead, generator=g)]
+    at_cap = torch.tensor([cap - 1, cap, cap, cap])[
+        torch.randint(0, 4, lead, generator=g)]
+    lone = torch.full(lead, cap).reshape(a, -1)
+    rows = [0, tl, tl + 1, a - 1 - tl, a - 2 - tl, a - 1]
+    for j in range(lone.shape[1]):
+        r = rows[j % len(rows)]
+        if 0 <= r < a and j % 7:                    # every 7th: all far
+            lone[r, j] = j % 3
+    out = []
+    for v, p in ((rand, pay), (ties, torch.randint(0, 3, lead, generator=g)),
+                 (at_cap, pay), (lone.reshape(lead), pay)):
+        out.append(((v << s) | p).to(torch.int32).movedim(0, c_ax)
+                   .contiguous())
+    return out
 
 
 @pytest.mark.parametrize("square", [True, False])
@@ -280,6 +347,12 @@ def test_closest_kernels(dev, layout, square):
     p2 = edt._window_packed_plain(p1, plan, b)
     _eq(edt.window_packed(p1, plan, b), p2)
     _eq(edt.split_packed(p2, plan, c), edt._split_packed_plain(p2, plan, c))
+    # the split's bounds at their edges, one CUDA launch a call
+    for x in _split_edges(tuple(shape), plan, g):
+        x = x.to(dev)
+        _eq(edt.split_packed(x, plan, c), edt._split_packed_plain(x, plan, c))
+    _, names = _cuda_kernels(lambda: edt.split_packed(x, plan, c))
+    assert names == ["closest_split_kernel"]
 
 
 @pytest.mark.parametrize("packed_out", [False, True])

@@ -213,3 +213,97 @@ def test_segmented_k0_is_the_nearest_distance(a, segs):
                 for i in range(a)]
         assert _segmented_k0(col, segs) == want
 
+
+
+# ---------------------------------------------------------------------------
+# The CUDA binary kernel's column tiles and segmented sweep (kernels/edt.cu),
+# emulated
+# ---------------------------------------------------------------------------
+
+# edt.cu's binary block at these column lengths: 32 columns, 512 threads
+BINARY_TC, BINARY_SEGS = 32, 16
+
+
+def _segmented_binary(f, t, square, tc=BINARY_TC, segs=BINARY_SEGS):
+    """edt.cu's binary kernel on an [A, cols] volume, block by block (tc
+    columns, numpy across them) and thread by thread: a tile with no value
+    below t_local + 1 writes the sentinel; otherwise each of ``segs``
+    segments sweeps itself from "far" (g at its last row, h at its
+    first), then, after the barrier, sweeps forward and backward from the
+    carries of the segments below and above."""
+    a, ncols = f.shape
+    tl = min(t, a - 1)
+    cap = tl + 1
+    far = INF if square else t + 1
+    seg_len = -(-a // segs)
+    bounds = [(min(a, j * seg_len), min(a, min(a, j * seg_len) + seg_len))
+              for j in range(segs)]
+    out = np.empty_like(f)
+    for c0 in range(0, ncols, tc):
+        v = np.minimum(f[:, c0:c0 + tc], cap)
+        if not (v < cap).any():
+            out[:, c0:c0 + tc] = far
+            continue
+        up, down = [], []
+        for r0, r1 in bounds:
+            g = np.full(v.shape[1], cap)
+            h = np.full(v.shape[1], cap)
+            for i in range(r0, r1):
+                g = np.minimum(g + 1, v[i])
+                h = np.minimum(h, v[i] + (i - r0))
+            up.append(g)
+            down.append(h)
+        for j, (r0, r1) in enumerate(bounds):
+            g = np.full(v.shape[1], cap)
+            for q in range(j):
+                g = np.minimum(g + bounds[q][1] - bounds[q][0], up[q])
+            h = np.full(v.shape[1], cap)
+            for q in range(segs - 1, j, -1):
+                h = np.minimum(h + bounds[q][1] - bounds[q][0], down[q])
+            fwd = {}
+            for i in range(r0, r1):
+                g = np.minimum(g + 1, v[i])
+                fwd[i] = g
+            for i in range(r1 - 1, r0 - 1, -1):
+                h = np.minimum(h + 1, fwd[i])
+                out[i, c0:c0 + tc] = np.where(h > tl, far,
+                                              h * h if square else h)
+    return out
+
+
+def _binary_edges(a, t, seed):
+    """[A, cols] 0 / INF columns for each edge of the sweep: all far, lone
+    seeds at t_local and t_local + 1 from either column end and from each
+    segment edge (both sides), and random seeds, sparse and dense."""
+    tl = min(t, a - 1)
+    seg_len = -(-a // BINARY_SEGS)
+    rows = {0, a - 1, tl, tl + 1, a - 1 - tl, a - 2 - tl}
+    for edge in range(seg_len, a, seg_len):
+        rows |= {edge - tl, edge - 1 - tl, edge - 1 + tl, edge + tl}
+    rows = sorted(r for r in rows if 0 <= r < a)
+    cols = [np.full(a, INF)]
+    for r in rows:
+        col = np.full(a, INF)
+        col[r] = 0
+        cols.append(col)
+    rng = np.random.default_rng(seed)
+    for p in (0.01, 0.05, 0.3):
+        cols += list(np.where(rng.uniform(size=(8, a)) < p, 0, INF))
+    return np.stack(cols, 1).astype(np.int32)
+
+
+@pytest.mark.parametrize("square", [True, False])
+@pytest.mark.parametrize("t", [1, 5, 17, 47, 100, "a"])
+@pytest.mark.parametrize("a", [5, 48, 400, 401])
+def test_segmented_binary_matches_plain_and_pallas(a, t, square):
+    """The tile sweep gives the binary pass on every column: t < A and
+    t >= A ("a": t = A + 3), columns of one to sixteen segments, seeds at
+    t_local and t_local + 1 from a column end and from a segment edge."""
+    t = a + 3 if t == "a" else t
+    f = _binary_edges(a, t, a + t)
+    got = _segmented_binary(f, t, square)
+    plain = tedt._binary_pass_plain(torch.from_numpy(f), t, square).numpy()
+    np.testing.assert_array_equal(got, plain)
+    ref = np.asarray(jedt._binary_pass_pallas(
+        jnp.asarray(f[:, :, None]), t, interpret=True, square=square))
+    np.testing.assert_array_equal(got, ref[:, :, 0])
