@@ -55,11 +55,12 @@ exits non-zero:
    one computes the same function, and the card's bound.  A kernel's
    ``ms`` is host-paced (calls back to back, as the main path makes
    them); beside it, queued behind a device sleep, the card's time
-   alone.  The six redesigned kernels (splat, sort, carve, min-plus, EDT
-   binary, closest split) also print their CUDA launches per call and
-   device time by kernel name (``torch.profiler``), beside their times
-   before their redesign (``EARLIER_MS``); the splat's zero fill has a row
-   of its own.  The carve is also timed at the demo box (on the demo's
+   alone.  The eight redesigned kernels (splat, sort, carve, min-plus, EDT
+   binary, closest split, box add, closest binary) also print their CUDA
+   launches per call and device time by kernel name (``torch.profiler``),
+   beside their times before their redesign (``EARLIER_MS``); the splat's
+   zero fill has a row of its own.  The closest binary pass logs its
+   column tiles and those holding a seed (the others only write).  The carve is also timed at the demo box (on the demo's
    first tick) and prints its wavefronts' steps; the min-plus pass prints
    its window offsets per voxel (``minplus_taps``) and the closest split
    pass those of each side (``split_taps``), each beside the brute-force
@@ -112,17 +113,20 @@ SLEEP_CYCLES = 40_000_000   # ~20 ms at the H100's 1.98 GHz boost clock
 MARK_CYCLES = 100_000       # ~50 us: the profiler's first kernel
 # host-paced ms per call of the splat (three launches), the sort (28
 # launches at 2^18 pairs), the carve (217 launches at cow), the min-plus
-# pass (mean of axes 1 and 2), the EDT binary pass (a thread a column) and
-# the closest split pass (the brute-force window) before their redesign,
-# at the same shapes on an H100 80GB HBM3 at 700 W (PERF.md, kernel
-# table), and the launches
+# pass (mean of axes 1 and 2), the EDT binary pass (a thread a column),
+# the closest split pass (the brute-force window), the box add (a thread
+# a box voxel) and the closest binary pass (a thread a column) before
+# their redesign, at the same shapes on an H100 80GB HBM3 at 700 W
+# (PERF.md, kernel table), and the launches
 EARLIER_MS = {"splat": 0.0714, "sort": 0.1716, "carve": 1.3794,
               "edt_minplus": 0.4933, "edt_binary": 0.1663,
-              "closest_split": 0.6178}
+              "closest_split": 0.6178, "boxadd": 0.0964,
+              "closest_binary": 0.2824}
 EARLIER_MINPLUS_AXIS_MS = (0.6378, 0.3488)
 EARLIER_LAUNCHES = {"splat": "3", "sort": "28 at 2^18 pairs",
                     "carve": "217 at cow", "edt_minplus": "1",
-                    "edt_binary": "1", "closest_split": "1"}
+                    "edt_binary": "1", "closest_split": "1", "boxadd": "1",
+                    "closest_binary": "1"}
 # int32 operations per voxel of an exact O(A) min-plus pass: a lower
 # envelope of parabolas (Felzenszwalb-Huttenlocher) builds with amortised
 # two intersection tests of ~8 operations per element, then one evaluation
@@ -218,22 +222,27 @@ def time_ms(fn, calls=5, windows=5):
 def kernel_times(fn, calls=5, windows=5):
     """Times per call of ``fn``: ``ms`` host-paced (``time_ms``: the host
     enqueues while the card runs, so a call whose host cost exceeds its
-    device time reads as its host time), and ``device_ms``, the card's time
+    device time reads as its host time), ``device_ms``, the card's time
     alone: the median over windows that wait on the card behind a 20 ms
-    device sleep, so that every call is enqueued before the first starts."""
+    device sleep, so that every call is enqueued before the first starts,
+    and ``host_ms``, the host clock's median time to enqueue a call in
+    those windows."""
     ms = time_ms(fn, calls, windows)
-    device = []
+    device, host = [], []
     for _ in range(windows):
         torch.cuda._sleep(SLEEP_CYCLES)
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
+        t0 = time.perf_counter()
         for _ in range(calls):
             fn()
+        host.append((time.perf_counter() - t0) * 1e3 / calls)
         b.record()
         b.synchronize()
         device.append(a.elapsed_time(b) / calls)
-    return dict(ms=ms, device_ms=statistics.median(device))
+    return dict(ms=ms, device_ms=statistics.median(device),
+                host_ms=statistics.median(host))
 
 
 def profiled(fn, calls, attempts=3):
@@ -339,12 +348,16 @@ def closest_rows(cfg, occupied):
     err = max(max_abs_err([p1], [edt._binary_packed_plain(occ, plan, a)]),
               max_abs_err([kernels.closest_binary(occ, plan, a, False)],
                           [edt._binary_packed_plain(occ, plan, a, False)]))
+    by_name, counts, _ = profiled(
+        lambda: kernels.closest_binary(occ, plan, a), 10)
     rows = [dict(
         name="closest_binary", source="fiesta_tpu_torch/kernels/closest.cu",
         replaces="fiesta_tpu/ops/pallas/edt.py:614", err=err,
         **kernel_times(lambda: kernels.closest_binary(occ, plan, a)),
         plain_ms=time_ms(lambda: edt._binary_packed_plain(occ, plan, a)),
-        library_ms=None, bound=bound(5 * nvox, 4 * nvox, I32_OPS_PER_S))]
+        library_ms=None, bound=bound(5 * nvox, 4 * nvox, I32_OPS_PER_S),
+        cuda_launches=sum(counts.values()), by_kernel=by_name,
+        tiles=seed_tiles(occupied, plan, a))]
     p2 = kernels.closest_window(p1, plan, b)
     for name, line, kern, plain, x, axis, shift in (
             ("closest_window", 703, kernels.closest_window,
@@ -369,6 +382,19 @@ def closest_rows(cfg, occupied):
     rows[-1].update(cuda_launches=sum(counts.values()), by_kernel=by_name,
                     taps=split_taps(p2, plan, c))
     return rows
+
+
+def seed_tiles(occupied, plan, axis):
+    """The closest binary kernel's column tiles along ``axis`` (runs of
+    ``kernels.closest_binary_tile_cols`` consecutive columns) and how many
+    hold a seed: the others load and write only."""
+    tc = kernels.closest_binary_tile_cols(occupied.shape, plan, axis)
+    outer, a, inner = kernels._columns(occupied.shape, axis)
+    cols = occupied.reshape(outer, a, inner).any(dim=1).reshape(-1)
+    cols = torch.cat([cols, cols.new_zeros(-cols.numel() % tc)])
+    tiles = cols.view(-1, tc).any(dim=1)
+    return dict(tile_cols=tc, tiles=tiles.numel(),
+                with_seed=int(tiles.sum()))
 
 
 def box_union(starts, box, grid):
@@ -903,8 +929,10 @@ def run(dev, cfg, h, w, ticks, dcfg, dh, dw, dticks):
     # in place on a scratch pair: repeated adds saturate, same work
     scratch = tuple(g.clone() for g in grids)
     union = box_union(starts, hitc.shape[1:], grids[0].shape)
-    log(f"boxadd: {hitc.shape[0]} boxes of {hitc[0].numel()} voxels, "
-        f"union {union} voxels")
+    log(f"boxadd: {hitc.shape[0]} boxes of {hitc[0].numel()} voxels at "
+        f"{starts.tolist()}, union {union} voxels")
+    box_kernels, box_counts, _ = profiled(
+        lambda: kernels.boxadd(*scratch, *bargs), 10)
     rows.append(dict(
         name="boxadd", source="fiesta_tpu_torch/kernels/boxadd.cu",
         replaces="fiesta_tpu/ops/pallas/boxadd.py:101",
@@ -916,7 +944,8 @@ def run(dev, cfg, h, w, ticks, dcfg, dh, dw, dticks):
         # the boxes' hit and miss bytes read once, and each grid voxel of
         # the boxes' union read and written once in each counter
         bound=bound(2 * hitc.numel() + 4 * union, 2 * hitc.numel(),
-                    I32_OPS_PER_S)))
+                    I32_OPS_PER_S),
+        cuda_launches=sum(box_counts.values()), by_kernel=box_kernels))
 
     t = edt.trunc_vox_for(cfg.resolution, cfg.trunc_dist)
     f = torch.full(occupied.shape, edt._INF_EDT, dtype=torch.int32,
@@ -976,6 +1005,10 @@ def run(dev, cfg, h, w, ticks, dcfg, dh, dw, dticks):
         f"bounds {bounds}; window offsets per voxel {taps}; on {card}")
 
     rows.extend(closest_rows(cfg, occupied))
+    binary = next(r for r in rows if r["name"] == "closest_binary")
+    log(f"closest_binary: {binary['tiles']['with_seed']} of "
+        f"{binary['tiles']['tiles']} column tiles of "
+        f"{binary['tiles']['tile_cols']} hold a seed")
     split = next(r for r in rows if r["name"] == "closest_split")
     log(f"closest_split window offsets per voxel: side n "
         f"{split['taps']['n']}, side p {split['taps']['p']}; the "
@@ -988,7 +1021,8 @@ def run(dev, cfg, h, w, ticks, dcfg, dh, dw, dticks):
             f"({EARLIER_LAUNCHES[r['name']]} before the redesign); "
             f"{r['ms']:.4f} ms host-paced (before the redesign "
             f"{EARLIER_MS[r['name']]}, host-paced, in an earlier call), "
-            f"{r['device_ms']:.4f} ms on the card alone; library "
+            f"{r['device_ms']:.4f} ms on the card alone, {r['host_ms']:.4f} "
+            f"ms to enqueue on the host; library "
             f"{r.get('library_ms')}, on the card alone "
             f"{r.get('library_device_ms')}; device ms by kernel "
             f"{ {k: round(v, 4) for k, v in r['by_kernel'].items()} }"
@@ -1010,6 +1044,8 @@ def run(dev, cfg, h, w, ticks, dcfg, dh, dw, dticks):
             "library_ms": r["library_ms"]})
     print(json.dumps({"kernels": out,
                       "device_ms": {r["name"]: r["device_ms"] for r in rows},
+                      "host_ms": {r["name"]: r["host_ms"] for r in rows
+                                  if "host_ms" in r},
                       "library_device_ms": {
                           r["name"]: r["library_device_ms"]
                           for r in rows if "library_device_ms" in r},
@@ -1034,7 +1070,8 @@ def run(dev, cfg, h, w, ticks, dcfg, dh, dw, dticks):
                       "demo_occupied": n_demo,
                       "fuse_window_demo": fuse_window,
                       "carve_steps": steps, "carve_demo": carve_demo,
-                      "minplus_taps": taps, "split_taps": split["taps"]}))
+                      "minplus_taps": taps, "split_taps": split["taps"],
+                      "closest_binary_tiles": binary["tiles"]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -126,6 +126,9 @@ def build() -> dict:
         if src == "carve.cu":
             lib.fiesta_carve_cluster_size.argtypes = [_I] * 4
             lib.fiesta_carve_cluster_size.restype = _I
+        if src == "closest.cu":
+            lib.fiesta_closest_binary_tile_cols.argtypes = [_I, _I]
+            lib.fiesta_closest_binary_tile_cols.restype = _I
         for s, sym, argtypes in _SIGNATURES.values():
             if s == src:
                 getattr(lib, sym).argtypes = argtypes
@@ -371,6 +374,15 @@ def closest_binary(occ: torch.Tensor, plan, axis: int,
             outer, a, inner, tl, plan["ba"], far,
             int(_binary_reach(tl) > tl), int(square))
     return out
+
+
+def closest_binary_tile_cols(shape, plan, axis: int) -> int:
+    """Columns per thread block of the ``closest_binary`` kernel along
+    ``axis`` of a volume of ``shape`` (its tiles are runs of that many
+    consecutive columns, in [outer, inner] order)."""
+    lib = _libs.get("closest.cu") or build()["closest.cu"]
+    a = shape[axis]
+    return lib.fiesta_closest_binary_tile_cols(a, min(plan["t"], a - 1))
 
 
 def closest_window(p1: torch.Tensor, plan, axis: int) -> torch.Tensor:

@@ -11,10 +11,9 @@
 // TPU.
 //
 // Binary pass (payload a*, the source row).  The TPU kernel runs log-t
-// doubling steps; here one thread walks its column forward then backward
-// (distances g and h to the nearest seed at or before / at or after, each
-// clamped at L + 1 with L = t_local + 1) and writes the word the doubling
-// steps produce, in closed form:
+// doubling steps; here each column's words come in closed form from g and
+// h, the distances to the nearest seed at or before / at or after row i,
+// each clamped at L + 1 with L = t_local + 1:
 //   * D = min(g, h) <= t_local: value D (or D^2), payload the lower seed
 //     index at distance D (i - g when g == D, else i + h);
 //   * else the value is L (cap or the caller's sentinel after the
@@ -23,6 +22,20 @@
 //     reach when their total reach exceeds t_local (`reach_ok`): i - L if
 //     reach_ok and g == L, else i.  Out-of-range neighbours (value L plus a
 //     shift, payload 0) never tie at value L.
+// A block holds tc whole columns of the u8 occupancy as an [A][tc] tile in
+// shared memory, 0 at a seed and L + 1 elsewhere: a u8 tile while
+// t_local <= 253, else u16 (L + 1 < 2^16 for every packed plan).  When
+// the tile's columns are contiguous in every row (cow: inner = 32 000), a
+// warp loads rows as 4-byte words; otherwise bytes in fiesta_tile_pos's
+// coalesced order.  A tile with no seed writes far << ba | i row by row
+// (the TPU kernel's none_occ branch).  Otherwise fiesta_binary_sweep
+// (fiesta_kernels.cuh, shared with the EDT binary pass) runs one segment
+// of one column a thread: the segments' own sweeps, a barrier, the
+// carries, a forward sweep keeping g in the tile, and a backward sweep
+// that forms each word from (g, D) (D == h wherever g > D) and writes it:
+// a warp writes one 128-byte row of 32 columns a step (the plans' a axis
+// is never contiguous).  Each block computes its columns' base addresses
+// once.
 // Bound: bytes (u8 in, i32 out: 5 bytes per voxel, 64 MB at cow scale).
 //
 // Window pass (payload b* << ba | a*): the shared column-tile kernel
@@ -66,37 +79,95 @@
 
 #include "fiesta_kernels.cuh"
 
-__global__ void closest_binary_kernel(const uint8_t* __restrict__ occ,
-                                      int* __restrict__ out, long long outer,
-                                      int A, long long inner, int tl, int ba,
-                                      int far_value, int reach_ok,
-                                      int square) {
-  const long long col = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (col >= outer * inner) return;
-  const long long base = (col / inner) * A * inner + col % inner;
-  const int L = tl + 1, clampv = tl + 2;
-  int g = clampv;  // forward: distance to the nearest seed at or before i
-  for (int i = 0; i < A; ++i) {
-    const long long at = base + (long long)i * inner;
-    g = occ[at] ? 0 : min(g + 1, clampv);
-    out[at] = g;
-  }
-  int h = clampv;  // backward: distance to the nearest seed at or after i
-  for (int i = A - 1; i >= 0; --i) {
-    const long long at = base + (long long)i * inner;
-    g = out[at];
-    h = g == 0 ? 0 : min(h + 1, clampv);
-    const int d = min(g, h);
-    int word;
-    if (d <= tl) {
-      const int pay = g == d ? i - g : i + h;
-      word = ((square ? d * d : d) << ba) | pay;
-    } else {
-      const int pay = reach_ok && g == L ? i - L : i;
-      word = (far_value << ba) | pay;
+namespace {
+
+constexpr int kBinaryThreads = 512;
+bool g_binary_ready_u8[kFiestaMaxDevices];
+bool g_binary_ready_u16[kFiestaMaxDevices];
+
+// Shared memory of a binary block of tc columns with a tile of `tb`-byte
+// elements: base addresses, the segments' carries and the tile.
+size_t binary_smem(int A, int tc, int tb) {
+  const int segs = kBinaryThreads / tc;
+  return tc * sizeof(long long) + 2 * (size_t)segs * tc * sizeof(int) +
+         (size_t)A * tc * tb;
+}
+
+int binary_tile_cols(int A, int tb) {
+  return fiesta_fit_tile_cols([=](int tc) { return binary_smem(A, tc, tb); });
+}
+
+}  // namespace
+
+template <class T>
+__global__ void __launch_bounds__(kBinaryThreads)
+    closest_binary_kernel(const uint8_t* __restrict__ occ,
+                          int* __restrict__ out, long long outer, int A,
+                          long long inner, int tc, int tl, int ba,
+                          int far_value, int reach_ok, int square) {
+  extern __shared__ long long binary_sm[];
+  const int segs = blockDim.x / tc;
+  long long* base = binary_sm;            // [tc]: address of row 0
+  int* up = (int*)(base + tc);            // [segs][tc]
+  int* down = up + segs * tc;             // [segs][tc]
+  T* tile = (T*)(down + segs * tc);       // [A][tc]
+  const int cap = tl + 2, L = tl + 1;
+  const long long ncols = outer * inner;
+  const long long col0 = (long long)blockIdx.x * tc;
+  const int total = A * tc;
+
+  for (int c = threadIdx.x; c < tc; c += blockDim.x)
+    base[c] = col0 + c < ncols ? fiesta_col_addr(col0 + c, 0, A, inner) : -1;
+  __syncthreads();
+  unsigned near = 0;
+  if (inner % tc == 0 && inner % 4 == 0 && tc % 4 == 0 &&
+      ((uintptr_t)occ & 3) == 0) {
+    // every row of the tile is tc contiguous bytes: 4-byte words, a warp
+    // reading whole rows, four loads in flight a thread
+    const int wpr = tc / 4, q = threadIdx.x % wpr, step = blockDim.x / wpr;
+    const uint8_t* src = occ + base[0] + 4 * q;
+#pragma unroll 4
+    for (int i = threadIdx.x / wpr; i < A; i += step) {
+      const unsigned w = *(const unsigned*)(src + i * inner);
+      near |= w;
+      T* row = tile + i * tc + 4 * q;
+      if constexpr (sizeof(T) == 1) {  // four tile bytes in one store
+        *(unsigned*)row = ~__vcmpne4(w, 0u) & (0x01010101u * cap);
+      } else {
+#pragma unroll
+        for (int b = 0; b < 4; ++b)
+          row[b] = (T)((w >> (8 * b)) & 0xff ? 0 : cap);
+      }
     }
-    out[at] = word;
+  } else {
+    for (int e = threadIdx.x; e < total; e += blockDim.x) {
+      int i, c;
+      fiesta_tile_pos(e, A, tc, inner, i, c);
+      const int o = base[c] >= 0 ? occ[base[c] + i * inner] : 0;
+      near |= o;
+      tile[i * tc + c] = (T)(o ? 0 : cap);
+    }
   }
+  if (!__syncthreads_or(near != 0)) {  // no seed: far << ba | i
+    for (int e = threadIdx.x; e < total; e += blockDim.x) {
+      int i, c;
+      fiesta_tile_pos(e, A, tc, inner, i, c);
+      if (base[c] >= 0) out[base[c] + i * inner] = (far_value << ba) | i;
+    }
+    return;
+  }
+
+  // thread (seg, c) sweeps one segment of tile column c
+  const int c = threadIdx.x % tc, seg = threadIdx.x / tc;
+  fiesta_binary_sweep(
+      tile + c, tc, A, cap, up, down, tc, c, seg, segs,
+      [&](int i, int g, int d) {
+        if (base[c] >= 0)
+          out[base[c] + i * inner] =
+              d <= tl ? ((square ? d * d : d) << ba) |
+                            (g == d ? i - g : i + d)
+                      : (far_value << ba) | (reach_ok && g == L ? i - L : i);
+      });
 }
 
 // Window pass: the prologue repacks v << s | i << ba | a*, the window keeps
@@ -259,17 +330,45 @@ __global__ void __launch_bounds__(kSplitThreads)
   }
 }
 
+template <class T>
+static int launch_closest_binary(bool (&ready)[kFiestaMaxDevices],
+                                 const uint8_t* occ, int* out,
+                                 long long outer, int A, long long inner,
+                                 int tl, int ba, int far_value, int reach_ok,
+                                 int square, cudaStream_t stream) {
+  const cudaError_t err =
+      fiesta_allow_max_smem(closest_binary_kernel<T>, ready);
+  if (err != cudaSuccess) return (int)err;
+  const int tc = binary_tile_cols(A, sizeof(T));
+  const long long blocks = (outer * inner + tc - 1) / tc;
+  closest_binary_kernel<T><<<(unsigned)blocks, kBinaryThreads,
+                             binary_smem(A, tc, sizeof(T)), stream>>>(
+      occ, out, outer, A, inner, tc, tl, ba, far_value, reach_ok, square);
+  FIESTA_LAUNCH_CHECK();
+  return 0;
+}
+
 FIESTA_EXPORT int fiesta_closest_binary(const uint8_t* occ, int* out,
                                         long long outer, int A,
                                         long long inner, int tl, int ba,
                                         int far_value, int reach_ok,
                                         int square, cudaStream_t stream) {
-  const int threads = 128;
-  const long long blocks = (outer * inner + threads - 1) / threads;
-  closest_binary_kernel<<<(unsigned)blocks, threads, 0, stream>>>(
-      occ, out, outer, A, inner, tl, ba, far_value, reach_ok, square);
-  FIESTA_LAUNCH_CHECK();
-  return 0;
+  if (tl + 2 <= 0xff)
+    return launch_closest_binary<uint8_t>(g_binary_ready_u8, occ, out,
+                                          outer, A, inner, tl, ba, far_value,
+                                          reach_ok, square, stream);
+  if (tl + 2 <= 0xffff)
+    return launch_closest_binary<uint16_t>(g_binary_ready_u16, occ, out,
+                                           outer, A, inner, tl, ba,
+                                           far_value, reach_ok, square,
+                                           stream);
+  return (int)cudaErrorInvalidValue;
+}
+
+// Columns per block of the binary pass for columns of A rows at local
+// reach tl.
+FIESTA_EXPORT int fiesta_closest_binary_tile_cols(int A, int tl) {
+  return binary_tile_cols(A, tl + 2 <= 0xff ? 1 : 2);
 }
 
 FIESTA_EXPORT int fiesta_closest_window(const int* f, int* out,

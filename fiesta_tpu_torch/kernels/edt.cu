@@ -17,7 +17,9 @@
 // distance at its last row from below, at its first row from above);
 // after a barrier it takes the carries of the other segments and sweeps
 // forward (in place) and backward, writing d^2, the raw d or the sentinel
-// as it goes: a warp writes one 128-byte row a step.  A tile with no value
+// as it goes: a warp writes one 128-byte row a step.  The sweep is
+// fiesta_binary_sweep (fiesta_kernels.cuh), shared with the closest binary
+// pass.  A tile with no value
 // below t_local + 1 writes the sentinel without sweeping (the TPU
 // kernel's all-far skip).  Bound: bytes (one i32 read and one i32 write
 // per voxel; 102 MB at cow scale).
@@ -120,35 +122,15 @@ __global__ void __launch_bounds__(kBinaryThreads)
     return;
   }
 
-  // thread (seg, c) owns rows [r0, r1) of tile column c
+  // thread (seg, c) sweeps one segment of tile column c
   const int c = threadIdx.x % tc, seg = threadIdx.x / tc;
-  const int len = (A + segs - 1) / segs;
-  const int r0 = min(A, seg * len), r1 = min(A, r0 + len);
-  int* col = tile + c;
-  int g = cap, h = cap;  // the segment alone: g at row r1 - 1, h at row r0
-  for (int i = r0; i < r1; ++i) {
-    const int v = col[i * tc];
-    g = min(g + 1, v);
-    h = min(h, v + (i - r0));
-  }
-  up[seg * tc + c] = g;
-  down[seg * tc + c] = h;
-  __syncthreads();
-  g = cap;  // at row r0 - 1, from the segments below
-  for (int j = 0; j < seg; ++j)
-    g = min(g + min(A, j * len + len) - min(A, j * len), up[j * tc + c]);
-  h = cap;  // at row r1, from the segments above
-  for (int j = segs - 1; j > seg; --j)
-    h = min(h + min(A, j * len + len) - min(A, j * len), down[j * tc + c]);
-  for (int i = r0; i < r1; ++i) {
-    g = min(g + 1, col[i * tc]);
-    col[i * tc] = g;
-  }
   int* o = out + col0 + c;
-  for (int i = r1 - 1; i >= r0; --i) {
-    h = min(h + 1, col[i * tc]);
-    if (c < cols) o[i * inner] = h > tl ? far_value : (square ? h * h : h);
-  }
+  fiesta_binary_sweep(tile + c, tc, A, cap, up, down, tc, c, seg, segs,
+                      [&](int i, int, int h) {
+                        if (c < cols)
+                          o[i * inner] =
+                              h > tl ? far_value : (square ? h * h : h);
+                      });
 }
 
 __global__ void __launch_bounds__(kMinplusThreads)

@@ -87,6 +87,53 @@ static int fiesta_fit_tile_cols(Smem smem) {
   return tc;
 }
 
+// The segmented two-sweep of the binary passes (edt.cu's
+// edt_binary_kernel, closest.cu's closest_binary_kernel): the 1-D distance
+// transform of one tile column, split into `segs` segments of `len` rows,
+// one per thread.  `col` points at row 0 of the thread's column (rows
+// `pitch` apart), holding 0 at a seed and `cap` elsewhere; distances come
+// out clamped at `cap`.  Each thread sweeps its segment from "none" both
+// ways (g at its last row into `up`, h at its first into `down`, both
+// [segs][tc]); after a barrier, which every thread of the block must
+// reach, it takes the carries of the segments below and above, sweeps
+// forward keeping g, the distance to the nearest seed at or before row i,
+// in the tile, then backward calling `emit(i, g, d)` with d = min(g, h),
+// the distance to the nearest seed on either side: a warp emits one row
+// of neighbouring columns a step.
+template <class T, class Emit>
+__device__ __forceinline__ void fiesta_binary_sweep(T* col, int pitch, int A,
+                                                    int cap, int* up,
+                                                    int* down, int tc, int c,
+                                                    int seg, int segs,
+                                                    Emit emit) {
+  const int len = (A + segs - 1) / segs;
+  const int r0 = min(A, seg * len), r1 = min(A, r0 + len);
+  int g = cap, h = cap;  // the segment alone: g at row r1 - 1, h at row r0
+  for (int i = r0; i < r1; ++i) {
+    const int v = col[i * pitch];
+    g = min(g + 1, v);
+    h = min(h, v + (i - r0));
+  }
+  up[seg * tc + c] = g;
+  down[seg * tc + c] = h;
+  __syncthreads();
+  g = cap;  // at row r0 - 1, from the segments below
+  for (int j = 0; j < seg; ++j)
+    g = min(g + min(A, j * len + len) - min(A, j * len), up[j * tc + c]);
+  h = cap;  // at row r1, from the segments above
+  for (int j = segs - 1; j > seg; --j)
+    h = min(h + min(A, j * len + len) - min(A, j * len), down[j * tc + c]);
+  for (int i = r0; i < r1; ++i) {
+    g = min(g + 1, (int)col[i * pitch]);
+    col[i * pitch] = (T)g;
+  }
+  for (int i = r1 - 1; i >= r0; --i) {
+    const int gi = col[i * pitch];
+    h = min(h + 1, gi);
+    emit(i, gi, h);
+  }
+}
+
 // Columns per block of the window kernel below: two [A][tc] i32 tiles.
 static inline int fiesta_tile_cols(int A) {
   return fiesta_fit_tile_cols(

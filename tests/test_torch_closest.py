@@ -25,6 +25,7 @@ from fiesta_tpu.io import replay as jreplay  # noqa: E402
 from fiesta_tpu.ops.pallas import edt as jedt  # noqa: E402
 
 import fiesta_tpu_torch as ft  # noqa: E402
+from fiesta_tpu_torch import kernels as tkernels  # noqa: E402
 from fiesta_tpu_torch import pipeline as tpipe  # noqa: E402
 from fiesta_tpu_torch.io import replay as treplay  # noqa: E402
 from fiesta_tpu_torch.ops import edt as tedt  # noqa: E402
@@ -372,3 +373,152 @@ def test_split_window_tap_counts():
                                               plan).numpy())
     assert out.numpy()[7, 0, 0] == (49 << 5) | 2           # sign 0, n's pay
     assert out.numpy()[10, 0, 0] == (16 << 5) | (1 << 4) | 1  # p wins
+
+
+# ---------------------------------------------------------------------------
+# The CUDA binary kernel's column tiles and segmented sweep
+# (kernels/closest.cu), emulated
+# ---------------------------------------------------------------------------
+
+# closest.cu's binary block at these column lengths: 512 threads, 32
+# columns, so 16 segments a column
+BINARY_TC, BINARY_SEGS = 32, 16
+
+
+def _binary_plan(a, t):
+    """A packed plan's binary-pass fields for columns of ``a`` rows."""
+    return dict(t=t, ba=max(1, (a - 1).bit_length()), cap=t * t + 1)
+
+
+def _binary_kernel(occ, plan, square, tc=BINARY_TC, segs=BINARY_SEGS):
+    """closest.cu's binary kernel on an [A, cols] occupancy, block by block
+    (tc columns, numpy across them) and thread by thread: a tile with no
+    seed writes ``far << ba | i``; otherwise the tile holds 0 at a seed
+    and t_local + 2 elsewhere (u8 while that fits, else u16), each of
+    ``segs`` segments sweeps itself from "none" (g at its last row, h at
+    its first), then, after the barrier, sweeps forward from the carries
+    below, keeping g in the tile, and backward from the carries above,
+    forming each word from g and d = min(g, h)."""
+    a, ncols = occ.shape
+    tl = min(plan["t"], a - 1)
+    ba = plan["ba"]
+    cap, big = tl + 2, tl + 1
+    far = plan["cap"] if square else plan["t"] + 1
+    reach_ok = tkernels._binary_reach(tl) > tl
+    tile_max = 255 if cap <= 255 else 65535
+    seg_len = -(-a // segs)
+    bounds = [(min(a, j * seg_len), min(a, min(a, j * seg_len) + seg_len))
+              for j in range(segs)]
+    out = np.empty((a, ncols), np.int64)
+    for c0 in range(0, ncols, tc):
+        seeds = occ[:, c0:c0 + tc] != 0
+        if not seeds.any():
+            out[:, c0:c0 + tc] = (far << ba) | np.arange(a)[:, None]
+            continue
+        tile = np.where(seeds, 0, cap)
+        up, down = [], []
+        for r0, r1 in bounds:
+            g = np.full(tile.shape[1], cap)
+            h = np.full(tile.shape[1], cap)
+            for i in range(r0, r1):
+                g = np.minimum(g + 1, tile[i])
+                h = np.minimum(h, tile[i] + (i - r0))
+            up.append(g)
+            down.append(h)
+        for j, (r0, r1) in enumerate(bounds):
+            g = np.full(tile.shape[1], cap)
+            for q in range(j):
+                g = np.minimum(g + bounds[q][1] - bounds[q][0], up[q])
+            h = np.full(tile.shape[1], cap)
+            for q in range(segs - 1, j, -1):
+                h = np.minimum(h + bounds[q][1] - bounds[q][0], down[q])
+            for i in range(r0, r1):
+                g = np.minimum(g + 1, tile[i])
+                assert g.max() <= tile_max
+                tile[i] = g
+            for i in range(r1 - 1, r0 - 1, -1):
+                gi = tile[i]
+                h = np.minimum(h + 1, gi)
+                d = h
+                near = ((d * d if square else d) << ba) \
+                    | np.where(gi == d, i - gi, i + d)
+                far_word = (far << ba) \
+                    | np.where(reach_ok & (gi == big), i - big, i)
+                out[i, c0:c0 + tc] = np.where(d <= tl, near, far_word)
+    assert out.max() < 2 ** 31 and out.min() >= 0
+    return out.astype(np.int32)
+
+
+def _binary_columns(a, t, seed):
+    """[A, cols] u8 occupancy at the kernel's edges: a first tile with no
+    seed; lone seeds at t_local and t_local + 1 from either column end and
+    from each segment edge (both sides); pairs of seeds 2d apart, whose
+    middle row ties (g == h); random seeds, sparse and dense; and a last
+    tile only partly filled."""
+    tl = min(t, a - 1)
+    seg_len = -(-a // BINARY_SEGS)
+    rows = {0, a - 1, tl, tl + 1, a - 1 - tl, a - 2 - tl}
+    for edge in range(seg_len, a, seg_len):
+        rows |= {edge - tl, edge - 1 - tl, edge - 1 + tl, edge + tl}
+    rows = sorted(r for r in rows if 0 <= r < a)
+    cols = [np.zeros(a, np.uint8) for _ in range(BINARY_TC)]
+    for r in rows:
+        col = np.zeros(a, np.uint8)
+        col[r] = 1
+        cols.append(col)
+    for d in sorted({1, 2, tl // 2, tl, tl + 1}):
+        for mid in (a // 2, seg_len, seg_len - 1, d):
+            if 0 <= mid - d and mid + d < a and d > 0:
+                col = np.zeros(a, np.uint8)
+                col[[mid - d, mid + d]] = 1
+                cols.append(col)
+    rng = np.random.default_rng(seed)
+    for p in (0.01, 0.05, 0.3):
+        cols += list((rng.uniform(size=(6, a)) < p).astype(np.uint8))
+    cols += [np.zeros(a, np.uint8)] * (-len(cols) % BINARY_TC + 11)
+    return np.stack(cols, 1)
+
+
+@pytest.mark.parametrize("square", [True, False])
+@pytest.mark.parametrize("t", [3, 4, 17, 100, "a"])
+@pytest.mark.parametrize("a", [5, 48, 400, 401])
+def test_binary_kernel_matches_plain_and_pallas(a, t, square):
+    """The tile sweep gives the packed binary pass's words: t < A and
+    t >= A ("a": t = A + 3), reach_ok false (t = 3) and true (t = 4),
+    columns of one to sixteen segments, lone seeds at t_local and
+    t_local + 1 from a column end and a segment edge, ties between the
+    seeds below and above, the far payload i - L, all-far tiles and a
+    partly filled last tile."""
+    t = a + 3 if t == "a" else t
+    plan = _binary_plan(a, t)
+    occ = _binary_columns(a, t, a + t)
+    got = _binary_kernel(occ, plan, square)
+    plain = tedt._binary_packed_plain(torch.from_numpy(occ), plan, 0,
+                                      square).numpy()
+    np.testing.assert_array_equal(got, plain)
+    ref = np.asarray(jedt._binary_packed_pallas(
+        jnp.asarray(occ[:, :, None]), plan, interpret=True, square=square))
+    np.testing.assert_array_equal(got, ref[:, :, 0])
+    tl = min(t, a - 1)
+    if tkernels._binary_reach(tl) > tl and a > tl + 1:
+        # a lone seed at row r gives row r + L its index as the far payload
+        val = got >> plan["ba"]
+        assert ((val == plan["cap"] if square else val == t + 1)
+                & ((got & ((1 << plan["ba"]) - 1))
+                   != np.arange(a)[:, None])).any()
+
+
+@pytest.mark.parametrize("square", [True, False])
+def test_binary_kernel_u16_tile(square):
+    """t_local above 253 (the packed plan (400, 8, 8) at t = 300): the
+    tile holds g in u16."""
+    shape, t = (400, 8, 8), 300
+    plan = tedt.closest_plan(shape, t)
+    assert plan is not None and plan["a"] == 0
+    occ = _binary_columns(400, t, 3)
+    got = _binary_kernel(occ, plan, square)
+    np.testing.assert_array_equal(got, tedt._binary_packed_plain(
+        torch.from_numpy(occ), plan, 0, square).numpy())
+    ref = np.asarray(jedt._binary_packed_pallas(
+        jnp.asarray(occ[:, :, None]), plan, interpret=True, square=square))
+    np.testing.assert_array_equal(got, ref[:, :, 0])

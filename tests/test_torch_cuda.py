@@ -9,9 +9,11 @@ there with:
 Every kernel must equal its plain version bit for bit, at small shapes
 chosen for their edges: odd sizes, ragged tiles, t >= axis length,
 duplicate and dropped splat indices, square and non-square carve boxes,
-saturating and overlapping boxes on an unaligned grid, both closest
-layouts (x-lead, and the widest-C fallback), the EDT binary and closest
-split passes at their bounds' edges on columns up to 450 rows, sort
+saturating and overlapping boxes on an unaligned grid and at the cow
+and demo ticks' own boxes, both closest layouts (x-lead, and the widest-C
+fallback), the EDT binary and closest split passes at their bounds'
+edges on columns up to 450 rows, the closest binary pass along every
+axis at the cow shape and with a u16 tile, sort
 lengths below, at and above one shared-memory tile (up to 2^20 + 5
 pairs, where the merge
 levels split, and the cow splat's 147 456) with duplicate and sentinel
@@ -294,6 +296,44 @@ def test_boxadd_kernel(dev, grid, box, starts):
     assert int((ref[0] == 255).sum()) > 0
 
 
+@pytest.mark.parametrize("preset", ["cow_and_lady", "demo"])
+def test_boxadd_kernel_at_tick_boxes(dev, preset):
+    """The presets' own boxes (cow: 3 x 216x216x80, demo: 3 x 120x120x36)
+    at the starts ``scanline_batch_boxes`` gives each of five ticks of a
+    replay (24x32 scans; the boxes of a tick coincide or nearly so), with
+    the tick's counts and with random ones on counters near 255; one CUDA
+    launch a call."""
+    base = ft.COW_AND_LADY if preset == "cow_and_lady" else ft.DEMO_ONBOARD
+    cfg = dataclasses.replace(replay.scale_intrinsics(base, 24, 32),
+                              max_points_per_scan=24 * 32)
+    _, frames = replay.make_sequence(cfg, n_frames=15, n_boxes=20, seed=0,
+                                     kind="cloud", height=24, width=32,
+                                     period=12.0, orbit_radius=5.0)
+    batches = replay.stage_update_batches(cfg, frames, device=dev)
+    g = torch.Generator(device=dev).manual_seed(len(preset))
+    grid = cfg.grid_shape
+    for tick in range(batches[0].shape[0]):
+        pts, vals, tfs, _ = (b[tick] for b in batches)
+        starts, hitc, missc, _, _ = raycast.scanline_batch_boxes(
+            cfg, pts, vals, tfs)
+        rand = [torch.randint(0, 4, hitc.shape, generator=g, device=dev,
+                              dtype=torch.uint8) for _ in range(2)]
+        for bh, bm in ((hitc, missc), rand):
+            h = torch.randint(0, 256, grid, generator=g, device=dev,
+                              dtype=torch.uint8)
+            h[grid[0] // 3:grid[0] // 2] = 253             # saturates
+            m = torch.randint(250, 256, grid, generator=g, device=dev,
+                              dtype=torch.uint8)
+            ref = raycast._apply_box_counts_plain(h.clone(), m.clone(),
+                                                  starts, bh, bm)
+            got, names = _cuda_kernels(
+                lambda: raycast.apply_box_counts(h, m, starts, bh, bm))
+            assert names == ["boxadd_kernel"]
+            assert got[0] is h and got[1] is m
+            for a, b in zip(got, ref):
+                _eq(a, b)
+
+
 CLOSEST = {"x_lead": ((40, 33, 8), 9), "x_lead_long_t": ((37, 29, 20), 23),
            "widest_c": ((64, 16, 8), 1500), "long_c": ((24, 400, 10), 100),
            "long_c_450": ((8, 450, 6), 100)}
@@ -353,6 +393,55 @@ def test_closest_kernels(dev, layout, square):
         _eq(edt.split_packed(x, plan, c), edt._split_packed_plain(x, plan, c))
     _, names = _cuda_kernels(lambda: edt.split_packed(x, plan, c))
     assert names == ["closest_split_kernel"]
+
+
+def _closest_binary_edges(shape, axis, t, g):
+    """u8 occupancy along ``axis``: lone seeds at t_local and t_local + 1
+    from either column end and from each segment edge (16 segments a
+    column), pairs of seeds 2d apart (their middle row ties), all-far
+    tiles, random seeds."""
+    a = shape[axis]
+    tl = min(t, a - 1)
+    seg_len = -(-a // 16)
+    rows = {0, a - 1, tl, tl + 1, a - 1 - tl, a - 2 - tl}
+    for edge in range(seg_len, a, seg_len):
+        rows |= {edge - tl, edge - 1 - tl, edge - 1 + tl, edge + tl}
+    rows = sorted(r for r in rows if 0 <= r < a)
+    lone = torch.zeros(shape, dtype=torch.uint8).movedim(axis, 0)
+    flat = lone.reshape(a, -1)
+    for j in range(32, flat.shape[1]):          # the first tile: all far
+        flat[rows[j % len(rows)], j] = 1
+        d = j % (tl + 2) + 1
+        if j % 3 == 0 and j % a - d >= 0 and j % a + d < a:
+            flat[[j % a - d, j % a + d], j] = 1
+    rand = (torch.rand(shape, generator=g) < 0.03).to(torch.uint8)
+    return [flat.reshape(lone.shape).movedim(0, axis).contiguous(), rand]
+
+
+@pytest.mark.parametrize("square", [True, False])
+@pytest.mark.parametrize("layout", sorted(CLOSEST) + ["cow", "u16_tile"])
+def test_closest_binary_kernel(dev, layout, square):
+    """The binary pass's tiles and segmented sweep along every axis (the
+    plans' a axis is 0 or 1; axis 2 is contiguous), at the CLOSEST
+    layouts, the cow shape (400x400x80, t = 100) and a t_local above 253
+    (u16 tile); one CUDA launch a call (a template: the profiler lists
+    ``void closest_binary_kernel<unsigned char>``)."""
+    shape, t = {"cow": ((400, 400, 80), 100),
+                "u16_tile": ((400, 8, 8), 300)}.get(layout) or CLOSEST[layout]
+    g = torch.Generator().manual_seed(len(layout))
+    for axis in range(3):
+        a = shape[axis]
+        plan = dict(t=t, ba=max(1, (a - 1).bit_length()), cap=t * t + 1)
+        if axis == 0 or layout != "cow":
+            for occ in _closest_binary_edges(shape, axis, t, g):
+                occ = occ.to(dev)
+                _eq(edt.binary_packed(occ, plan, axis, square),
+                    edt._binary_packed_plain(occ, plan, axis, square))
+    plan = edt.closest_plan(shape, t)
+    occ = occ.to(dev)
+    _, names = _cuda_kernels(
+        lambda: edt.binary_packed(occ, plan, plan["a"], square))
+    assert [n.split("<")[0] for n in names] == ["void closest_binary_kernel"]
 
 
 @pytest.mark.parametrize("packed_out", [False, True])
