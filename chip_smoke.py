@@ -55,16 +55,21 @@ exits non-zero:
    one computes the same function, and the card's bound.  A kernel's
    ``ms`` is host-paced (calls back to back, as the main path makes
    them); beside it, queued behind a device sleep, the card's time
-   alone.  The eight redesigned kernels (splat, sort, carve, min-plus, EDT
-   binary, closest split, box add, closest binary) also print their CUDA
-   launches per call and device time by kernel name (``torch.profiler``),
-   beside their times before their redesign (``EARLIER_MS``); the splat's
-   zero fill has a row of its own.  The closest binary pass logs its
-   column tiles and those holding a seed (the others only write).  The carve is also timed at the demo box (on the demo's
-   first tick) and prints its wavefronts' steps; the min-plus pass prints
-   its window offsets per voxel (``minplus_taps``) and the closest split
-   pass those of each side (``split_taps``), each beside the brute-force
-   window's;
+   alone.  The nine redesigned kernels (splat, sort, carve, min-plus, EDT
+   binary, closest split, box add, closest binary, closest window) also
+   print their CUDA launches per call and device time by kernel name
+   (``torch.profiler``), beside their times before their redesign
+   (``EARLIER_MS``); the splat's zero fill has a row of its own, and the
+   windowed drain's row takes the same timings.  The closest binary pass
+   logs its column tiles and those holding a seed (the others only
+   write).  The carve is also timed at the demo box (on the demo's first
+   tick) and prints its wavefronts' steps; the min-plus pass prints its
+   window offsets per voxel (``minplus_taps``), the closest split pass
+   those of each side (``split_taps``) and the closest window pass those
+   of its two sides together (``window_taps``), each beside the
+   brute-force window's, and both closest passes their time on the card
+   alone with every value at cap (``far_device_ms``: load and store
+   alone);
 8. a JSON line of per-kernel numbers (with the launches, device times,
    carve steps and window offsets above), the nvidia-smi line, and last
    ``{"ok": true, "device": {...}}``.
@@ -114,19 +119,19 @@ MARK_CYCLES = 100_000       # ~50 us: the profiler's first kernel
 # host-paced ms per call of the splat (three launches), the sort (28
 # launches at 2^18 pairs), the carve (217 launches at cow), the min-plus
 # pass (mean of axes 1 and 2), the EDT binary pass (a thread a column),
-# the closest split pass (the brute-force window), the box add (a thread
-# a box voxel) and the closest binary pass (a thread a column) before
-# their redesign, at the same shapes on an H100 80GB HBM3 at 700 W
-# (PERF.md, kernel table), and the launches
+# the closest split and window passes (the brute-force window), the box
+# add (a thread a box voxel) and the closest binary pass (a thread a
+# column) before their redesign, at the same shapes on an H100 80GB HBM3
+# at 700 W (PERF.md, kernel table), and the launches
 EARLIER_MS = {"splat": 0.0714, "sort": 0.1716, "carve": 1.3794,
               "edt_minplus": 0.4933, "edt_binary": 0.1663,
               "closest_split": 0.6178, "boxadd": 0.0964,
-              "closest_binary": 0.2824}
+              "closest_binary": 0.2824, "closest_window": 0.2614}
 EARLIER_MINPLUS_AXIS_MS = (0.6378, 0.3488)
 EARLIER_LAUNCHES = {"splat": "3", "sort": "28 at 2^18 pairs",
                     "carve": "217 at cow", "edt_minplus": "1",
                     "edt_binary": "1", "closest_split": "1", "boxadd": "1",
-                    "closest_binary": "1"}
+                    "closest_binary": "1", "closest_window": "1"}
 # int32 operations per voxel of an exact O(A) min-plus pass: a lower
 # envelope of parabolas (Felzenszwalb-Huttenlocher) builds with amortised
 # two intersection tests of ~8 operations per element, then one evaluation
@@ -367,6 +372,9 @@ def closest_rows(cfg, occupied):
         # the cheapest exact pass is O(A) per column holding a value
         # below cap, as for the min-plus passes
         near_cols = int(((x >> shift) < cap).any(dim=axis).sum())
+        # every value at cap: no sweep and no loop, the load and store
+        # alone (the floor under the windows' work)
+        far = torch.full_like(x, cap << shift)
         rows.append(dict(
             name=name, source="fiesta_tpu_torch/kernels/closest.cu",
             replaces=f"fiesta_tpu/ops/pallas/edt.py:{line}",
@@ -375,12 +383,16 @@ def closest_rows(cfg, occupied):
             plain_ms=time_ms(lambda: plain(x, plan, axis), calls=1,
                              windows=3),
             library_ms=None,
+            far_device_ms=kernel_times(lambda: kern(far, plan, axis))[
+                "device_ms"],
             bound=bound(8 * nvox, ENVELOPE_OPS * near_cols * x.shape[axis],
                         I32_OPS_PER_S)))
-    by_name, counts, _ = profiled(lambda: kernels.closest_split(p2, plan, c),
-                                  10)
-    rows[-1].update(cuda_launches=sum(counts.values()), by_kernel=by_name,
-                    taps=split_taps(p2, plan, c))
+    for row, kern, x, axis, taps in (
+            (rows[-2], kernels.closest_window, p1, b, window_taps),
+            (rows[-1], kernels.closest_split, p2, c, split_taps)):
+        by_name, counts, _ = profiled(lambda: kern(x, plan, axis), 10)
+        row.update(cuda_launches=sum(counts.values()), by_kernel=by_name,
+                   taps=taps(x, plan, axis))
     return rows
 
 
@@ -465,6 +477,17 @@ def split_taps(x, plan, axis):
     return dict(n=taps_summary(taps_n), p=taps_summary(taps_p),
                 brute_mean_taps=brute_mean_taps(
                     (x >> plan["s"]) < plan["cap"], axis, tl))
+
+
+def window_taps(x, plan, axis):
+    """The closest window kernel's work on input ``x`` along ``axis``:
+    window offsets per voxel of its two bounded loops together
+    (``edt.closest_window_taps``; one load each), beside the brute-force
+    window's (a pair of loads each)."""
+    _, taps = edt.closest_window_taps(x, plan, axis)
+    tl = min(plan["t"], x.shape[axis] - 1)
+    return dict(**taps_summary(taps), brute_mean_taps=brute_mean_taps(
+        (x >> plan["ba"]) < plan["cap"], axis, tl))
 
 
 def demo_seeds(dcfg, dbatches):
@@ -904,20 +927,30 @@ def run(dev, cfg, h, w, ticks, dcfg, dh, dw, dticks):
                clamp_min=dcfg.clamp_min_log, clamp_max=dcfg.clamp_max_log,
                occ_thresh=don, occ_is_eq=deq, window=dwin)
     dvox = d_state.logodds.numel()
+    fuse_kernels, fuse_counts, _ = profiled(
+        lambda: kernels.fuse(*dfin, **dkw), 10)
     fuse_window = dict(
         err=max_abs_err(kernels.fuse(*dfin, **dkw),
                         fusion._fuse_drain_plain(*dfin, **dkw)),
-        ms=time_ms(lambda: kernels.fuse(*dfin, **dkw)),
+        **kernel_times(lambda: kernels.fuse(*dfin, **dkw)),
         plain_ms=time_ms(lambda: fusion._fuse_drain_plain(*dfin, **dkw)),
         # 15 bytes per voxel; ~8 f32 operations and ~14 integer ones (the
         # voxel's coordinates and six compares) per voxel
         bound_ms=max(15 * dvox / HBM_BYTES_PER_S,
                      8 * dvox / F32_OPS_PER_S + 14 * dvox / I32_OPS_PER_S)
-        * 1e3)
+        * 1e3,
+        launches=demo_launches["fuse"],
+        cuda_launches=sum(fuse_counts.values()), by_kernel=fuse_kernels)
     log(f"fuse (windowed, demo {dcfg.grid_shape}, window "
         f"{[w.tolist() for w in dwin]}): {fuse_window['ms']:.4f} ms "
-        f"(plain {fuse_window['plain_ms']:.4f}, bound "
-        f"{fuse_window['bound_ms']:.4f} ms by bytes), bit-equal, on {card}")
+        f"host-paced, {fuse_window['device_ms']:.4f} on the card alone, "
+        f"{fuse_window['host_ms']:.4f} to enqueue on the host (plain "
+        f"{fuse_window['plain_ms']:.4f}, bound "
+        f"{fuse_window['bound_ms']:.4f} ms by bytes), bit-equal; "
+        f"{fuse_window['launches']} launches on the demo stream, "
+        f"{fuse_window['cuda_launches']:g} CUDA launches per call, device "
+        f"ms by kernel { {k: round(v, 4) for k, v in fuse_kernels.items()} }"
+        f"; on {card}")
 
     starts, hitc, missc, _, _ = raycast.scanline_batch_boxes(cfg, pts, vals,
                                                              tfs)
@@ -1012,7 +1045,16 @@ def run(dev, cfg, h, w, ticks, dcfg, dh, dw, dticks):
     split = next(r for r in rows if r["name"] == "closest_split")
     log(f"closest_split window offsets per voxel: side n "
         f"{split['taps']['n']}, side p {split['taps']['p']}; the "
-        f"brute-force window {split['taps']['brute_mean_taps']:.2f} a side")
+        f"brute-force window {split['taps']['brute_mean_taps']:.2f} a side;"
+        f" {split['far_device_ms']:.4f} ms on the card alone with every "
+        f"value at cap")
+    window = next(r for r in rows if r["name"] == "closest_window")
+    wtaps = dict(window["taps"])
+    brute = wtaps.pop("brute_mean_taps")
+    log(f"closest_window window offsets per voxel, both sides: {wtaps}; "
+        f"the brute-force window {brute:.2f} (a pair of loads each); "
+        f"{window['far_device_ms']:.4f} ms on the card alone with every "
+        f"value at cap")
 
     for r in rows:
         if r["name"] not in EARLIER_LAUNCHES:
@@ -1071,6 +1113,10 @@ def run(dev, cfg, h, w, ticks, dcfg, dh, dw, dticks):
                       "fuse_window_demo": fuse_window,
                       "carve_steps": steps, "carve_demo": carve_demo,
                       "minplus_taps": taps, "split_taps": split["taps"],
+                      "window_taps": window["taps"],
+                      "far_device_ms": {r["name"]: r["far_device_ms"]
+                                        for r in rows
+                                        if "far_device_ms" in r},
                       "closest_binary_tiles": binary["tiles"]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

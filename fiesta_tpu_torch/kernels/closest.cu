@@ -38,25 +38,17 @@
 // once.
 // Bound: bytes (u8 in, i32 out: 5 bytes per voxel, 64 MB at cow scale).
 //
-// Window pass (payload b* << ba | a*): the shared column-tile kernel
-// (fiesta_kernels.cuh): tc whole columns per block in shared memory,
-// coalesced loads and stores, the repack as the load's prologue, the
-// brute-force window from shared memory.  Out-of-range neighbours read
-// cap << s with payload 0.  A tile whose every value equals cap is all
-// far: the centre wins every comparison (a neighbour or the fill adds
-// k^2 >= 1 to the value), so the window loop is skipped and the epilogue
-// gives exactly what the loop would.  Bound: bytes (one i32 read and
-// write per voxel, 102 MB at cow scale) against the cheapest exact O(A)
-// pass; the brute-force window does 3 int32 operations per offset.
-//
-// Split pass (two half-window accumulators, one output word
-// val << (s+1) | sign << s | pay): its own kernel, each side's window
-// bounded exactly.  Inputs are <= cap, so a neighbour whose value is cap
-// (or the fill beyond a column end, cap << s with payload 0) adds k^2 >= 1
-// to a value >= the centre's and never wins:
+// Window pass (payload b* << ba | a*) and split pass (two half-window
+// accumulators, one output word val << (s+1) | sign << s | pay): one
+// kernel body, closest_bounded_pass, over the pass (WindowPass: the
+// repack v << s | i << ba | a* as the load, one accumulator, the value
+// clamped at cap; SplitPass: the words as they come, one accumulator a
+// side).  Each side's window is bounded exactly.  Inputs are <= cap, so a
+// neighbour whose value is cap (or the fill beyond a column end, cap << s
+// with payload 0) adds k^2 >= 1 to a value >= the centre's and never wins:
 //   * side n starts at k0n, the distance to the nearest row below i whose
 //     value is below cap, and side p at k0p, the nearest row above i
-//     (none: the side keeps the centre).  Both come from a segmented
+//     (none: the side keeps what it has).  Both come from a segmented
 //     two-sweep pass over each tile column, one segment per thread (the
 //     segment's first and last such rows, a barrier, carries from the
 //     other segments); k0n is carried as the thread walks its rows
@@ -64,18 +56,24 @@
 //     bound; 255 for none), since the words have no spare bits;
 //   * each side stops at the first k with (k^2 << s) >= acc: a candidate
 //     at offset k is a whole word >= k^2 << s, so it cannot be below acc,
-//     and a tie leaves the word as it is.  The sides are bounded
-//     independently, so each accumulator is exact and the strict
-//     vp < vn (ties to n) is that of the brute-force window.
+//     and a tie leaves the word as it is.  The split bounds its sides
+//     independently, so each accumulator is exact and the strict vp < vn
+//     (ties to n) is that of the brute-force window.  The window pass has
+//     one accumulator: side p starts from what side n left, a min over a
+//     set that still holds every candidate that can win, so it is exact
+//     and stops sooner.
 // Offsets go four a turn with independent loads (an offset past the
 // side's reach re-reads its last one).  A tile with no value below cap
-// skips the sweeps and the loops.  Warps take 32 neighbouring columns
-// row by row, so their bounds are alike.  A strided axis (cow: inner =
-// 80) writes results from registers; a contiguous one stages them.
-// Each block computes its columns' base addresses once.  Bound: bytes, as
-// for the window pass; what holds it above that: the window loops (the
-// offsets per voxel follow the distance to the nearest obstacle), the
-// sweeps, and divergence within a warp.
+// skips the sweeps and the loops (the window then writes the repack).
+// Warps take 32 neighbouring columns row by row, so their bounds are
+// alike.  A strided axis (the split at cow: inner = 80) writes results
+// from registers; a contiguous one (the window at cow and demo, along z)
+// stages them in a tile of pitch tc + 1.  Each block computes its
+// columns' base addresses once.  Bound: bytes (one i32 read and write per
+// voxel, 102 MB at cow scale) against the cheapest exact O(A) pass; what
+// holds them above that: the window loops (the offsets per voxel follow
+// the distance to the nearest obstacle), the sweeps, and divergence within
+// a warp.
 
 #include "fiesta_kernels.cuh"
 
@@ -170,73 +168,99 @@ __global__ void __launch_bounds__(kBinaryThreads)
       });
 }
 
-// Window pass: the prologue repacks v << s | i << ba | a*, the window keeps
-// one accumulator and the epilogue clamps the value to cap.
-struct ClosestWindow {
-  int tl, ba, s, cap;
-  int fill;  // cap << s, payload 0: beyond the column ends
-  __device__ int load(int raw, int i, int& near) const {
-    const int v = raw >> ba;
-    near |= v != cap;
-    return (v << s) | (i << ba) | (raw & ((1 << ba) - 1));
-  }
-  __device__ int window(const int* col, int i, int A, int tc,
-                        bool any_near) const {
-    int acc = col[i * tc];
-    if (any_near) {
-      for (int k = 1; k <= tl; ++k) {
-        const int lo = i - k >= 0 ? col[(i - k) * tc] : fill;
-        const int hi = i + k < A ? col[(i + k) * tc] : fill;
-        acc = min(acc, min(lo, hi) + ((k * k) << s));
-      }
-    }
-    return (min(acc >> s, cap) << s) | (acc & ((1 << s) - 1));
-  }
-};
-
 namespace {
 
-constexpr int kSplitThreads = 512;
-constexpr int kSplitUnroll = 4;
+constexpr int kBoundedThreads = 512;
+constexpr int kBoundedUnroll = 4;
 constexpr int kK0Far = 254;             // farther k0p is stored as this
 constexpr unsigned char kK0None = 255;  // no value below cap above the row
+bool g_window_ready[kFiestaMaxDevices];
 bool g_split_ready[kFiestaMaxDevices];
 
 // Row pitch of the tile: tc, so that lanes on different rows still use
 // different banks, or tc + 1 when the column is contiguous (inner == 1),
 // so that the load, which walks a column, is free of bank conflicts.
-__host__ __device__ int split_pitch(int tc, bool staged) {
+__host__ __device__ int bounded_pitch(int tc, bool staged) {
   return staged ? tc + 1 : tc;
 }
 
-// Shared memory of a split block of tc columns: base addresses, the tile
-// (and the result tile when staged), the segments' rows, the u8 k0p.
-size_t split_smem(int A, int tc, bool staged) {
-  const int segs = kSplitThreads / tc;
-  const size_t words = (size_t)A * split_pitch(tc, staged) * (staged ? 2 : 1);
+// Shared memory of a bounded-pass block of tc columns: base addresses, the
+// tile (and the result tile when staged), the segments' rows, the u8 k0p.
+size_t bounded_smem(int A, int tc, bool staged) {
+  const int segs = kBoundedThreads / tc;
+  const size_t words =
+      (size_t)A * bounded_pitch(tc, staged) * (staged ? 2 : 1);
   return tc * sizeof(long long) + (words + 2 * (size_t)segs * tc) *
          sizeof(int) + (size_t)A * tc;
 }
 
 }  // namespace
 
-__global__ void __launch_bounds__(kSplitThreads)
-    closest_split_kernel(const int* __restrict__ f, int* __restrict__ out,
-                         long long outer, int A, long long inner, int tc,
-                         int tl, int s, int cap) {
-  extern __shared__ long long split_sm[];
+// Window pass: the load repacks raw = v << ba | a* into
+// v << s | i << ba | a*; one accumulator for both sides, whose value the
+// output clamps at cap.
+struct WindowPass {
+  int s, cap, ba;
+  static constexpr bool kShared = true;
+  __device__ int load(int raw, int i) const {
+    return ((raw >> ba) << s) | (i << ba) | (raw & ((1 << ba) - 1));
+  }
+  __device__ int word(int, int acc) const {
+    return (min(acc >> s, cap) << s) | (acc & ((1 << s) - 1));
+  }
+};
+
+// Split pass: the words as they come; two half-window accumulators, one
+// output word val << (s+1) | sign << s | pay.
+struct SplitPass {
+  int s, cap;
+  static constexpr bool kShared = false;
+  __device__ int load(int w, int) const { return w; }
+  __device__ int word(int acc_n, int acc_p) const {
+    const int vn = acc_n >> s, vp = acc_p >> s;
+    const int use_p = vp < vn;  // strict: ties go to the negative side
+    const int val = min(min(vn, vp), cap);
+    return (val << (s + 1)) | (use_p << s) |
+           ((use_p ? acc_p : acc_n) & ((1 << s) - 1));
+  }
+};
+
+// min(acc, col[i + dir * k] + (k^2 << s)) over k = k0, k0 + 1, ... while
+// k <= kmax and (k^2 << s) < acc, four offsets a turn with independent
+// loads (an offset past kmax re-reads kmax's).
+__device__ __forceinline__ int bounded_side(const int* col, int pitch, int i,
+                                            int dir, int k0, int kmax, int s,
+                                            int acc) {
+  for (int k = k0; k <= kmax && ((k * k) << s) < acc; k += kBoundedUnroll) {
+#pragma unroll
+    for (int u = 0; u < kBoundedUnroll; ++u) {
+      const int kq = min(k + u, kmax);
+      acc = min(acc, col[(i + dir * kq) * pitch] + ((kq * kq) << s));
+    }
+  }
+  return acc;
+}
+
+// The body of both bounded passes along A of an [outer, A, inner] volume:
+// `pass.load` forms the tile words, `pass.word` the output from the two
+// sides' accumulators (one shared accumulator when Pass::kShared).
+template <class Pass>
+__device__ __forceinline__ void closest_bounded_pass(
+    const Pass& pass, const int* __restrict__ f, int* __restrict__ out,
+    long long outer, int A, long long inner, int tc, int tl) {
+  extern __shared__ long long bounded_sm[];
   const bool staged = inner == 1;
-  const int pitch = split_pitch(tc, staged);
+  const int pitch = bounded_pitch(tc, staged);
   const int segs = blockDim.x / tc;
-  long long* base = split_sm;                  // [tc]: address of row 0
+  long long* base = bounded_sm;                // [tc]: address of row 0
   int* tile = (int*)(base + tc);               // [A][pitch]: the words
   int* first = tile + A * pitch;               // [segs][tc]
   int* last = first + segs * tc;               // [segs][tc]
   int* res = last + segs * tc;                 // [A][pitch], inner == 1
   unsigned char* k0p =                         // [A][tc]
       (unsigned char*)(res + (staged ? A * pitch : 0));
+  const int s = pass.s, cap = pass.cap;
   const int fill = cap << s;
-  const int mask = (1 << s) - 1;
   const long long ncols = outer * inner;
   const long long col0 = (long long)blockIdx.x * tc;
   const int total = A * tc;
@@ -248,7 +272,7 @@ __global__ void __launch_bounds__(kSplitThreads)
   for (int e = threadIdx.x; e < total; e += blockDim.x) {
     int i, c;
     fiesta_tile_pos(e, A, tc, inner, i, c);
-    const int w = base[c] >= 0 ? f[base[c] + i * inner] : fill;
+    const int w = base[c] >= 0 ? pass.load(f[base[c] + i * inner], i) : fill;
     near |= (w >> s) < cap;
     tile[i * pitch + c] = w;
   }
@@ -286,36 +310,20 @@ __global__ void __launch_bounds__(kSplitThreads)
     const int w = col[i * pitch];
     int acc_n = w, acc_p = w;
     if (any_near) {
-      if (lp >= 0) {
-        const int kmax = min(tl, i);
-        for (int k = i - lp; k <= kmax && ((k * k) << s) < acc_n;
-             k += kSplitUnroll) {
-#pragma unroll
-          for (int u = 0; u < kSplitUnroll; ++u) {
-            const int kq = min(k + u, kmax);
-            acc_n = min(acc_n, col[(i - kq) * pitch] + ((kq * kq) << s));
-          }
-        }
-      }
+      if (lp >= 0)
+        acc_n = bounded_side(col, pitch, i, -1, i - lp, min(tl, i), s, acc_n);
+      // The window pass starts side p from the acc that side n left: the
+      // result is a min over a set that still holds every candidate that
+      // can win, so it is exact, and side p stops sooner.  The split
+      // keeps its sides apart: its word needs each side's own minimum.
+      if (Pass::kShared) acc_p = acc_n;
       const int kp = k0p[i * tc + c];
-      if (kp != kK0None) {
-        const int kmax = min(tl, A - 1 - i);
-        for (int k = kp; k <= kmax && ((k * k) << s) < acc_p;
-             k += kSplitUnroll) {
-#pragma unroll
-          for (int u = 0; u < kSplitUnroll; ++u) {
-            const int kq = min(k + u, kmax);
-            acc_p = min(acc_p, col[(i + kq) * pitch] + ((kq * kq) << s));
-          }
-        }
-      }
+      if (kp != kK0None)
+        acc_p = bounded_side(col, pitch, i, 1, kp, min(tl, A - 1 - i), s,
+                             acc_p);
       if ((w >> s) < cap) lp = i;
     }
-    const int vn = acc_n >> s, vp = acc_p >> s;
-    const int use_p = vp < vn;  // strict: ties go to the negative side
-    const int val = min(min(vn, vp), cap);
-    const int word =
-        (val << (s + 1)) | (use_p << s) | ((use_p ? acc_p : acc_n) & mask);
+    const int word = pass.word(acc_n, acc_p);
     if (staged)
       res[i * pitch + c] = word;
     else if (base[c] >= 0)
@@ -328,6 +336,39 @@ __global__ void __launch_bounds__(kSplitThreads)
     fiesta_tile_pos(e, A, tc, inner, i, cc);
     if (base[cc] >= 0) out[base[cc] + i] = res[i * pitch + cc];
   }
+}
+
+__global__ void __launch_bounds__(kBoundedThreads)
+    closest_window_kernel(const int* __restrict__ f, int* __restrict__ out,
+                          long long outer, int A, long long inner, int tc,
+                          int tl, WindowPass pass) {
+  closest_bounded_pass(pass, f, out, outer, A, inner, tc, tl);
+}
+
+__global__ void __launch_bounds__(kBoundedThreads)
+    closest_split_kernel(const int* __restrict__ f, int* __restrict__ out,
+                         long long outer, int A, long long inner, int tc,
+                         int tl, SplitPass pass) {
+  closest_bounded_pass(pass, f, out, outer, A, inner, tc, tl);
+}
+
+// One launch of a bounded pass's kernel along A of [outer, A, inner].
+template <class Pass>
+static int launch_bounded(void (*kernel)(const int*, int*, long long, int,
+                                         long long, int, int, Pass),
+                          bool (&ready)[kFiestaMaxDevices], const Pass& pass,
+                          const int* f, int* out, long long outer, int A,
+                          long long inner, int tl, cudaStream_t stream) {
+  const cudaError_t err = fiesta_allow_max_smem(kernel, ready);
+  if (err != cudaSuccess) return (int)err;
+  const bool staged = inner == 1;
+  const int tc = fiesta_fit_tile_cols(
+      [A, staged](int tc) { return bounded_smem(A, tc, staged); });
+  const long long blocks = (outer * inner + tc - 1) / tc;
+  kernel<<<(unsigned)blocks, kBoundedThreads, bounded_smem(A, tc, staged),
+           stream>>>(f, out, outer, A, inner, tc, tl, pass);
+  FIESTA_LAUNCH_CHECK();
+  return 0;
 }
 
 template <class T>
@@ -376,24 +417,16 @@ FIESTA_EXPORT int fiesta_closest_window(const int* f, int* out,
                                         long long inner, int tl, int ba,
                                         int s, int cap,
                                         cudaStream_t stream) {
-  return fiesta_tile_window(ClosestWindow{tl, ba, s, cap, cap << s}, f, out,
-                            outer, A, inner, stream);
+  return launch_bounded(closest_window_kernel, g_window_ready,
+                        WindowPass{s, cap, ba}, f, out, outer, A, inner, tl,
+                        stream);
 }
 
 FIESTA_EXPORT int fiesta_closest_split(const int* f, int* out,
                                        long long outer, int A,
                                        long long inner, int tl, int s,
                                        int cap, cudaStream_t stream) {
-  const cudaError_t err =
-      fiesta_allow_max_smem(closest_split_kernel, g_split_ready);
-  if (err != cudaSuccess) return (int)err;
-  const bool staged = inner == 1;
-  const int tc = fiesta_fit_tile_cols(
-      [A, staged](int tc) { return split_smem(A, tc, staged); });
-  const long long blocks = (outer * inner + tc - 1) / tc;
-  closest_split_kernel<<<(unsigned)blocks, kSplitThreads,
-                         split_smem(A, tc, staged), stream>>>(
-      f, out, outer, A, inner, tc, tl, s, cap);
-  FIESTA_LAUNCH_CHECK();
-  return 0;
+  return launch_bounded(closest_split_kernel, g_split_ready,
+                        SplitPass{s, cap}, f, out, outer, A, inner, tl,
+                        stream);
 }

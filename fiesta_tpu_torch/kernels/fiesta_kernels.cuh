@@ -1,6 +1,7 @@
 // Shared by the port's CUDA sources: C export macro, launch check, the
-// error-string export every library carries for its Python wrapper, and the
-// column-tile kernel of the windowed passes.
+// error-string export every library carries for its Python wrapper, the
+// column-tile addressing of the windowed passes and the binary passes'
+// segmented sweep.
 #pragma once
 
 #include <cstdint>
@@ -51,9 +52,8 @@ static cudaError_t fiesta_allow_max_smem(Kernel kernel,
 }
 
 // Column tiles of a contiguous volume viewed as [outer, A, inner], walked
-// along A (the EDT and closest windowed passes; fiesta_tile_window_kernel
-// below): a block holds tc whole columns as an [A][tc] tile in shared
-// memory.
+// along A (the EDT and closest passes): a block holds tc whole columns as
+// an [A][tc] tile in shared memory.
 //
 // Element e of a tile -> (row i, tile column c), in memory order: along
 // `inner` when columns are strided, along the column when inner == 1, so
@@ -132,79 +132,4 @@ __device__ __forceinline__ void fiesta_binary_sweep(T* col, int pitch, int A,
     h = min(h + 1, gi);
     emit(i, gi, h);
   }
-}
-
-// Columns per block of the window kernel below: two [A][tc] i32 tiles.
-static inline int fiesta_tile_cols(int A) {
-  return fiesta_fit_tile_cols(
-      [A](int tc) { return 2LL * A * tc * (long long)sizeof(int); });
-}
-
-// The closest window pass's kernel, a template over the pass: a block
-// loads tc whole columns into shared memory, coalesced, through the pass's
-// prologue `pass.load(raw, i, near)`, which returns the tile word and ORs into
-// `near` whether the value is below "far"; columns past the end read
-// `pass.fill`.
-// The block votes on `near`, then each element's result is
-// `pass.window(column, i, A, tc, any_near)`, evaluated from shared memory
-// (`column` points at row 0 of the element's tile column, rows tc apart;
-// the pass skips its window loop when no value of the tile is near, and
-// must then return what the loop would).  Results are staged in shared
-// memory and stored with the load's coalescing.
-template <class Pass>
-__global__ void fiesta_tile_window_kernel(const int* __restrict__ f,
-                                          int* __restrict__ out,
-                                          long long outer, int A,
-                                          long long inner, int tc,
-                                          Pass pass) {
-  extern __shared__ int smem[];
-  int* tile = smem;            // [A][tc] input columns, after the prologue
-  int* res = smem + A * tc;    // [A][tc] results
-  const long long ncols = outer * inner;
-  const long long col0 = (long long)blockIdx.x * tc;
-  const int total = A * tc;
-
-  int near = 0;
-  for (int e = threadIdx.x; e < total; e += blockDim.x) {
-    int i, c;
-    fiesta_tile_pos(e, A, tc, inner, i, c);
-    const long long col = col0 + c;
-    tile[i * tc + c] =
-        col < ncols ? pass.load(f[fiesta_col_addr(col, i, A, inner)], i, near)
-                    : pass.fill;
-  }
-  const bool any_near = __syncthreads_or(near);
-
-  // c fastest, so a warp reads 32 consecutive shared words
-  for (int e = threadIdx.x; e < total; e += blockDim.x) {
-    const int i = e / tc, c = e % tc;
-    res[i * tc + c] = pass.window(tile + c, i, A, tc, any_near);
-  }
-  __syncthreads();
-
-  for (int e = threadIdx.x; e < total; e += blockDim.x) {
-    int i, c;
-    fiesta_tile_pos(e, A, tc, inner, i, c);
-    const long long col = col0 + c;
-    if (col < ncols) out[fiesta_col_addr(col, i, A, inner)] = res[i * tc + c];
-  }
-}
-
-// Launch `pass` along the A axis of an [outer, A, inner] volume, 256
-// threads per block of tc columns.
-template <class Pass>
-static int fiesta_tile_window(const Pass& pass, const int* f, int* out,
-                              long long outer, int A, long long inner,
-                              cudaStream_t stream) {
-  static bool ready[kFiestaMaxDevices];
-  const cudaError_t err =
-      fiesta_allow_max_smem(fiesta_tile_window_kernel<Pass>, ready);
-  if (err != cudaSuccess) return (int)err;
-  const int tc = fiesta_tile_cols(A);
-  const size_t smem = 2 * (size_t)A * tc * sizeof(int);
-  const long long blocks = (outer * inner + tc - 1) / tc;
-  fiesta_tile_window_kernel<Pass><<<(unsigned)blocks, 256, smem, stream>>>(
-      f, out, outer, A, inner, tc, pass);
-  FIESTA_LAUNCH_CHECK();
-  return 0;
 }

@@ -12,12 +12,15 @@
 // log-odds, seen, occupancy and two zeroed counters written): 192 MB at cow
 // scale.  Each thread takes four consecutive voxels (one 16-byte f32 load,
 // 4-byte u8 loads), so every access is a coalesced vector access.  The
-// window costs each voxel its (x, y, z) from the flat index and six integer
-// compares, against bounds read once per thread; the global drain is a
-// separate instantiation without them.  The
-// three counts are integer sums, exact in any order: per-block sums of
-// warp-shuffle partials, then one atomicAdd per block and count into a
-// zeroed i32[3].
+// window costs each group of four voxels the (x, y, z) of its first voxel,
+// one pair of 32-bit divisions (64-bit only past 2^31 voxels); the other
+// three step z, carrying into y and x.  A group within one z row (every
+// group when gz % 4 == 0, as at both presets) shares (x, y), so a group
+// outside the window's x or y range takes no per-voxel test.  The bounds
+// are read once per thread; the global drain is a separate instantiation
+// without any of this.  The three counts are integer sums, exact in any
+// order: per-block sums of warp-shuffle partials, then one atomicAdd per
+// block and count into a zeroed i32[3].
 
 #include "fiesta_kernels.cuh"
 
@@ -27,15 +30,54 @@ struct FuseParams {
   int gy, gz;            // grid extents, for a voxel's (x, y, z)
 };
 
-// Inclusive window [x0, y0, z0, x1, y1, z1] test of flat voxel index i.
-__device__ __forceinline__ bool fuse_in_window(long long i, const int* w,
-                                               const FuseParams& p) {
-  const long long yz = (long long)p.gy * p.gz;
-  const int x = (int)(i / yz);
-  const int y = (int)((i / p.gz) % p.gy);
-  const int z = (int)(i % p.gz);
+// (x, y, z) of flat voxel index i, in the index type I (unsigned 32-bit
+// below 2^31 voxels): one division pair.
+template <class I>
+__device__ __forceinline__ void fuse_coords(I i, const FuseParams& p, int& x,
+                                            int& y, int& z) {
+  const I yz = (I)p.gy * (I)p.gz;
+  const I xq = i / yz;
+  const I r = i - xq * yz;
+  const I yq = r / (I)p.gz;
+  x = (int)xq;
+  y = (int)yq;
+  z = (int)(r - yq * (I)p.gz);
+}
+
+// Inclusive window [x0, y0, z0, x1, y1, z1] test of voxel (x, y, z).
+__device__ __forceinline__ bool fuse_in_window(int x, int y, int z,
+                                               const int* w) {
   return x >= w[0] && x <= w[3] && y >= w[1] && y <= w[4] && z >= w[2] &&
          z <= w[5];
+}
+
+// Bit j (j < 4) set when voxel i0 + j lies in the window: the first
+// voxel's (x, y, z), then z steps, carrying into y and x.
+template <class I>
+__device__ __forceinline__ unsigned fuse_group_in_window(I i0, const int* w,
+                                                         const FuseParams& p) {
+  int x, y, z;
+  fuse_coords(i0, p, x, y, z);
+  unsigned mask = 0;
+  if (z + 3 < p.gz) {  // one z row: the four voxels share (x, y)
+    if (x < w[0] || x > w[3] || y < w[1] || y > w[4]) return 0;
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      mask |= (unsigned)(z + j >= w[2] && z + j <= w[5]) << j;
+    return mask;
+  }
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    mask |= (unsigned)fuse_in_window(x, y, z, w) << j;
+    if (++z == p.gz) {
+      z = 0;
+      if (++y == p.gy) {
+        y = 0;
+        ++x;
+      }
+    }
+  }
+  return mask;
 }
 
 __device__ __forceinline__ bool fuse_occ(float lo, const FuseParams& p) {
@@ -63,7 +105,9 @@ __device__ __forceinline__ float fuse_voxel(float lo, unsigned seen,
   return nw;
 }
 
-template <bool Windowed>
+// I: the index type of the window's coordinates (unused by the global
+// drain).
+template <bool Windowed, class I = unsigned>
 __global__ void fuse_kernel(const float* __restrict__ lo,
                             const uint8_t* __restrict__ seen,
                             const uint8_t* __restrict__ hit,
@@ -79,9 +123,6 @@ __global__ void fuse_kernel(const float* __restrict__ lo,
   int w[6] = {0, 0, 0, 0, 0, 0};
   if constexpr (Windowed)
     for (int a = 0; a < 6; ++a) w[a] = window[a];
-  auto in_win = [&](long long i) {
-    return !Windowed || fuse_in_window(i, w, p);
-  };
   int n_obs = 0, n_ins = 0, n_del = 0;
   const long long stride = (long long)gridDim.x * blockDim.x;
   const long long first = (long long)blockIdx.x * blockDim.x + threadIdx.x;
@@ -93,15 +134,16 @@ __global__ void fuse_kernel(const float* __restrict__ lo,
     const uchar4 m4 = reinterpret_cast<const uchar4*>(miss)[g];
     unsigned so[4], oo[4];
     float4 r;
-    const long long i0 = 4 * g;
-    r.x = fuse_voxel(l4.x, s4.x, h4.x, m4.x, in_win(i0), p, so[0], oo[0],
-                     n_obs, n_ins, n_del);
-    r.y = fuse_voxel(l4.y, s4.y, h4.y, m4.y, in_win(i0 + 1), p, so[1], oo[1],
-                     n_obs, n_ins, n_del);
-    r.z = fuse_voxel(l4.z, s4.z, h4.z, m4.z, in_win(i0 + 2), p, so[2], oo[2],
-                     n_obs, n_ins, n_del);
-    r.w = fuse_voxel(l4.w, s4.w, h4.w, m4.w, in_win(i0 + 3), p, so[3], oo[3],
-                     n_obs, n_ins, n_del);
+    unsigned in = 0xf;
+    if constexpr (Windowed) in = fuse_group_in_window((I)(4 * g), w, p);
+    r.x = fuse_voxel(l4.x, s4.x, h4.x, m4.x, in & 1, p, so[0], oo[0], n_obs,
+                     n_ins, n_del);
+    r.y = fuse_voxel(l4.y, s4.y, h4.y, m4.y, in & 2, p, so[1], oo[1], n_obs,
+                     n_ins, n_del);
+    r.z = fuse_voxel(l4.z, s4.z, h4.z, m4.z, in & 4, p, so[2], oo[2], n_obs,
+                     n_ins, n_del);
+    r.w = fuse_voxel(l4.w, s4.w, h4.w, m4.w, in & 8, p, so[3], oo[3], n_obs,
+                     n_ins, n_del);
     reinterpret_cast<float4*>(lo_o)[g] = r;
     reinterpret_cast<uchar4*>(seen_o)[g] =
         make_uchar4(so[0], so[1], so[2], so[3]);
@@ -113,9 +155,15 @@ __global__ void fuse_kernel(const float* __restrict__ lo,
   // the n % 4 tail voxels, one per thread of the first block
   if (blockIdx.x == 0 && threadIdx.x < n - groups * 4) {
     const long long i = groups * 4 + threadIdx.x;
+    bool in = true;
+    if constexpr (Windowed) {
+      int x, y, z;
+      fuse_coords((I)i, p, x, y, z);
+      in = fuse_in_window(x, y, z, w);
+    }
     unsigned so, oo;
-    lo_o[i] = fuse_voxel(lo[i], seen[i], hit[i], miss[i], in_win(i), p, so,
-                         oo, n_obs, n_ins, n_del);
+    lo_o[i] = fuse_voxel(lo[i], seen[i], hit[i], miss[i], in, p, so, oo,
+                         n_obs, n_ins, n_del);
     seen_o[i] = so;
     occ_o[i] = oo;
     hit_o[i] = 0;
@@ -155,8 +203,12 @@ FIESTA_EXPORT int fiesta_fuse(const float* lo, const uint8_t* seen,
   const long long n = (long long)gx * gy * gz;
   const FuseParams p{l_hit, l_miss, cmin, cmax, thr, occ_is_eq, gy, gz};
   const unsigned blocks = fiesta_blocks((n + 3) / 4, threads);
-  if (window)
-    fuse_kernel<true><<<blocks, threads, 0, stream>>>(
+  if (window && n < (1LL << 31))
+    fuse_kernel<true, unsigned><<<blocks, threads, 0, stream>>>(
+        lo, seen, hit, miss, lo_o, seen_o, occ_o, hit_o, miss_o, counts,
+        window, n, p);
+  else if (window)
+    fuse_kernel<true, unsigned long long><<<blocks, threads, 0, stream>>>(
         lo, seen, hit, miss, lo_o, seen_o, occ_o, hit_o, miss_o, counts,
         window, n, p);
   else

@@ -307,19 +307,30 @@ def _window_packed_plain(p1: torch.Tensor, plan,
     """Plain version of the packed paired window pass along ``axis``
     (``_window_packed_xla``): repack ``v << s | b << ba | a*``, window
     min with ``k^2 << s``, clamp the value at ``cap``."""
-    x = p1.movedim(axis, 0)
-    b = x.shape[0]
+    packed = _window_repack(p1.movedim(axis, 0), plan)
+    b = packed.shape[0]
     t = min(plan["t"], b - 1)
-    ba, s, cap = plan["ba"], plan["s"], plan["cap"]
-    packed = ((x >> ba) << s) | (_lead_iota(b, x.dim(), x.device) << ba) \
-        | (x & ((1 << ba) - 1))
+    s, cap = plan["s"], plan["cap"]
     xp = _padded(packed, t, cap << s)
     acc = packed
     for k in range(1, t + 1):
         pair = torch.minimum(xp[t - k:t - k + b], xp[t + k:t + k + b])
         acc = torch.minimum(acc, pair + ((k * k) << s))
-    out = (torch.clamp(acc >> s, max=cap) << s) | (acc & ((1 << s) - 1))
-    return out.movedim(0, axis).contiguous()
+    return _window_word(acc, s, cap).movedim(0, axis).contiguous()
+
+
+def _window_repack(x: torch.Tensor, plan) -> torch.Tensor:
+    """The window pass's words along the leading axis b: ``v << ba | a*``
+    becomes ``v << s | b << ba | a*``."""
+    ba, s = plan["ba"], plan["s"]
+    return ((x >> ba) << s) | (_lead_iota(x.shape[0], x.dim(), x.device)
+                                << ba) | (x & ((1 << ba) - 1))
+
+
+def _window_word(acc: torch.Tensor, s: int, cap: int) -> torch.Tensor:
+    """The window pass's output from its accumulator: the value clamped
+    at ``cap``, the payload kept."""
+    return (torch.clamp(acc >> s, max=cap) << s) | (acc & ((1 << s) - 1))
 
 
 def _split_packed_plain(p2: torch.Tensor, plan,
@@ -353,22 +364,20 @@ def _split_word(acc_n: torch.Tensor, acc_p: torch.Tensor, s: int,
     return (val << (s + 1)) | (use_p.to(torch.int32) << s) | pay
 
 
-def split_window_taps(p2: torch.Tensor, plan, axis: int = 0):
-    """The CUDA split kernel's bounded windows (``kernels/closest.cu``), as
-    plain PyTorch on any device.  Each side runs its own loop: side n from
-    k0n, the distance to the nearest row below i whose value is below
-    cap, side p from k0p, the nearest such row above i (none: no loop),
-    while k <= t_local, the neighbour lies in the column and
-    (k^2 << s) < the side's accumulator.  Returns (out, taps_n, taps_p):
-    ``out`` equals ``_split_packed_plain``; ``taps_*`` (i32) count the
-    offsets each voxel's loops need (for t < 254, the kernel's cap on
-    k0p; the kernel takes them four at a time, so it may evaluate up to
-    three more).  The kernel's work model, for tests and for predicting
-    its time."""
-    x = p2.movedim(axis, 0)
+def _bounded_sides(x: torch.Tensor, tl: int, s: int, cap: int,
+                   shared: bool):
+    """The CUDA split and window kernels' bounded windows
+    (``kernels/closest.cu``) along the leading axis of the words ``x``
+    (values <= cap).  Side n runs from k0n, the distance to the nearest
+    row below i whose value is below cap, side p from k0p, the nearest
+    such row above i (none: no loop), each while k <= tl, the neighbour
+    lies in the column and (k^2 << s) < the side's accumulator.  Side p
+    starts from side n's accumulator when ``shared`` (the window pass),
+    else from the centre (the split).  Returns (acc_n, acc_p, taps_n,
+    taps_p), the taps (i32) counting the offsets each voxel's loops need
+    (for tl < 254, the kernel's cap on k0p; the kernel takes them four at
+    a time, so it may evaluate up to three more)."""
     a = x.shape[0]
-    tl = min(plan["t"], a - 1)
-    s, cap = plan["s"], plan["cap"]
     idx = _lead_iota(a, x.dim(), x.device).to(torch.int64).expand(x.shape)
     none = 1 << 20
     at_or_below, at_or_above = _near_rows((x >> s) < cap, idx, none)
@@ -376,10 +385,12 @@ def split_window_taps(p2: torch.Tensor, plan, axis: int = 0):
     below = torch.cat([torch.full_like(idx[:1], -none), at_or_below[:-1]])
     above = torch.cat([at_or_above[1:], torch.full_like(idx[:1], a + none)])
     xp = _padded(x, tl, cap << s).to(torch.int64)
+    acc = x.to(torch.int64)
     sides = []
     for k, kmax, sign in ((idx - below, torch.clamp(idx, max=tl), -1),
                           (above - idx, torch.clamp(a - 1 - idx, max=tl), 1)):
-        acc = x.to(torch.int64)
+        if not shared:
+            acc = x.to(torch.int64)
         taps = torch.zeros(x.shape, dtype=torch.int32, device=x.device)
         live = (k <= kmax) & (((k * k) << s) < acc)
         while bool(live.any()):
@@ -391,8 +402,36 @@ def split_window_taps(p2: torch.Tensor, plan, axis: int = 0):
             live = live & (k <= kmax) & (((k * k) << s) < acc)
         sides.append((acc.to(torch.int32), taps))
     (acc_n, taps_n), (acc_p, taps_p) = sides
+    return acc_n, acc_p, taps_n, taps_p
+
+
+def split_window_taps(p2: torch.Tensor, plan, axis: int = 0):
+    """The CUDA split kernel's bounded windows (``_bounded_sides``, each
+    side on its own accumulator), as plain PyTorch on any device.
+    Returns (out, taps_n, taps_p): ``out`` equals ``_split_packed_plain``;
+    ``taps_*`` (i32) count the offsets each voxel's two loops need.  The
+    kernel's work model, for tests and for predicting its time."""
+    x = p2.movedim(axis, 0)
+    s, cap = plan["s"], plan["cap"]
+    acc_n, acc_p, taps_n, taps_p = _bounded_sides(
+        x, min(plan["t"], x.shape[0] - 1), s, cap, shared=False)
     return tuple(v.movedim(0, axis).contiguous()
                  for v in (_split_word(acc_n, acc_p, s, cap), taps_n, taps_p))
+
+
+def closest_window_taps(p1: torch.Tensor, plan, axis: int = 0):
+    """The CUDA window kernel's bounded window (``_bounded_sides`` on the
+    repacked words, side p starting from side n's accumulator), as plain
+    PyTorch on any device.  Returns (out, taps): ``out`` equals
+    ``_window_packed_plain``; ``taps`` (i32) counts the offsets each
+    voxel's two loops need together.  The kernel's work model, for tests
+    and for predicting its time."""
+    x = _window_repack(p1.movedim(axis, 0), plan)
+    s, cap = plan["s"], plan["cap"]
+    _, acc, taps_n, taps_p = _bounded_sides(
+        x, min(plan["t"], x.shape[0] - 1), s, cap, shared=True)
+    return (_window_word(acc, s, cap).movedim(0, axis).contiguous(),
+            (taps_n + taps_p).movedim(0, axis).contiguous())
 
 
 def binary_packed(occ: torch.Tensor, plan, axis: int = 0,

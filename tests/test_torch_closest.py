@@ -231,13 +231,29 @@ def _split_words(kind, shape, plan, seed):
     return np.ascontiguousarray(np.moveaxis(words.astype(np.int32), 0, c_ax))
 
 
-def _split_kernel_column(w, tl, s, cap, segs=SPLIT_SEGS, unroll=4):
-    """closest.cu's split kernel on one tile column, thread by thread: the
-    segments' first and last rows below cap, the barrier, the carries,
-    k0p (u8: capped at 254, 255 for none) on a downward walk, then the
-    upward walk carrying k0n, each side's loop ``unroll`` offsets a turn
-    (an offset past the side's reach re-reads its last one).  Returns the
-    output words; asserts that no int32 sum overflows."""
+def _split_word(acc_n, acc_p, s, cap):
+    """The split kernel's output word from its two accumulators."""
+    vn, vp = acc_n >> s, acc_p >> s
+    use_p = int(vp < vn)
+    return (min(vn, vp, cap) << (s + 1)) | (use_p << s) \
+        | ((acc_p if use_p else acc_n) & ((1 << s) - 1))
+
+
+def _window_word(acc_n, acc, s, cap):
+    """The window kernel's output word from its one accumulator."""
+    return (min(acc >> s, cap) << s) | (acc & ((1 << s) - 1))
+
+
+def _bounded_kernel_column(w, tl, s, cap, word, shared, segs=SPLIT_SEGS,
+                           unroll=4):
+    """closest.cu's bounded-pass body on one tile column of loaded words,
+    thread by thread: the segments' first and last rows below cap, the
+    barrier, the carries, k0p (u8: capped at 254, 255 for none) on a
+    downward walk, then the upward walk carrying k0n, each side's loop
+    ``unroll`` offsets a turn (an offset past the side's reach re-reads
+    its last one), side p starting from side n's accumulator when
+    ``shared`` (the window pass), and ``word(acc_n, acc_p, s, cap)``.
+    Returns the output words; asserts that no int32 sum overflows."""
     a = len(w)
     w = [int(x) for x in w]
     near = [(x >> s) < cap for x in w]
@@ -280,28 +296,32 @@ def _split_kernel_column(w, tl, s, cap, segs=SPLIT_SEGS, unroll=4):
             if any_near:
                 if lp >= 0:
                     acc_n = side(acc_n, i, i - lp, min(tl, i), -1)
+                if shared:
+                    acc_p = acc_n
                 if k0p[i] != 255:
                     acc_p = side(acc_p, i, k0p[i], min(tl, a - 1 - i), 1)
                 if near[i]:
                     lp = i
-            vn, vp = acc_n >> s, acc_p >> s
-            use_p = int(vp < vn)
-            word = (min(vn, vp, cap) << (s + 1)) | (use_p << s) \
-                | ((acc_p if use_p else acc_n) & ((1 << s) - 1))
-            assert word < 2 ** 31
-            out[i] = word
+            out[i] = word(acc_n, acc_p, s, cap)
+            assert 0 <= out[i] < 2 ** 31
     return out
 
 
-def _split_kernel(p2, plan):
-    """The kernel emulation over every column along the plan's c axis."""
-    x = np.moveaxis(p2, plan["c"], 0)
-    tl = min(plan["t"], x.shape[0] - 1)
+def _bounded_kernel(x, axis, tl, s, cap, word, shared):
+    """The kernel emulation over every column along ``axis``."""
+    x = np.moveaxis(x, axis, 0)
     flat = x.reshape(x.shape[0], -1)
-    got = np.stack([_split_kernel_column(flat[:, j], tl, plan["s"],
-                                         plan["cap"])
+    got = np.stack([_bounded_kernel_column(flat[:, j], tl, s, cap, word,
+                                           shared)
                     for j in range(flat.shape[1])], 1)
-    return np.moveaxis(got.reshape(x.shape).astype(np.int32), 0, plan["c"])
+    return np.moveaxis(got.reshape(x.shape).astype(np.int32), 0, axis)
+
+
+def _split_kernel(p2, plan):
+    """The split kernel's emulation along the plan's c axis."""
+    a = p2.shape[plan["c"]]
+    return _bounded_kernel(p2, plan["c"], min(plan["t"], a - 1), plan["s"],
+                           plan["cap"], _split_word, shared=False)
 
 
 @pytest.mark.parametrize("kind", ["random", "ties", "cap", "all_far",
@@ -373,6 +393,152 @@ def test_split_window_tap_counts():
                                               plan).numpy())
     assert out.numpy()[7, 0, 0] == (49 << 5) | 2           # sign 0, n's pay
     assert out.numpy()[10, 0, 0] == (16 << 5) | (1 << 4) | 1  # p wins
+
+
+# ---------------------------------------------------------------------------
+# The CUDA window kernel's bounded window (kernels/closest.cu: the split's
+# body with one shared accumulator), emulated
+# ---------------------------------------------------------------------------
+
+
+def _window_plan(shape, t, axis):
+    """A packed plan for the window pass along ``axis``: the payload's b
+    field fits that axis, its a field the narrowest other axis."""
+    bits = [max(1, (n - 1).bit_length()) for n in shape]
+    ba = min(b for i, b in enumerate(bits) if i != axis)
+    plan = dict(t=t, ba=ba, bb=bits[axis], s=ba + bits[axis],
+                cap=t * t + 1)
+    assert plan["cap"].bit_length() + 1 + plan["s"] <= 31
+    return plan
+
+
+def _window_words(kind, shape, plan, axis, seed):
+    """Window-pass input words ``v << ba | a*`` (v <= cap) along
+    ``axis``, for each edge of the kernel's bounds."""
+    ba, cap = plan["ba"], plan["cap"]
+    rng = np.random.default_rng(seed)
+    lead = (shape[axis],) + tuple(n for i, n in enumerate(shape)
+                                  if i != axis)
+    a = lead[0]
+    tl = min(plan["t"], a - 1)
+    pay = rng.integers(0, 1 << ba, lead)
+    if kind == "random":
+        v = rng.integers(0, cap + 1, lead)
+        v[rng.uniform(size=lead) < 0.6] = cap
+    elif kind == "ties":
+        # candidates v + k^2 tie often, within a side and across the two;
+        # payloads 0-2 tie the a* field too
+        v = rng.choice([0, 1, 3, 4, 8, 9, cap, cap], lead)
+        pay = rng.integers(0, 3, lead)
+    elif kind == "cap":
+        v = rng.choice([cap - 1, cap, cap, cap], lead)
+    elif kind == "all_far":
+        v = np.full(lead, cap)
+        v[:, 0, 0] = rng.integers(0, cap, a)        # one column with values
+    else:           # "lone": one near value per column, at t_local and
+        v = np.full(lead, cap)      # t_local + 1 from either column end
+        seg_len = -(-a // SPLIT_SEGS)               # and from segment edges
+        rows = {0, tl, tl + 1, a - 1 - tl, a - 2 - tl, a - 1}
+        for edge in range(seg_len, a, seg_len):
+            rows |= {edge - tl, edge - 1 - tl, edge - 1 + tl, edge + tl}
+        rows = sorted(r for r in rows if 0 <= r < a)
+        flat = v.reshape(a, -1)
+        for j in range(flat.shape[1]):
+            if j % 7:                                # every 7th: all far
+                flat[rows[j % len(rows)], j] = j % 3
+    words = (np.asarray(v, np.int64) << ba) | pay
+    return np.ascontiguousarray(np.moveaxis(words.astype(np.int32), 0, axis))
+
+
+def _window_kernel(p1, plan, axis):
+    """The window kernel's emulation along ``axis``: the load's repack
+    ``v << s | i << ba | a*``, then the bounded body with one accumulator
+    and the clamp at cap."""
+    ba, s = plan["ba"], plan["s"]
+    x = np.moveaxis(p1.astype(np.int64), axis, 0)
+    i = np.arange(x.shape[0]).reshape((-1,) + (1,) * (x.ndim - 1))
+    w = ((x >> ba) << s) | (i << ba) | (x & ((1 << ba) - 1))
+    return _bounded_kernel(np.moveaxis(w, 0, axis), axis,
+                           min(plan["t"], x.shape[0] - 1), s, plan["cap"],
+                           _window_word, shared=True)
+
+
+def _check_window(p1, plan, axis):
+    """The emulation, ``closest_window_taps`` and the Pallas kernel all
+    give ``_window_packed_plain``'s words; the taps stay within each
+    voxel's reach on either side (so below the brute force's 2 t_local
+    loads) and are 0 in columns with no value below cap."""
+    x = torch.from_numpy(p1)
+    plain = tedt._window_packed_plain(x, plan, axis).numpy()
+    out, taps = tedt.closest_window_taps(x, plan, axis)
+    np.testing.assert_array_equal(out.numpy(), plain)
+    rest = tuple(i for i in range(3) if i != axis)
+    ref = np.asarray(jedt._window_packed_pallas(
+        jnp.asarray(p1.transpose((axis,) + rest)), plan, interpret=True))
+    np.testing.assert_array_equal(
+        plain, ref.transpose(tuple(int(i) for i in np.argsort(
+            (axis,) + rest))))
+    np.testing.assert_array_equal(_window_kernel(p1, plan, axis), plain)
+    a = p1.shape[axis]
+    tl = min(plan["t"], a - 1)
+    i = np.arange(a).reshape((-1, 1, 1))
+    reach = np.minimum(tl, i) + np.minimum(tl, a - 1 - i)
+    assert (np.moveaxis(taps.numpy(), axis, 0) <= reach).all()
+    far_cols = ((p1 >> plan["ba"]) >= plan["cap"]).all(axis=axis)
+    assert not np.moveaxis(taps.numpy(), axis, 0)[:, far_cols].any()
+
+
+@pytest.mark.parametrize("kind", ["random", "ties", "cap", "all_far",
+                                  "lone"])
+@pytest.mark.parametrize("layout", sorted(SPLIT_LAYOUTS))
+def test_window_kernel_matches_plain_and_pallas(layout, kind):
+    """The window kernel's bounds, as ``closest_window_taps`` models them
+    and as the kernel's threads run them, along the plan's b axis: side
+    and payload ties, values at cap and cap - 1, all-far tiles, lone
+    values at t_local and t_local + 1 from a column end and a segment
+    edge; t < A and t >= A."""
+    shape, t = SPLIT_LAYOUTS[layout]
+    plan = tedt.closest_plan(shape, t)
+    p1 = _window_words(kind, shape, plan, plan["b"], len(layout) + len(kind))
+    _check_window(p1, plan, plan["b"])
+
+
+@pytest.mark.parametrize("kind", ["random", "ties", "lone"])
+@pytest.mark.parametrize("shape,t", [((24, 400, 10), 100),
+                                     ((8, 450, 6), 100)])
+def test_window_kernel_long_columns(shape, t, kind):
+    """Columns of 400 and 450 rows (25 and 29 rows a segment) at the cow
+    truncation, the window along axis 1."""
+    plan = _window_plan(shape, t, 1)
+    p1 = _window_words(kind, shape, plan, 1, shape[1] + len(kind))
+    _check_window(p1, plan, 1)
+
+
+def test_window_tap_counts():
+    """Taps on one column of 16 rows, counted by hand: t = 10, value 0 at
+    row 3 (a* = 1) and row 9 (a* = 2), cap elsewhere.  Rows 0-2 take row 3
+    on side p in one offset; rows 4-5 take it on side n, and side p,
+    starting from that accumulator, stops before row 9 (the split's side
+    p, from the centre, would take one more); rows 6-8 take both rows,
+    and row 6 ties (9 from each side): row 3's smaller payload wins;
+    rows 10-15 take row 9 on side n."""
+    plan = dict(t=10, ba=2, bb=4, s=6, cap=101)
+    raw = np.full((16, 1, 1), (101 << 2) | 3, np.int32)
+    raw[3], raw[9] = 1, 2
+    out, taps = tedt.closest_window_taps(torch.from_numpy(raw), plan)
+    np.testing.assert_array_equal(
+        taps.numpy()[:, 0, 0], [1, 1, 1, 0, 1, 1, 2, 2, 2, 0] + [1] * 6)
+    np.testing.assert_array_equal(
+        out.numpy(), tedt._window_packed_plain(torch.from_numpy(raw),
+                                               plan).numpy())
+    assert out.numpy()[6, 0, 0] == (9 << 6) | (3 << 2) | 1
+    assert out.numpy()[7, 0, 0] == (4 << 6) | (9 << 2) | 2
+    # the split's sides on the same words: side p from the centre
+    _, taps_n, taps_p = tedt.split_window_taps(
+        tedt._window_repack(torch.from_numpy(raw), plan), plan)
+    np.testing.assert_array_equal(
+        (taps_n + taps_p).numpy()[:, 0, 0],
+        [1, 1, 1, 0, 2, 2, 2, 2, 2, 0] + [1] * 6)
 
 
 # ---------------------------------------------------------------------------

@@ -12,8 +12,9 @@ duplicate and dropped splat indices, square and non-square carve boxes,
 saturating and overlapping boxes on an unaligned grid and at the cow
 and demo ticks' own boxes, both closest layouts (x-lead, and the widest-C
 fallback), the EDT binary and closest split passes at their bounds'
-edges on columns up to 450 rows, the closest binary pass along every
-axis at the cow shape and with a u16 tile, sort
+edges on columns up to 450 rows, the closest window pass at its bounds'
+edges along every axis at the cow and demo shapes, the closest binary
+pass along every axis at the cow shape and with a u16 tile, sort
 lengths below, at and above one shared-memory tile (up to 2^20 + 5
 pairs, where the merge
 levels split, and the cow splat's 147 456) with duplicate and sentinel
@@ -395,6 +396,76 @@ def test_closest_kernels(dev, layout, square):
     assert names == ["closest_split_kernel"]
 
 
+def _window_edges(shape, plan, axis, g):
+    """Window-pass input words ``v << ba | a*`` (v <= cap) along ``axis``:
+    random values; values whose candidates tie (within a side and across
+    the two) with a* 0-2; values at cap and cap - 1; a first tile of 32
+    all-far columns, then lone values at t_local and t_local + 1 from
+    either column end and from each segment edge (16 segments a
+    column)."""
+    ba, cap = plan["ba"], plan["cap"]
+    a = shape[axis]
+    tl = min(plan["t"], a - 1)
+    lead = (a,) + tuple(n for i, n in enumerate(shape) if i != axis)
+    pay = torch.randint(0, 1 << ba, lead, generator=g)
+    rand = torch.randint(0, cap + 1, lead, generator=g)
+    rand[torch.rand(lead, generator=g) < 0.6] = cap
+    pick = torch.tensor([0, 1, 3, 4, 8, 9, cap, cap])
+    ties = pick[torch.randint(0, 8, lead, generator=g)]
+    at_cap = torch.tensor([cap - 1, cap, cap, cap])[
+        torch.randint(0, 4, lead, generator=g)]
+    seg_len = -(-a // 16)
+    rows = {0, tl, tl + 1, a - 1 - tl, a - 2 - tl, a - 1}
+    for edge in range(seg_len, a, seg_len):
+        rows |= {edge - tl, edge - 1 - tl, edge - 1 + tl, edge + tl}
+    rows = sorted(r for r in rows if 0 <= r < a)
+    lone = torch.full(lead, cap).reshape(a, -1)
+    cols = torch.arange(32, lone.shape[1])      # the first tile: all far
+    lone[torch.tensor(rows)[cols % len(rows)], cols] = cols % 3
+    out = []
+    for v, p in ((rand, pay), (ties, torch.randint(0, 3, lead, generator=g)),
+                 (at_cap, pay), (lone.reshape(lead), pay)):
+        out.append(((v << ba) | p).to(torch.int32).movedim(0, axis)
+                   .contiguous())
+    return out
+
+
+@pytest.mark.parametrize("layout", sorted(CLOSEST) + ["cow", "demo"])
+def test_closest_window_kernel(dev, layout):
+    """The window pass's bounded window along every axis whose payload
+    fits a packed plan (all but axis 0 of widest_c; the plans' own b axis
+    is z, contiguous, at cow and demo), at the CLOSEST layouts and the
+    cow (400x400x80, t = 100) and demo (400x400x36, t = 50) shapes, on
+    the binary pass's words and at the bounds' edges; one CUDA launch a
+    call."""
+    shape, t = {"cow": ((400, 400, 80), 100),
+                "demo": ((400, 400, 36), 50)}.get(layout) or CLOSEST[layout]
+    g = torch.Generator().manual_seed(len(layout))
+    plan = edt.closest_plan(shape, t)
+    occ = (torch.rand(shape, generator=g) < 0.01).to(torch.uint8)
+    occ[:, :3] = 0                                 # all-far tiles
+    p1 = edt._binary_packed_plain(occ.to(dev), plan, plan["a"])
+    _eq(edt.window_packed(p1, plan, plan["b"]),
+        edt._window_packed_plain(p1, plan, plan["b"]))
+    bits = [max(1, (n - 1).bit_length()) for n in shape]
+    axes = 0
+    for axis in range(3):
+        ba = min(b for i, b in enumerate(bits) if i != axis)
+        ax_plan = dict(plan, ba=ba, bb=bits[axis], s=ba + bits[axis])
+        if plan["cap"].bit_length() + 1 + ax_plan["s"] > 31:
+            continue
+        axes += 1
+        for x in _window_edges(shape, ax_plan, axis, g):
+            x = x.to(dev)
+            _eq(edt.window_packed(x, ax_plan, axis),
+                edt._window_packed_plain(x, ax_plan, axis))
+    assert axes == (2 if layout == "widest_c" else 3)
+    kernels.reset_launch_counts()
+    _, names = _cuda_kernels(lambda: edt.window_packed(p1, plan, plan["b"]))
+    assert names == ["closest_window_kernel"]
+    assert kernels.LAUNCHES["closest_window"] == 1
+
+
 def _closest_binary_edges(shape, axis, t, g):
     """u8 occupancy along ``axis``: lone seeds at t_local and t_local + 1
     from either column end and from each segment edge (16 segments a
@@ -532,10 +603,15 @@ def test_sort_kernel(dev, kind, n):
 
 @pytest.mark.parametrize("window", [((3, 5, 2), (20, 30, 11)),
                                     ((0, 0, 0), (99, 99, 99)),
-                                    ((9, 9, 9), (8, 30, 12))],
-                         ids=["inner", "whole", "empty"])
-@pytest.mark.parametrize("shape", [(48, 40, 24), (23, 37, 13)])
+                                    ((9, 9, 9), (8, 30, 12)),
+                                    ((1, 2, 3), (7, 9, 9))],
+                         ids=["inner", "whole", "empty", "cut"])
+@pytest.mark.parametrize("shape", [(48, 40, 24), (23, 37, 13), (9, 11, 6),
+                                   (6, 5, 7)])
 def test_fuse_kernel_window(dev, shape, window):
+    """Windows inside, around, outside and cutting 4-voxel groups (z from
+    3 to 9), on grids whose z is a multiple of 4 (each group in one z row)
+    or not (groups cross row ends: gz = 13, 6, 7)."""
     rng = np.random.default_rng(sum(shape))
     lo = rng.uniform(-2.0, 3.5, shape).astype(np.float32)
     seen = (rng.random(shape) < 0.5).astype(np.uint8)
