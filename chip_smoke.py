@@ -3,11 +3,12 @@
 
     python3 chip_smoke.py
 
-Five paths are driven, four at cow_and_lady size (400x400x80 voxels at
+Seven paths are driven, six at cow_and_lady size (400x400x80 voxels at
 0.05 m, exact EDT truncated at 100 voxels) on replayed scans made from
 seed 0: the mapping tick stream (3 scans of 192x256 rays per tick, lazy
 closest), the closest-obstacle query path on the map it leaves, the same
-stream with the sorted splat, and the app engine (``FiestaPipeline``);
+stream with the sorted splat, the app engine (``FiestaPipeline``), the
+same stream with the two-level EDT and the planner on the stream's map;
 and the demo preset's windowed depth tick (400x400x36 voxels at 0.1 m,
 120x160 depth images).  Each path's kernel launch counts are zeroed just
 before it and read just after.  Phases, in order; any failure raises and
@@ -70,9 +71,31 @@ exits non-zero:
    brute-force window's, and both closest passes their time on the card
    alone with every value at cap (``far_device_ms``: load and store
    alone);
-8. a JSON line of per-kernel numbers (with the launches, device times,
-   carve steps and window offsets above), the nvidia-smi line, and last
-   ``{"ok": true, "device": {...}}``.
+8. the two-level tick: the phase-2 stream with ``edt_fine_dist`` 2.0 m
+   (exact to t = 40 on the grid, the far field at t = 50 on its
+   200x200x40 half): 5 ticks with lazy closest, ``derive_closest`` and 2
+   eager ticks, kernels then plain.  States, stats and closest grids
+   bit-equal, the eager closest equal to the lazy derivation, the five
+   EDT and closest kernels launched at both levels (counted by level);
+   ms/tick beside the flat tick's (in turns), device busy of both, the
+   voxels whose d2 differs from phase 2's exact d2 (none within the fine
+   radius), and the five kernels at the coarse shapes against their
+   plain versions, timed beside their bounds;
+9. the planner on phase 2's final map at ``MPCConfig()`` (16384
+   rollouts, horizon 30, 8 refine steps), p0 and goal as ``run.py``
+   sets them, a CUDA generator seeded 0: one solve, ms per ``plan_step``,
+   10 receding-horizon steps as ``run.py --fly`` runs them (ms per step),
+   one signed solve and one with trilinear sampling, a solve's device
+   busy time and CUDA launches and the sampling stage's time alone; every
+   cost finite, best sample cost <= mean, and a solve from CPU draws on
+   the card within 1e-3 of the same solve on the CPU; then the same
+   check on a flight whose straight line crosses a mapped obstacle, where
+   the collision term must be nonzero for a share of the samples and for
+   the nominal, and the nominal's cost gradient on the card within 1e-5
+   relative of the CPU's;
+10. a JSON line of per-kernel numbers (with the launches, device times,
+   carve steps and window offsets above, and phases 8 and 9), the
+   nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
 
 The script needs a CUDA card and the rest of the repository; without
 either it exits non-zero and prints no result.
@@ -94,6 +117,7 @@ import fiesta_tpu_torch as ft
 from fiesta_tpu_torch import kernels, pipeline
 from fiesta_tpu_torch.io import replay
 from fiesta_tpu_torch.ops import edt, fusion, query, raycast, sort
+from fiesta_tpu_torch.planning import mpc
 
 H, W = 192, 256          # scan size of the cow_and_lady bench (bench.py)
 TICKS = 5                # timed ticks of 3 scans each
@@ -108,6 +132,12 @@ OTHER_FRAMES = 3         # frames each for the dda and projective engines
 DH, DW = 120, 160        # depth size of the demo bench (bench_demo.py:39)
 DEMO_TICKS = 5
 DEMO_MIN_OCCUPIED = 80   # the first chip run mapped 88 (PERF.md)
+HIER_FINE_DIST = 2.0     # the two-level tick's edt_fine_dist (m)
+HIER_KERNELS = ("edt_binary", "edt_minplus") + CLOSEST_KERNELS
+PLAN_SOLVES = 5          # timed plan_step solves, one sync each
+FLY_STEPS = 10           # receding-horizon steps (run.py --fly)
+PLAN_TOL = 1e-3          # card vs CPU solve: tests/test_torch_mpc.py's gate
+GRAD_TOL = 1e-5          # card vs CPU cost gradient, relative L2: same gate
 # H100 SXM published peaks (NVIDIA data sheet and Hopper white paper)
 HBM_BYTES_PER_S = 3.35e12
 # 67 TFLOP/s of non-tensor f32 counts an FMA as two operations; the kernels
@@ -618,6 +648,292 @@ def run_demo(cfg, batches, dev):
     return state, stats, start.elapsed_time(end) / batches[0].shape[0]
 
 
+@contextlib.contextmanager
+def launches_by_level(grid_shape):
+    """Count the two-level EDT's kernel calls by level while inside: each
+    of its five wrappers is wrapped to add one to ``"name:fine"`` for an
+    input of the grid's shape, else to ``"name:coarse"`` (the main path's
+    counts, ``kernels.LAUNCHES``, are the wrappers' own)."""
+    counts = collections.Counter()
+    saved = {name: getattr(kernels, name) for name in HIER_KERNELS}
+
+    def counted(name, fn):
+        def call(x, *args, **kw):
+            fine = tuple(x.shape) == tuple(grid_shape)
+            counts[f"{name}:{'fine' if fine else 'coarse'}"] += 1
+            return fn(x, *args, **kw)
+        return call
+
+    for name, fn in saved.items():
+        setattr(kernels, name, counted(name, fn))
+    try:
+        yield counts
+    finally:
+        for name, fn in saved.items():
+            setattr(kernels, name, fn)
+
+
+def hier_path(hcfg, batches, eager, dev):
+    """The two-level tick: the stream with lazy closest from an empty map,
+    ``derive_closest`` on its map, then EAGER_TICKS eager ticks from it and
+    the lazy derivation on theirs.  Returns (outputs, stats, ms/tick)."""
+    state, stats, ms = run_stream(hcfg, batches, dev)
+    cfg_e = dataclasses.replace(hcfg, closest_mode="eager")
+    e_state, e_stats = ft.fused_stream(cfg_e, ft.copy_state(state), *eager)
+    out = {f: getattr(state, f) for f in ft.grid.FIELDS}
+    out.update(closest_lazy=pipeline.derive_closest(hcfg, state.logodds),
+               eager_d2=e_state.d2, eager_closest=e_state.closest,
+               eager_lazy=pipeline.derive_closest(cfg_e, e_state.logodds))
+    return out, tuple(stats) + tuple(e_stats), ms
+
+
+def pass_row(kern, plain, nbytes, ops):
+    """A pass at one level's shapes: equal to its plain version, its times
+    (host-paced and on the card alone) beside the plain version's and the
+    card's bound."""
+    times = kernel_times(kern)
+    b = bound(nbytes, ops, I32_OPS_PER_S)
+    return dict(err=max_abs_err([kern()], [plain()]), ms=times["ms"],
+                device_ms=times["device_ms"],
+                plain_ms=time_ms(plain, calls=1, windows=3), bound_ms=b[0],
+                bound_by=b[1])
+
+
+def level_rows(occ, t):
+    """The five kernels of the two-level EDT on the occupancy ``occ`` of
+    one level at truncation ``t``, each against its plain version, with
+    bounds worked out as phase 7 works them out at the fine shapes."""
+    nvox = occ.numel()
+    f = torch.full(occ.shape, edt._INF_EDT, dtype=torch.int32,
+                   device=occ.device).masked_fill_(occ, 0)
+    rows = {"edt_binary": pass_row(
+        lambda: kernels.edt_binary(f, t),
+        lambda: edt._binary_pass_plain(f, t), 8 * nvox, 4 * nvox)}
+    x = kernels.edt_binary(f, t)
+    for axis in (1, 2):
+        near_cols = int((x < edt._INF_EDT).any(dim=axis).sum())
+        rows[f"edt_minplus_axis{axis}"] = pass_row(
+            lambda x=x, axis=axis: kernels.edt_minplus(x, t, axis),
+            lambda x=x, axis=axis: edt._minplus_pass_plain(x, t, axis),
+            8 * nvox, ENVELOPE_OPS * near_cols * x.shape[axis])
+        x = kernels.edt_minplus(x, t, axis)
+    plan = edt.closest_plan(occ.shape, t)
+    a, b, c, cap = plan["a"], plan["b"], plan["c"], plan["cap"]
+    o8 = occ.view(torch.uint8)
+    rows["closest_binary"] = pass_row(
+        lambda: kernels.closest_binary(o8, plan, a),
+        lambda: edt._binary_packed_plain(o8, plan, a), 5 * nvox, 4 * nvox)
+    x = kernels.closest_binary(o8, plan, a)
+    for name, kern, plain, axis, shift in (
+            ("closest_window", kernels.closest_window,
+             edt._window_packed_plain, b, plan["ba"]),
+            ("closest_split", kernels.closest_split, edt._split_packed_plain,
+             c, plan["s"])):
+        near_cols = int(((x >> shift) < cap).any(dim=axis).sum())
+        rows[name] = pass_row(
+            lambda x=x, kern=kern, axis=axis: kern(x, plan, axis),
+            lambda x=x, plain=plain, axis=axis: plain(x, plan, axis),
+            8 * nvox, ENVELOPE_OPS * near_cols * x.shape[axis])
+        x = kern(x, plan, axis)
+    return rows
+
+
+def busy_ms_per_tick(cfg, batches, dev):
+    """Device busy of a tick (``torch.profiler``: device time summed over
+    kernels, the stream from an empty map, per tick)."""
+    by_name, _, _ = profiled(
+        lambda: ft.fused_stream(cfg, ft.make_state(cfg, dev), *batches), 1)
+    return sum(by_name.values()) / batches[0].shape[0]
+
+
+def fly_start(cfg, dev):
+    """p0 and goal as ``run.py --mpc/--fly`` sets them (``run.py:633-637``):
+    1 m either side of the map's centre along y."""
+    center = np.asarray(cfg.origin) + np.asarray(cfg.map_size) / 2
+    return tuple(torch.tensor(center + [0.0, dy, 0.0], dtype=torch.float32,
+                              device=dev) for dy in (-1.0, 1.0))
+
+
+def crossing_endpoints(cfg, dist, span_m=1.0, clear_m=1.0):
+    """p0 and goal span_m either side of a mapped obstacle voxel along x or
+    y, both at least clear_m from the map, so that the straight flight
+    between them passes through the obstacle: the first such voxel in the
+    grid's order."""
+    k = round(span_m / cfg.resolution)
+    for axis in (0, 1):
+        n = dist.shape[axis]
+        at = lambda a, b: dist.narrow(axis, a, b - a)
+        cand = ((at(k, n - k) == 0) & (at(0, n - 2 * k) >= clear_m)
+                & (at(2 * k, n) >= clear_m))
+        hits = cand.nonzero()
+        if len(hits):
+            o = hits[0].clone()
+            o[axis] += k
+            step = torch.zeros(3, dtype=o.dtype, device=o.device)
+            step[axis] = k
+            centre = lambda v: (torch.tensor(cfg.origin, device=dist.device)
+                                + (v.float() + 0.5) * cfg.resolution)
+            return centre(o - step), centre(o + step)
+    raise AssertionError("no mapped obstacle with clear space on two sides")
+
+
+def straight_controls(m, p0, goal):
+    """Accelerate toward goal for the first half of the horizon and brake
+    in the second: a nominal that flies the straight line from rest."""
+    h = m.horizon // 2
+    a = (goal - p0) / ((h * m.dt) ** 2)
+    return torch.cat([a.expand(h, 3), -a.expand(m.horizon - h, 3)])
+
+
+def card_vs_cpu(on_card, on_cpu):
+    return dict(
+        controls=float((on_card.controls.cpu() - on_cpu.controls).abs().max()),
+        positions=float((on_card.positions.cpu() - on_cpu.positions).abs()
+                        .max()),
+        cost_rel=abs(float(on_card.cost) - float(on_cpu.cost))
+        / abs(float(on_cpu.cost)))
+
+
+def crossing_solve(cfg, m, dist, normals):
+    """A full-width solve whose straight line crosses a mapped obstacle,
+    on the card and on the CPU from the same draws: the collision term is
+    nonzero for a share of the samples and for the nominal, whose cost
+    gradient (autograd through ``get_dist_grad_trilinear``) agrees within
+    GRAD_TOL relative and the solves within PLAN_TOL."""
+    p0, goal = crossing_endpoints(cfg, dist)
+    v0 = torch.zeros(3, device=dist.device)
+    nominal = straight_controls(m, p0, goal)
+    free = dataclasses.replace(m, w_collision=0.0)
+    samples = torch.clamp(nominal[:, :, None] + normals.to(dist.device)
+                          * m.sigma, -m.a_max, m.a_max)
+    hit = (mpc._sample_costs_soa(cfg, m, dist, p0, v0, goal, samples)
+           != mpc._sample_costs_soa(cfg, free, dist, p0, v0, goal, samples))
+    share = float(hit.float().mean())
+
+    def cost_grad(mc, grid, p, v, g, c):
+        c = c.detach().requires_grad_(True)
+        cost = mpc.trajectory_cost(cfg, mc, grid,
+                                   mpc.rollout_positions(mc, p, v, c), c, g)
+        return cost.detach(), torch.autograd.grad(cost, c)[0]
+
+    cpu = [x.cpu() for x in (dist, p0, v0, goal, nominal)]
+    cost, g_card = cost_grad(m, dist, p0, v0, goal, nominal)
+    cost_free, _ = cost_grad(free, dist, p0, v0, goal, nominal)
+    _, g_cpu = cost_grad(m, *cpu)
+    collision = float(cost - cost_free)
+    grad_rel = float(torch.linalg.norm(g_card.cpu() - g_cpu)
+                     / torch.linalg.norm(g_cpu))
+    assert share > 0 and collision > 0, (
+        f"crossing solve reads no obstacle: share {share}, nominal "
+        f"collision {collision}")
+    assert grad_rel < GRAD_TOL, f"card vs CPU gradient: {grad_rel}"
+    on_card = mpc._plan_step_impl(cfg, m, dist, p0, v0, goal, nominal,
+                                  normals.to(dist.device))
+    on_cpu = mpc._plan_step_impl(cfg, m, *cpu, normals)
+    check_plan(on_card, "crossing plan_step")
+    diff = card_vs_cpu(on_card, on_cpu)
+    assert max(diff.values()) < PLAN_TOL, f"crossing card vs CPU: {diff}"
+    return dict(p0=p0.tolist(), goal=goal.tolist(),
+                colliding_sample_share=share,
+                nominal_collision_cost=collision, grad_rel=grad_rel,
+                cost=float(on_card.cost), card_vs_cpu=diff)
+
+
+def check_plan(res, what):
+    for name, x in res._asdict().items():
+        assert bool(torch.isfinite(x).all()), f"{what}: {name} not finite"
+    assert float(res.best_sample_cost) <= float(res.mean_sample_cost), what
+
+
+def run_planner(cfg, state, dev):
+    """The planner on ``state``'s map at ``MPCConfig()``: one solve, then
+    ms per solve (CUDA events, one sync a solve), FLY_STEPS receding-horizon
+    steps as ``run.py --fly`` runs them (``run.py:660-680``, host clock,
+    one sync a step), one signed solve on the signed field and one with
+    trilinear sampling, and a solve from CPU draws on the card and on the
+    CPU, also through a mapped obstacle (``crossing_solve``); and a
+    solve's device busy time and CUDA launches (profiler) and the
+    sampling stage's time alone.  Every cost finite, best <= mean, card
+    within PLAN_TOL of CPU."""
+    m = mpc.MPCConfig()
+    dist = query.distance_grid(cfg, state.d2, state.seen)
+    p0, goal = fly_start(cfg, dev)
+    v0 = torch.zeros(3, device=dev)
+    nominal = torch.zeros((m.horizon, 3), device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    res = mpc.plan_step(cfg, m, dist, p0, v0, goal, nominal, gen)
+    check_plan(res, "plan_step")
+    solve_ms = []
+    for _ in range(PLAN_SOLVES):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        check_plan(mpc.plan_step(cfg, m, dist, p0, v0, goal, nominal, gen),
+                   "plan_step")
+        b.record()
+        b.synchronize()
+        solve_ms.append(a.elapsed_time(b))
+    # where a solve's time goes: the card's busy time and CUDA launches in
+    # one solve (profiler), and the MPPI sampling stage alone (host-paced;
+    # the rest of a solve is the refinement)
+    by_name, counts, _ = profiled(
+        lambda: mpc.plan_step(cfg, m, dist, p0, v0, goal, nominal, gen), 1)
+    samples = torch.clamp(nominal[:, :, None] + torch.randn(
+        (m.horizon, 3, m.n_rollouts), generator=gen, device=dev) * m.sigma,
+        -m.a_max, m.a_max)
+    sampling = kernel_times(lambda: mpc._sample_costs_soa(
+        cfg, m, dist, p0, v0, goal, samples), calls=3, windows=3)
+    breakdown = dict(busy_ms=sum(by_name.values()),
+                     cuda_launches=sum(counts.values()),
+                     sampling_ms=sampling["ms"],
+                     sampling_device_ms=sampling["device_ms"],
+                     sampling_host_ms=sampling["host_ms"])
+    p, v, nom = p0, v0, nominal
+    executed, step_ms = [p0], []
+    for _ in range(FLY_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = mpc.plan_step(cfg, m, dist, p, v, goal, nom, gen)
+        v = torch.clamp(v + r.controls[0] * m.dt, -m.v_max, m.v_max)
+        p = p + v * m.dt
+        nom = mpc.shift_nominal(r.controls)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        check_plan(r, "fly step")
+        executed.append(p)
+        if float(torch.linalg.norm(p - goal)) < 0.3:
+            break
+    clear = float(query.get_distance(cfg, dist, torch.stack(executed)).min())
+    sdf = pipeline._sdf_from_state(cfg, state)
+    signed = mpc.plan_step(cfg, dataclasses.replace(m, signed=True), sdf,
+                           p0, v0, goal, nominal, gen)
+    check_plan(signed, "signed plan_step")
+    tri = mpc.plan_step(cfg, dataclasses.replace(m, sample_query="trilinear"),
+                        dist, p0, v0, goal, nominal, gen)
+    check_plan(tri, "trilinear plan_step")
+    normals = torch.randn((m.horizon, 3, m.n_rollouts),
+                          generator=torch.Generator().manual_seed(1))
+    on_card = mpc._plan_step_impl(cfg, m, dist, p0, v0, goal, nominal,
+                                  normals.to(dev))
+    on_cpu = mpc._plan_step_impl(
+        cfg, m, dist.cpu(), p0.cpu(), v0.cpu(), goal.cpu(), nominal.cpu(),
+        normals)
+    diff = card_vs_cpu(on_card, on_cpu)
+    assert max(diff.values()) < PLAN_TOL, f"card vs CPU solve: {diff}"
+    crossing = crossing_solve(cfg, m, dist, normals)
+    return dict(
+        plan_ms=statistics.median(solve_ms), plan_ms_all=solve_ms,
+        solve=breakdown,
+        fly_step_ms=statistics.median(step_ms), fly_steps=len(step_ms),
+        fly_start=p0.tolist(), goal=goal.tolist(), fly_end=p.tolist(),
+        fly_clearance_m=clear, costs={
+            name: {k: float(getattr(r, k)) for k in
+                   ("cost", "best_sample_cost", "mean_sample_cost")}
+            for name, r in (("nearest", res), ("signed", signed),
+                            ("trilinear", tri))},
+        card_vs_cpu=diff, crossing=crossing)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1056,6 +1372,78 @@ def run(dev, cfg, h, w, ticks, dcfg, dh, dw, dticks):
         f"{window['far_device_ms']:.4f} ms on the card alone with every "
         f"value at cap")
 
+    # -- phase 8: the two-level (hierarchical) cow tick -------------------
+    hcfg = dataclasses.replace(cfg, edt_fine_dist=HIER_FINE_DIST).validate()
+    t_fine, t_total = pipeline._levels(hcfg)
+    t_coarse = -(-t_total // 2)
+    coarse_shape = tuple(g // 2 for g in cfg.grid_shape)
+    log(f"two-level EDT: fine {cfg.grid_shape} at t = {t_fine}, coarse "
+        f"{coarse_shape} at t = {t_coarse}")
+    run_stream(hcfg, tuple(b[:1] for b in batches), dev)      # warm-up
+    kernels.reset_launch_counts()
+    with launches_by_level(cfg.grid_shape) as by_level:
+        h_out, h_stats, h_ms = hier_path(hcfg, batches, eager, dev)
+    hier_launches = read_launches(HIER_KERNELS)
+    log(f"two-level tick (kernels): {h_ms:.3f} ms/tick; launches "
+        f"{hier_launches}; by level {dict(sorted(by_level.items()))}")
+    check_launched(hier_launches, "the two-level tick")
+    for name in HIER_KERNELS:
+        for level in ("fine", "coarse"):
+            assert by_level[f"{name}:{level}"] > 0, \
+                f"kernel {name} did not launch at the {level} level"
+    launches.update(hier_launches)
+    with plain_versions():
+        hp_out, hp_stats, hp_ms = hier_path(hcfg, batches, eager, dev)
+    for name in h_out:
+        bit_equal(h_out[name], hp_out[name], f"two-level {name}")
+    for a, b in zip(h_stats, hp_stats):
+        assert torch.equal(a, b), "two-level UpdateStats differ"
+    assert torch.equal(h_out["eager_closest"], h_out["eager_lazy"]), \
+        "two-level eager closest differs from the lazy derivation"
+    assert torch.equal(h_out["logodds"], k_state.logodds)
+    differ = h_out["d2"] != k_state.d2
+    near = k_state.d2 <= t_fine * t_fine
+    hier_d2 = dict(differ=int(differ.sum()),
+                   differ_within_fine=int((differ & near).sum()),
+                   within_fine=int(near.sum()),
+                   finite=int((h_out["d2"] < ft.grid.INF_D2).sum()),
+                   finite_flat=int((k_state.d2 < ft.grid.INF_D2).sum()))
+    assert hier_d2["differ_within_fine"] == 0, hier_d2
+    # flat and two-level ticks in turns (flat, two-level, two-level, flat)
+    turns = [run_stream(c, batches, dev)[2] for c in (cfg, hcfg, hcfg, cfg)]
+    busy = dict(flat=busy_ms_per_tick(cfg, batches, dev),
+                two_level=busy_ms_per_tick(hcfg, batches, dev))
+    occ_c = edt.downsample2_any(occupied)
+    coarse_rows = level_rows(occ_c, t_coarse)
+    hier = dict(ms_per_tick=h_ms, plain_ms_per_tick=hp_ms,
+                turns_flat_two_level=turns, busy_ms_per_tick=busy,
+                launches=hier_launches, by_level=dict(by_level), d2=hier_d2,
+                coarse_shape=list(coarse_shape), t_fine=t_fine,
+                t_coarse=t_coarse, coarse_kernels=coarse_rows)
+    log(f"two-level tick bit-equal to plain ({hp_ms:.3f} ms/tick plain); "
+        f"ms/tick flat, two-level, two-level, flat: "
+        f"{[round(x, 3) for x in turns]} (phase 2's flat {k_ms:.3f}); "
+        f"device busy per tick {busy}; d2 against phase 2's exact d2 "
+        f"{hier_d2}; on {card}")
+    for name, r in coarse_rows.items():
+        log(f"{name} at the coarse level {coarse_shape}, t = {t_coarse}: "
+            f"{r['ms']:.4f} ms host-paced, {r['device_ms']:.4f} on the card "
+            f"alone (plain {r['plain_ms']:.4f}, bound {r['bound_ms']:.4f} "
+            f"ms by {r['bound_by']}), bit-equal; on {card}")
+
+    # -- phase 9: the planner on phase 2's final map ----------------------
+    planner = run_planner(cfg, k_state, dev)
+    log(f"planner (MPCConfig(): {mpc.MPCConfig().n_rollouts} rollouts, "
+        f"horizon {mpc.MPCConfig().horizon}): {planner['plan_ms']:.3f} ms "
+        f"per plan_step, {planner['fly_step_ms']:.3f} ms per fly step "
+        f"({planner['fly_steps']} steps from {planner['fly_start']} toward "
+        f"{planner['goal']}, ending at {planner['fly_end']}, map clearance "
+        f"{planner['fly_clearance_m']:.3f} m); a solve: {planner['solve']}; "
+        f"costs {planner['costs']}; "
+        f"card vs CPU from the same draws {planner['card_vs_cpu']}; "
+        f"through a mapped obstacle {planner['crossing']}; "
+        f"on {card}")
+
     for r in rows:
         if r["name"] not in EARLIER_LAUNCHES:
             continue
@@ -1117,7 +1505,8 @@ def run(dev, cfg, h, w, ticks, dcfg, dh, dw, dticks):
                       "far_device_ms": {r["name"]: r["far_device_ms"]
                                         for r in rows
                                         if "far_device_ms" in r},
-                      "closest_binary_tiles": binary["tiles"]}))
+                      "closest_binary_tiles": binary["tiles"],
+                      "two_level": hier, "planner": planner}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

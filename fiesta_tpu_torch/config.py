@@ -214,8 +214,7 @@ class FiestaConfig:
     #          closest_obstacle_ (ESDFMap.h:92-96) — for a rebuild-mode
     #          map closest is a pure function of the occupancy, so
     #          deriving at read time is semantics-identical to deriving
-    #          at write time — while the tick drops the ~1.1 ms/batch
-    #          packed-argmin payload cost (PERF.md round 5).
+    #          at write time — while the tick skips the closest passes.
     #   "eager": every tick maintains state.closest (the reference's
     #          write cadence; pays the argmin passes per tick).  Queue
     #          ("incremental") mode is always eager — its delete pass
@@ -227,14 +226,13 @@ class FiestaConfig:
     # See jump_offsets(): preserves correctness, converges in O(log) sweeps.
     accel_jumps: int = 64
     # ESDF maintenance strategy:
-    #   "rebuild":     fixed-cost exact truncated EDT every update (Pallas
-    #                  kernel; hard real-time, exact within trunc_dist).
+    #   "rebuild":     fixed-cost exact truncated EDT every update (CUDA
+    #                  kernels; hard real-time, exact within trunc_dist).
     #   "incremental": queue-semantics masked relaxation (reference parity,
     #                  unbounded distances).  VALIDATION ORACLE, not a
     #                  production option: bit-exact vs the reference's
-    #                  queue fixpoint for tests, but ~4 s/batch on fresh
-    #                  streams at cow_and_lady scale (40x the 100 ms
-    #                  budget) — deploy with "rebuild".
+    #                  queue fixpoint for tests; this port has the
+    #                  rebuild engine only — deploy with "rebuild".
     esdf_mode: str = "rebuild"
     # Truncation radius (meters) for rebuild mode; distances beyond read as
     # infinity.  Planners consume distances well below sensor range.
@@ -245,11 +243,12 @@ class FiestaConfig:
     # hierarchy: distances are EXACT everywhere within trunc_dist — a
     # strictly stronger contract than the reference's near-optimal BFS —
     # and the single-device tick matches the sharded tick's single-level
-    # EDT semantics exactly.  Measured trade at cow_and_lady scale
-    # (bench_accuracy.py / PERF.md): the 2.0 m hierarchy saves ~1.7 ms of
-    # a ~15 ms tick but leaves +-2-voxel far-field quantization and a thin
-    # unreachable blur at the truncation boundary; set edt_fine_dist=2.0
-    # to buy the speed back where that error band is acceptable.
+    # EDT semantics exactly.  The 2.0 m hierarchy leaves +-2-voxel
+    # far-field quantization and a thin unreachable blur at the truncation
+    # boundary, and buys no tick time on an NVIDIA H100 80GB HBM3 at
+    # 700 W: at cow_and_lady (chip_smoke.py phase 8) the card is busy
+    # 1.959 ms a tick with it against 1.822 ms without.  Keep the default
+    # there.
     edt_fine_dist: float = 5.0
     # Rays are padded to this many points per scan (static shapes under jit).
     max_points_per_scan: int = 65536

@@ -19,6 +19,10 @@ The closest transform (``truncated_edt_d2_closest``) runs three packed
 passes of the same shape, each with a CUDA kernel (``kernels/closest.cu``)
 and a plain version, dispatched the same way; the two-word wide fallback
 is plain PyTorch, as it is XLA in the JAX package.
+
+The two-level EDT (``hierarchical_edt_d2`` and its closest form) runs the
+same passes on the grid and on its 2x2x2 any-pooled half, and joins them
+in plain PyTorch.
 """
 
 from __future__ import annotations
@@ -632,3 +636,78 @@ def edt_closest_auto(occupied: torch.Tensor, trunc_vox: int,
     if closest_plan(occupied.shape, trunc_vox) is not None:
         return truncated_edt_d2_closest(occupied, trunc_vox, packed_out)
     return truncated_edt_d2_closest_wide(occupied, trunc_vox, packed_out)
+
+
+# ---------------------------------------------------------------------------
+# Two-level (hierarchical) EDT (ops/pallas/edt.py:1089-1192): exact to
+# t_fine voxels, and beyond it (up to t_total) the EDT of the 2x2x2
+# any-pooled grid, upsampled.  Both levels run the passes above, so the
+# kernels serve the coarse grid as they serve the fine one.
+# ---------------------------------------------------------------------------
+
+
+def _check_even(shape):
+    if any(g % 2 for g in shape):
+        raise ValueError(f"the hierarchical EDT needs even grid extents; "
+                         f"got {tuple(shape)}")
+
+
+def downsample2_any(occupied: torch.Tensor) -> torch.Tensor:
+    """2x2x2 any-pool of an even [X,Y,Z] occupancy (bool, or u8 with
+    nonzero occupied): bool [X/2,Y/2,Z/2], a block occupied when any of
+    its eight voxels is (the reshape-``any`` of ``edt.py:1113-1116``, as
+    a max over the u8 view)."""
+    gx, gy, gz = occupied.shape
+    blocks = _as_u8(occupied).reshape(gx // 2, 2, gy // 2, 2, gz // 2, 2)
+    return blocks.amax(dim=(1, 3, 5)) != 0
+
+
+def _upsample2(x: torch.Tensor) -> torch.Tensor:
+    """Each voxel of the last three axes repeated twice along each (the
+    coarse level on the fine grid), one copy; leading axes kept."""
+    *lead, a, b, c = x.shape
+    v = x.reshape(*lead, a, 1, b, 1, c, 1).expand(*lead, a, 2, b, 2, c, 2)
+    return v.reshape(*lead, 2 * a, 2 * b, 2 * c)
+
+
+def _coarse_d2(d2c: torch.Tensor) -> torch.Tensor:
+    """Coarse squared distances in fine voxel units (x4), INF_D2 kept."""
+    return torch.where(d2c >= INF_D2, int(INF_D2), d2c * 4)
+
+
+def hierarchical_edt_d2(occupied: torch.Tensor, t_fine: int,
+                        t_total: int) -> torch.Tensor:
+    """Two-level truncated EDT of an even [X,Y,Z] occupancy
+    (``edt.py:1163-1192``): exact within ``t_fine`` voxels of an obstacle;
+    beyond, up to ``t_total``, the coarse grid's EDT at ceil(t_total / 2)
+    in fine units, within one coarse voxel of the truth.  i32, INF_D2
+    beyond."""
+    _check_even(occupied.shape)
+    fine = truncated_edt_d2(occupied, t_fine)
+    d2c = truncated_edt_d2(downsample2_any(occupied), -(-t_total // 2))
+    return torch.where(fine < INF_D2, fine, _upsample2(_coarse_d2(d2c)))
+
+
+def hierarchical_edt_d2_closest(occupied: torch.Tensor, t_fine: int,
+                                t_total: int, packed_out: bool = False):
+    """Two-level EDT with the closest obstacle (``edt.py:1089-1134``):
+    each level through ``edt_closest_auto`` (packed passes or the wide
+    fallback).  Within ``t_fine`` the closest is exact; beyond, the coarse
+    level's, doubled to the even corner of the winning 2x2x2 block.
+    Returns (d2, closest) as ``truncated_edt_d2_closest`` does; d2 equals
+    ``hierarchical_edt_d2``.  ``packed_out`` doubles the coordinates inside
+    the packed word, which stays within each 10-bit field only while every
+    extent is <= 1024."""
+    _check_even(occupied.shape)
+    if packed_out and any(g > 1024 for g in occupied.shape):
+        raise ValueError(f"packed_out needs every grid extent <= 1024; got "
+                         f"{tuple(occupied.shape)}")
+    fine_d2, fine_cl = edt_closest_auto(occupied, t_fine, packed_out)
+    d2c, clc = edt_closest_auto(downsample2_any(occupied), -(-t_total // 2),
+                                packed_out)
+    use_fine = fine_d2 < INF_D2
+    d2 = torch.where(use_fine, fine_d2, _upsample2(_coarse_d2(d2c)))
+    # -1 is the undefined marker of both formats (grid.UNDEFINED_COORD)
+    cl_up = _upsample2(torch.where(clc < 0, -1, clc * 2))
+    return d2, torch.where(use_fine if packed_out else use_fine[None],
+                           fine_cl, cl_up)

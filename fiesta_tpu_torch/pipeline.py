@@ -16,8 +16,10 @@ The app engine: ``ScanSynchronizer`` matches depth frames to poses
 arrives with one of the three integrators (``integrate_scan``) and runs
 the 10 Hz update (``update``), serving the planner's queries from the map.
 
-The incremental ESDF engine and the hierarchical EDT raise
-``NotImplementedError``.
+A config with ``edt_fine_dist < trunc_dist`` (on an even grid) rebuilds
+with the two-level EDT (``edt.hierarchical_edt_d2`` and its closest form)
+wherever the tick, the closest path and the engine rebuild.  The
+incremental ESDF engine raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -54,23 +56,26 @@ class UpdateStats(NamedTuple):
     num_sweeps: torch.Tensor     # relaxation sweeps (0 in rebuild mode)
 
 
+def _levels(cfg: FiestaConfig):
+    """(t_fine, t_total) in voxels."""
+    return (edt.trunc_vox_for(cfg.resolution, cfg.edt_fine_dist),
+            edt.trunc_vox_for(cfg.resolution, cfg.trunc_dist))
+
+
 def _hierarchical(cfg: FiestaConfig) -> bool:
     """Whether the config selects the two-level EDT (edt_fine_dist <
     trunc_dist on an even grid)."""
-    t_total = edt.trunc_vox_for(cfg.resolution, cfg.trunc_dist)
-    t_fine = edt.trunc_vox_for(cfg.resolution, cfg.edt_fine_dist)
+    t_fine, t_total = _levels(cfg)
     return t_fine < t_total and all(g % 2 == 0 for g in cfg.grid_shape)
 
 
 def rebuild_d2(cfg: FiestaConfig, occupied: torch.Tensor) -> torch.Tensor:
-    """Truncated exact EDT of the current occupancy
-    (``pipeline.py:109-125``)."""
+    """Truncated exact EDT of the current occupancy, two-level when the
+    config selects it (``pipeline.py:109-125``)."""
+    t_fine, t_total = _levels(cfg)
     if _hierarchical(cfg):
-        raise NotImplementedError(
-            "edt_fine_dist < trunc_dist selects the hierarchical EDT, which "
-            "this port does not have yet; use edt_fine_dist >= trunc_dist")
-    return edt.truncated_edt_d2(
-        occupied, edt.trunc_vox_for(cfg.resolution, cfg.trunc_dist))
+        return edt.hierarchical_edt_d2(occupied, t_fine, t_total)
+    return edt.truncated_edt_d2(occupied, t_total)
 
 
 def _sdf_from_state(cfg: FiestaConfig, state: MapState) -> torch.Tensor:
@@ -91,9 +96,8 @@ def rebuild_tracks_closest(cfg: FiestaConfig) -> bool:
     that fits the grid and truncation."""
     if not cfg.track_closest:
         return False
-    t_total = edt.trunc_vox_for(cfg.resolution, cfg.trunc_dist)
+    t_fine, t_total = _levels(cfg)
     if _hierarchical(cfg):
-        t_fine = edt.trunc_vox_for(cfg.resolution, cfg.edt_fine_dist)
         coarse = tuple(g // 2 for g in cfg.grid_shape)
         return (_closest_ok(cfg.grid_shape, t_fine)
                 and _closest_ok(coarse, -(-t_total // 2)))
@@ -103,16 +107,16 @@ def rebuild_tracks_closest(cfg: FiestaConfig) -> bool:
 def rebuild_esdf(cfg: FiestaConfig, occupied: torch.Tensor):
     """EDT rebuild returning (d2, closest-or-None) (``pipeline.py:170-194``):
     with closest tracking the argmin rides the packed passes
-    (``edt.edt_closest_auto``), in the state's closest format."""
+    (``edt.edt_closest_auto``, at both levels of the two-level EDT when the
+    config selects it), in the state's closest format."""
     if not rebuild_tracks_closest(cfg):
         return rebuild_d2(cfg, occupied), None
+    t_fine, t_total = _levels(cfg)
+    packed = closest_packed_state(cfg)
     if _hierarchical(cfg):
-        raise NotImplementedError(
-            "edt_fine_dist < trunc_dist selects the hierarchical EDT with "
-            "closest, which this port does not have yet")
-    return edt.edt_closest_auto(
-        occupied, edt.trunc_vox_for(cfg.resolution, cfg.trunc_dist),
-        packed_out=closest_packed_state(cfg))
+        return edt.hierarchical_edt_d2_closest(occupied, t_fine, t_total,
+                                               packed_out=packed)
+    return edt.edt_closest_auto(occupied, t_total, packed_out=packed)
 
 
 def tick_rebuild_esdf(cfg: FiestaConfig, occupied: torch.Tensor):

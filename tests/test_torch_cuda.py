@@ -707,3 +707,99 @@ def test_engine_kernels_equal_plain(dev, monkeypatch, method, kind):
     for f in dataclasses.fields(k_pipe.state):
         _eq(getattr(k_pipe.state, f.name), getattr(p_pipe.state, f.name))
     assert int(k_pipe.occupied().sum()) > 50
+
+
+# the two-level EDT's coarse levels: cow (400x400x80 at t = 100, exact to
+# t = 40) and demo (400x400x36 at t = 50, exact to t = 20), both with
+# t >= gz on the half grid
+COARSE = {"cow": ((200, 200, 40), 50), "demo": ((200, 200, 18), 25)}
+
+
+@pytest.mark.parametrize("level", sorted(COARSE))
+def test_coarse_level_kernels(dev, level):
+    """The EDT passes and the three closest passes at the coarse level's
+    shapes, on the any-pool of a random fine occupancy and on an empty
+    grid, each equal to its plain version."""
+    shape, t = COARSE[level]
+    g = torch.Generator().manual_seed(t)
+    fine = torch.rand(tuple(2 * n for n in shape), generator=g) < 0.002
+    plan = edt.closest_plan(shape, t)
+    a, b, c = plan["a"], plan["b"], plan["c"]
+    for occ in (edt.downsample2_any(fine).to(dev),
+                torch.zeros(shape, dtype=torch.bool, device=dev)):
+        f = torch.full(shape, INF, dtype=torch.int32,
+                       device=dev).masked_fill_(occ, 0)
+        p1 = edt.binary_pass(f, t)
+        _eq(p1, edt._binary_pass_plain(f, t))
+        p2 = edt.minplus_pass(p1, t, 1)
+        _eq(p2, edt._minplus_pass_plain(p1, t, 1))
+        _eq(edt.minplus_pass(p2, t, 2), edt._minplus_pass_plain(p2, t, 2))
+        o8 = occ.view(torch.uint8)
+        q1 = edt.binary_packed(o8, plan, a)
+        _eq(q1, edt._binary_packed_plain(o8, plan, a))
+        q2 = edt.window_packed(q1, plan, b)
+        _eq(q2, edt._window_packed_plain(q1, plan, b))
+        _eq(edt.split_packed(q2, plan, c), edt._split_packed_plain(q2, plan, c))
+
+
+@pytest.mark.parametrize("packed_out", [False, True])
+def test_hierarchical_transform_kernels_equal_plain(dev, monkeypatch,
+                                                    packed_out):
+    """Both levels through the kernels (each closest kernel once a level),
+    equal to the transform through the plain versions."""
+    occ = (torch.rand((48, 40, 24), generator=torch.Generator().manual_seed(
+        6)) < 0.01).to(dev)
+    kernels.reset_launch_counts()
+    got = edt.hierarchical_edt_d2_closest(occ, 5, 12, packed_out)
+    d2 = edt.hierarchical_edt_d2(occ, 5, 12)
+    assert [kernels.LAUNCHES[k] for k in
+            ("closest_binary", "closest_window", "closest_split",
+             "edt_binary", "edt_minplus")] == [2, 2, 2, 2, 4]
+    for name, plain in (("binary_packed", edt._binary_packed_plain),
+                        ("window_packed", edt._window_packed_plain),
+                        ("split_packed", edt._split_packed_plain),
+                        ("binary_pass", edt._binary_pass_plain),
+                        ("minplus_pass", edt._minplus_pass_plain)):
+        monkeypatch.setattr(edt, name, plain)
+    ref = edt.hierarchical_edt_d2_closest(occ, 5, 12, packed_out)
+    for x, y in zip(got, ref):
+        _eq(x, y)
+    _eq(d2, edt.hierarchical_edt_d2(occ, 5, 12))
+    _eq(got[0], d2)
+
+
+def test_plan_step_card_matches_cpu(dev):
+    """One solve on the card and on the CPU from the same draws, within
+    ``tests/test_torch_mpc.py``'s gate (1e-3 in controls and positions,
+    1e-3 relative in cost): the softmax over K, the weighted control and
+    the sums run in other orders.  ``plan_step`` with a CUDA generator
+    gives finite costs, best <= mean."""
+    from fiesta_tpu_torch.ops import query
+    from fiesta_tpu_torch.planning import mpc
+
+    cfg = ft.FiestaConfig(resolution=0.1, origin=(-2.0, -2.0, -1.0),
+                          map_size=(4.0, 4.0, 2.0), trunc_dist=1.0,
+                          edt_fine_dist=1.0)
+    occ = torch.zeros(cfg.grid_shape, dtype=torch.bool)
+    occ[17:23, 17:23, 6:14] = True
+    occ[8:12, 25:30, 2:9] = True
+    d2 = edt.truncated_edt_d2(occ, 10)
+    dist = query.distance_grid(cfg, d2, torch.ones_like(occ,
+                                                        dtype=torch.uint8))
+    m = mpc.MPCConfig(horizon=16, n_rollouts=2048)
+    args = [torch.tensor(x, dtype=torch.float32) for x in (
+        [-1.5, -1.5, 0.0], [0.2, 0.0, 0.0], [1.6, 1.6, 0.3])]
+    args.append(torch.zeros((16, 3)))
+    normals = torch.randn((16, 3, 2048), generator=torch.Generator()
+                          .manual_seed(0))
+    cpu = mpc._plan_step_impl(cfg, m, dist, *args, normals)
+    card = mpc._plan_step_impl(cfg, m, dist.to(dev),
+                               *(x.to(dev) for x in args), normals.to(dev))
+    torch.cuda.synchronize()
+    assert (card.controls.cpu() - cpu.controls).abs().max() < 1e-3
+    assert (card.positions.cpu() - cpu.positions).abs().max() < 1e-3
+    assert abs(float(card.cost) - float(cpu.cost)) <= 1e-3 * float(cpu.cost)
+    res = mpc.plan_step(cfg, m, dist.to(dev), *(x.to(dev) for x in args),
+                        torch.Generator(device=dev).manual_seed(0))
+    assert all(bool(torch.isfinite(x).all()) for x in res)
+    assert float(res.best_sample_cost) <= float(res.mean_sample_cost)

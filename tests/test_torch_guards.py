@@ -29,7 +29,8 @@ def test_package_import_leaves_jax_out():
     code = ("import sys, fiesta_tpu_torch, fiesta_tpu_torch.pipeline, "
             "fiesta_tpu_torch.io.replay, fiesta_tpu_torch.kernels, "
             "fiesta_tpu_torch.timing, fiesta_tpu_torch.ops.sort, "
-            "fiesta_tpu_torch.ops.depth, fiesta_tpu_torch.ops.query; "
+            "fiesta_tpu_torch.ops.depth, fiesta_tpu_torch.ops.query, "
+            "fiesta_tpu_torch.planning, fiesta_tpu_torch.planning.mpc; "
             "print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'fiesta_tpu')))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

@@ -217,19 +217,29 @@ def test_tick_gives_up_its_input_state():
 
 
 def test_tick_raises_for_paths_not_ported():
-    """The drain's shard offset (multi-GPU), the hierarchical EDT (with and
-    without closest) and the incremental engine are not ported: each
-    raises."""
+    """The drain's shard offset (multi-GPU) and the incremental engine are
+    not ported: each raises.  The hierarchical EDT (edt_fine_dist <
+    trunc_dist) is: ``rebuild_d2``, ``rebuild_esdf`` and the eager tick's
+    rebuild equal the JAX package's on the same occupancy."""
     cfg = ft.config_from_fields(dataclasses.asdict(GRIDS["aligned"]))
-    occ = torch.zeros(cfg.grid_shape, dtype=torch.bool)
+    occ = np.random.default_rng(0).random(cfg.grid_shape) < 0.01
     hier = dataclasses.replace(cfg, edt_fine_dist=0.5)
-    with pytest.raises(NotImplementedError):
-        tpipe.rebuild_d2(hier, occ)
-    with pytest.raises(NotImplementedError):
-        tpipe.rebuild_esdf(hier, occ)
-    with pytest.raises(NotImplementedError):
-        tpipe.tick_rebuild_esdf(
-            dataclasses.replace(hier, closest_mode="eager"), occ)
+    j_hier = dataclasses.replace(GRIDS["aligned"], edt_fine_dist=0.5)
+    assert tpipe._hierarchical(hier)
+    occ_t, occ_j = torch.from_numpy(occ), jnp.asarray(occ)
+    np.testing.assert_array_equal(tpipe.rebuild_d2(hier, occ_t).numpy(),
+                                  np.asarray(jpipe.rebuild_d2_jit(j_hier,
+                                                                  occ_j)))
+    for got, ref in (
+            (tpipe.rebuild_esdf(hier, occ_t),
+             jpipe.rebuild_esdf_jit(j_hier, occ_j)),
+            (tpipe.tick_rebuild_esdf(
+                dataclasses.replace(hier, closest_mode="eager"), occ_t),
+             jpipe.tick_rebuild_esdf_jit(
+                 dataclasses.replace(j_hier, closest_mode="eager"), occ_j))):
+        for g, r in zip(got, ref):
+            assert g.dtype == torch.int32
+            np.testing.assert_array_equal(g.numpy(), np.asarray(r))
     state = ft.make_state(cfg, device="cpu")
     with pytest.raises(NotImplementedError):
         tfusion.fuse_drain(
