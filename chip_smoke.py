@@ -3,15 +3,17 @@
 
     python3 chip_smoke.py
 
-Seven paths are driven, six at cow_and_lady size (400x400x80 voxels at
+Nine paths are driven, eight at cow_and_lady size (400x400x80 voxels at
 0.05 m, exact EDT truncated at 100 voxels) on replayed scans made from
 seed 0: the mapping tick stream (3 scans of 192x256 rays per tick, lazy
 closest), the closest-obstacle query path on the map it leaves, the same
 stream with the sorted splat, the app engine (``FiestaPipeline``), the
-same stream with the two-level EDT and the planner on the stream's map;
-and the demo preset's windowed depth tick (400x400x36 voxels at 0.1 m,
-120x160 depth images).  Each path's kernel launch counts are zeroed just
-before it and read just after.  Phases, in order; any failure raises and
+same stream with the two-level EDT, the planner on the stream's map, the
+stream and the engine with the incremental ESDF engine, and the unbounded
+world (the scrolling grid with its tile archive); and the demo preset's
+windowed depth tick (400x400x36 voxels at 0.1 m, 120x160 depth images).
+Each path's kernel launch counts are zeroed just before it and read just
+after.  Phases, in order; any failure raises and
 exits non-zero:
 
 1. device and build: the card's name and power limit (nvidia-smi), then
@@ -93,8 +95,29 @@ exits non-zero:
    the collision term must be nonzero for a share of the samples and for
    the nominal, and the nominal's cost gradient on the card within 1e-5
    relative of the CPU's;
-10. a JSON line of per-kernel numbers (with the launches, device times,
-   carve steps and window offsets above, and phases 8 and 9), the
+10. the incremental engine: the phase-2 stream with ``esdf_mode``
+   "incremental" (FIESTA's insert/delete relaxation, swept to its
+   fixpoint by the ``relax`` kernel in one cooperative launch a tick),
+   globally and in the demo preset's window; kernels, then plain: states
+   and every tick's UpdateStats (sweeps included) bit-equal, one relax
+   launch a tick, every defined voxel's d2 equal to |v - closest|^2 with
+   its closest occupied, and d2 never below the exact EDT where that is
+   below t^2 (phase 2's, globally); the relax kernel on the tick with the
+   most sweeps and on the last, timed host-paced and on the card alone
+   per call and per sweep beside its bound and the plain loop; one more
+   tick's CUDA launches and busy time; then ``FiestaPipeline`` in
+   incremental mode on phase 5's frames, ``update()`` every third frame
+   under sync debug mode "error", kernels then plain;
+11. the unbounded world: ``ScrollingFiestaPipeline`` with a tile archive
+   at cow_and_lady on 24 scans of an orbit of 8 m in a 60 m box world
+   (past the grid's central box), ``update()`` every third frame, in
+   rebuild then incremental mode: at least two scrolls and a restore;
+   every entered strip holds what was evicted there; kernels, then plain:
+   states, anchor, counts and tiles bit-equal; a checkpoint saved on the
+   card loads back bit-equal with its anchor; ms per recenter with its
+   drain, strip transfers and re-derive;
+12. a JSON line of per-kernel numbers (with the launches, device times,
+   carve steps and window offsets above, and phases 8 to 11), the
    nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
 
 The script needs a CUDA card and the rest of the repository; without
@@ -108,16 +131,18 @@ import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 
 import fiesta_tpu_torch as ft
-from fiesta_tpu_torch import kernels, pipeline
+from fiesta_tpu_torch import checkpoint, kernels, pipeline
 from fiesta_tpu_torch.io import replay
-from fiesta_tpu_torch.ops import edt, fusion, query, raycast, sort
+from fiesta_tpu_torch.ops import edt, esdf, fusion, query, raycast, sort
 from fiesta_tpu_torch.planning import mpc
+from fiesta_tpu_torch.scrolling import ScrollingFiestaPipeline
 
 H, W = 192, 256          # scan size of the cow_and_lady bench (bench.py)
 TICKS = 5                # timed ticks of 3 scans each
@@ -138,6 +163,15 @@ PLAN_SOLVES = 5          # timed plan_step solves, one sync each
 FLY_STEPS = 10           # receding-horizon steps (run.py --fly)
 PLAN_TOL = 1e-3          # card vs CPU solve: tests/test_torch_mpc.py's gate
 GRAD_TOL = 1e-5          # card vs CPU cost gradient, relative L2: same gate
+INCR_KERNELS = ("splat", "carve", "boxadd", "relax")   # the incremental tick
+# int32 operations a relax candidate takes: three coordinate loads' bounds
+# checks folded, the neighbour index, the defined test, three differences,
+# three squares and two adds, the compare (the kernel's inner loop)
+RELAX_OPS = 12
+WORLD_FRAMES = 24        # phase 11: one orbit of WORLD_RADIUS in 0.8 s
+WORLD_PERIOD = 0.8
+WORLD_RADIUS = 8.0       # m: past the cow grid's central box (2.5 m)
+WORLD_SIZE = 60.0        # m: the world the orbit's boxes fill (grid 20 m)
 # H100 SXM published peaks (NVIDIA data sheet and Hopper white paper)
 HBM_BYTES_PER_S = 3.35e12
 # 67 TFLOP/s of non-tensor f32 counts an FMA as two operations; the kernels
@@ -207,6 +241,7 @@ PLAIN = (
     (edt, "window_packed", edt._window_packed_plain),
     (edt, "split_packed", edt._split_packed_plain),
     (sort, "sort_pairs", sort._sort_pairs_plain),
+    (esdf, "relax_to_fixpoint", esdf._relax_to_fixpoint_plain),
 )
 
 
@@ -224,14 +259,15 @@ def plain_versions():
             setattr(mod, name, fn)
 
 
-def run_stream(cfg, batches, dev):
+def run_stream(cfg, batches, dev, use_window=False):
     """fused_stream from an empty map; returns (state, stats, ms/tick)."""
     state = ft.make_state(cfg, dev)
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
-    state, stats = ft.fused_stream(cfg, state, *batches)
+    state, stats = ft.fused_stream(cfg, state, *batches,
+                                   use_window=use_window)
     end.record()
     end.synchronize()
     return state, stats, start.elapsed_time(end) / batches[0].shape[0]
@@ -934,6 +970,385 @@ def run_planner(cfg, state, dev):
         card_vs_cpu=diff, crossing=crossing)
 
 
+@contextlib.contextmanager
+def recorded_relax():
+    """Record the inputs of every relax kernel call while inside (the
+    wrapper still launches and counts)."""
+    calls, wrapped = [], kernels.relax_to_fixpoint
+
+    def call(*args, **kw):
+        out = wrapped(*args, **kw)
+        calls.append((args, kw, out[2]))
+        return out
+
+    kernels.relax_to_fixpoint = call
+    try:
+        yield calls
+    finally:
+        kernels.relax_to_fixpoint = wrapped
+
+
+def incremental_invariants(cfg, state, exact_d2, t):
+    """FIESTA's consistency on an incremental map: every defined voxel's
+    d2 is |v - closest|^2 and its closest is occupied, and where the exact
+    d2 is below t^2 the map's d2 is at least that (the fixpoint never
+    undercuts the exact EDT; the 24-stencil BFS overestimates).  Returns
+    counts."""
+    c = state.closest.to(torch.int32)
+    defined = c[0] >= 0
+    assert torch.equal(defined, state.d2 < ft.grid.INF_D2), \
+        "defined closest and finite d2 disagree"
+    diff = ft.grid.coord_grids(cfg.grid_shape, state.device).to(
+        torch.int32) - c
+    dd = (diff * diff).sum(0)
+    assert torch.equal(torch.where(defined, dd, 0),
+                       torch.where(defined, state.d2, 0)), \
+        "d2 != |v - closest|^2 on a defined voxel"
+    _, gy, gz = cfg.grid_shape
+    lin = torch.where(defined, c[0] * (gy * gz) + c[1] * gz + c[2], 0)
+    occ = ft.occupied_grid(cfg, state.logodds)
+    assert bool((torch.take(occ, lin.long()) | ~defined).all()), \
+        "a closest obstacle is not occupied"
+    near = exact_d2 < t * t
+    assert bool((state.d2[near] >= exact_d2[near]).all()), \
+        "the incremental d2 undercuts the exact EDT"
+    return dict(defined=int(defined.sum()), near=int(near.sum()),
+                over_exact=int((state.d2[near] > exact_d2[near]).sum()),
+                occupied=int(occ.sum()))
+
+
+def relax_row(calls, nvox):
+    """The relax kernel at the main path's shapes: on the recorded call
+    with the most sweeps and on the last, timed beside the plain loop and
+    the card's bound; one CUDA launch a call."""
+    out = {}
+    most = max(calls, key=lambda c: int(c[2]))
+    for name, (args, kw, sweeps) in (("most", most), ("last", calls[-1])):
+        sweeps = int(sweeps)
+        kern = lambda: kernels.relax_to_fixpoint(*args, **kw)  # noqa: E731
+        plain = lambda: esdf._relax_to_fixpoint_plain(*args, **kw)  # noqa
+        got, ref = kern(), plain()
+        err = max_abs_err(got, ref)
+        times = kernel_times(kern, calls=2, windows=3)
+        by_name, counts, _ = profiled(kern, 2)
+        ndirs = len(args[4])
+        # bytes: d2 (4) and closest (6) in and out once; ops: each sweep's
+        # candidates over every direction and voxel
+        b = bound(nvox * 20, RELAX_OPS * ndirs * nvox * sweeps,
+                  I32_OPS_PER_S)
+        out[name] = dict(
+            sweeps=sweeps, err=err, ms=times["ms"],
+            device_ms=times["device_ms"], host_ms=times["host_ms"],
+            ms_per_sweep=times["ms"] / sweeps,
+            device_ms_per_sweep=times["device_ms"] / sweeps,
+            plain_ms=time_ms(plain, calls=1, windows=1),
+            bound_ms=b[0], bound_by=b[1], bound_ms_per_sweep=b[0] / sweeps,
+            cuda_launches=sum(counts.values()), by_kernel=by_name,
+            directions=ndirs)
+    return out
+
+
+def incremental_tick_launches(cfg, state, batch, use_window):
+    """CUDA launches and device ms by kernel of one incremental tick from
+    ``state`` (profiler)."""
+    by_name, counts, wall = profiled(lambda: ft.fused_batch_step(
+        cfg, ft.copy_state(state), *batch, use_window=use_window), 1)
+    return dict(cuda_launches=sum(counts.values()),
+                busy_ms=sum(by_name.values()), wall_ms=wall,
+                relax_device_ms=sum(v for k, v in by_name.items()
+                                    if "relax_sweeps" in k))
+
+
+def world_frames(cfg, h, w):
+    """Scans of an orbit of WORLD_RADIUS about the cow grid's centre in a
+    WORLD_SIZE box world: the robot leaves the grid's central box."""
+    world_cfg = dataclasses.replace(
+        cfg, origin=(-WORLD_SIZE / 2, -WORLD_SIZE / 2, cfg.origin[2]),
+        map_size=(WORLD_SIZE, WORLD_SIZE, cfg.map_size[2]))
+    _, frames = replay.make_sequence(
+        world_cfg, n_frames=WORLD_FRAMES, n_boxes=40, seed=0, kind="cloud",
+        height=h, width=w, period=WORLD_PERIOD, orbit_radius=WORLD_RADIUS)
+    return frames
+
+
+def _paste(dst, dst_lo, src, src_lo):
+    """Copy the overlap of box ``src`` at world corner ``src_lo`` into
+    ``dst`` at ``dst_lo``."""
+    a = np.maximum(dst_lo, src_lo)
+    b = np.minimum(dst_lo + dst.shape, src_lo + src.shape)
+    if (b <= a).any():
+        return
+    dst[tuple(slice(i, j) for i, j in zip(a - dst_lo, b - dst_lo))] = \
+        src[tuple(slice(i, j) for i, j in zip(a - src_lo, b - src_lo))]
+
+
+def run_world(cfg, frames, dev, timed=False):
+    """``ScrollingFiestaPipeline`` with a tile archive over ``frames``,
+    ``update()`` every third frame.  Checks that every entered strip holds
+    what was evicted there (the latest store of each world voxel, unseen
+    and 0 where none was); with ``timed`` each recenter and its drain,
+    strip transfers and re-derive are timed to the device's end.  Returns
+    (pipe, checks, times)."""
+    pipe = ScrollingFiestaPipeline(cfg, method="scanline", archive=True,
+                                   device=dev)
+    stores, checks = [], collections.Counter()
+    times = collections.defaultdict(list)
+    store = pipe.archive.store
+
+    def record(world_lo, lo, seen):
+        stores.append((np.asarray(world_lo, np.int64), np.array(lo),
+                       np.asarray(seen, bool)))
+        store(world_lo, lo, seen)
+
+    pipe.archive.store = record
+
+    def clocked(name, fn):
+        def call(*args):
+            if not timed:
+                return fn(*args)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args)
+            torch.cuda.synchronize()
+            times[name].append((time.perf_counter() - t0) * 1e3)
+            return out
+        return call
+
+    restore = clocked("strips", pipe._restore_entered)
+
+    def restore_checked(shift_vox):
+        out = restore(shift_vox)
+        for ax in range(3):
+            if int(shift_vox[ax]) == 0:
+                continue
+            sl = pipe._axis_strip(shift_vox, ax, entering=True)
+            lo0 = np.array([s.indices(n)[0] for s, n in
+                            zip(sl, cfg.grid_shape)]) + pipe.origin_vox
+            shape = tuple(len(range(*s.indices(n))) for s, n in
+                          zip(sl, cfg.grid_shape))
+            want_lo = np.zeros(shape, np.float32)
+            want_seen = np.zeros(shape, bool)
+            for w_lo, lo, seen in stores:
+                _paste(want_lo, lo0, lo, w_lo)
+                _paste(want_seen, lo0, seen, w_lo)
+            got_lo = pipe.state.logodds[sl].cpu().numpy()
+            got_seen = pipe.state.seen[sl].cpu().numpy().astype(bool)
+            assert np.array_equal(got_lo.view(np.int32),
+                                  want_lo.view(np.int32)), \
+                "restored log-odds differ from the evicted"
+            assert np.array_equal(got_seen, want_seen), \
+                "restored seen differs from the evicted"
+            checks["strips_checked"] += 1
+            checks["restored_seen_voxels"] += int(want_seen.sum())
+        return out
+
+    pipe._restore_entered = restore_checked
+    pipe._drain_counters = clocked("drain", pipe._drain_counters)
+    pipe._archive_evicted = clocked("strips", pipe._archive_evicted)
+    pipe._rederive_distances = clocked("rederive", pipe._rederive_distances)
+    recenter = clocked("recenter", pipe.maybe_recenter)
+
+    def maybe_recenter(pos):
+        n = len(times["recenter"])
+        moved = recenter(pos)
+        if timed and not moved:
+            del times["recenter"][n:]
+        return moved
+
+    pipe.maybe_recenter = maybe_recenter
+    for i, (t, (p, q), scan) in enumerate(frames):
+        pipe.observe_pose(t, p, q)
+        pipe.observe_cloud(t, scan)
+        if i + 1 < len(frames):
+            pipe.observe_pose(frames[i + 1][0], *frames[i + 1][1])
+        pipe.process()
+        if i % 3 == 2:
+            pipe.update()
+    pipe.observe_pose(frames[-1][0] + 1.0, *frames[-1][1])
+    pipe.process()
+    pipe.update()
+    torch.cuda.synchronize()
+    return pipe, dict(checks), dict(times)
+
+
+def world_path(cfg, frames, dev):
+    """Phase 11 in one ``esdf_mode``: the persistent scrolling engine on
+    the kernels (timed), then on the plain versions; states, anchor, counts
+    and tiles bit-equal; a checkpoint of the map loads back bit-equal with
+    its anchor.  Returns a summary."""
+    kernels.reset_launch_counts()
+    k_pipe, checks, times = run_world(cfg, frames, dev, timed=True)
+    names = INCR_KERNELS if cfg.esdf_mode == "incremental" else \
+        STREAM_KERNELS
+    world_launches = read_launches(names)
+    check_launched(world_launches, f"the {cfg.esdf_mode} unbounded world")
+    assert k_pipe.scroll_count >= 2, k_pipe.scroll_count
+    assert k_pipe.restore_count >= 1 and checks.get(
+        "restored_seen_voxels", 0) > 0, checks
+    with plain_versions():
+        p_pipe, p_checks, _ = run_world(cfg, frames, dev)
+    for f in ft.grid.FIELDS:
+        bit_equal(getattr(k_pipe.state, f), getattr(p_pipe.state, f),
+                  f"unbounded world {cfg.esdf_mode} {f}")
+    assert np.array_equal(k_pipe.origin_vox, p_pipe.origin_vox)
+    assert (k_pipe.scroll_count, k_pipe.restore_count) == \
+        (p_pipe.scroll_count, p_pipe.restore_count)
+    assert sorted(k_pipe.archive.tiles) == sorted(p_pipe.archive.tiles)
+    for key, tile in k_pipe.archive.tiles.items():
+        for name in ("logodds", "seen"):
+            assert np.array_equal(tile[name], p_pipe.archive.tiles[key][name])
+    with tempfile.TemporaryDirectory() as tmp:
+        path = f"{tmp}/map.npz"
+        checkpoint.save(path, cfg, k_pipe.state, origin_vox=k_pipe.origin_vox)
+        cfg2, state2 = checkpoint.load(path)
+        anchor = checkpoint.load_anchor(path)
+    assert cfg2 == cfg and state2.device == k_pipe.state.device
+    for f in ft.grid.FIELDS:
+        bit_equal(getattr(state2, f), getattr(k_pipe.state, f),
+                  f"checkpoint {f}")
+    assert np.array_equal(anchor, k_pipe.origin_vox)
+    med = {k: statistics.median(v) for k, v in times.items() if v}
+    per = {k: sum(v) / max(len(times["recenter"]), 1)
+           for k, v in times.items() if k != "recenter"}
+    return dict(scrolls=k_pipe.scroll_count, restores=k_pipe.restore_count,
+                origin_vox=k_pipe.origin_vox.tolist(),
+                tiles=k_pipe.archive.num_tiles,
+                archived_seen=k_pipe.archive.seen_voxels(),
+                occupied=int(k_pipe.occupied().sum()), launches=world_launches,
+                recenters=len(times.get("recenter", [])),
+                recenter_ms_median=med.get("recenter"),
+                per_recenter_ms=per, checks=checks)
+
+
+def incremental_path(cfg, batches, k_state, frames, dev, card, rows,
+                     launches):
+    """Phase 10: the phase-2 stream in incremental mode, global and in the
+    demo preset's window, kernels then plain; the invariants against phase
+    2's exact d2 (``k_state``); the relax kernel's row (appended to
+    ``rows``); the incremental engine under sync debug mode "error".  Adds
+    the launches to ``launches``; returns (summary, relax timings)."""
+    icfg = dataclasses.replace(cfg, esdf_mode="incremental").validate()
+    wcfg = dataclasses.replace(icfg, global_update=False,
+                               radius=ft.DEMO_ONBOARD.radius).validate()
+    t_total = edt.trunc_vox_for(cfg.resolution, cfg.trunc_dist)
+    incr = {}
+    for name, c in (("global", icfg), ("window", wcfg)):
+        use_window = not c.global_update
+        kernels.reset_launch_counts()
+        with recorded_relax() as calls:
+            i_state, i_stats, i_ms = run_stream(c, batches, dev, use_window)
+        i_launches = read_launches(INCR_KERNELS)
+        log(f"incremental {name} stream (kernels): {i_ms:.3f} ms/tick on "
+            f"{card}; launches {i_launches}")
+        check_launched(i_launches, f"the incremental {name} stream")
+        assert i_launches["relax"] == batches[0].shape[0], i_launches
+        launches.update(i_launches)
+        with plain_versions():
+            ip_state, ip_stats, ip_ms = run_stream(c, batches, dev,
+                                                   use_window)
+        for f in ft.grid.FIELDS:
+            bit_equal(getattr(i_state, f), getattr(ip_state, f),
+                      f"incremental {name} {f}")
+        for f, a, b in zip(i_stats._fields, i_stats, ip_stats):
+            assert torch.equal(a, b), f"incremental {name} UpdateStats.{f}"
+        if use_window:
+            exact = edt.truncated_edt_d2(
+                ft.occupied_grid(c, i_state.logodds), t_total)
+        else:
+            assert torch.equal(i_state.logodds, k_state.logodds), \
+                "the incremental stream's log-odds differ from phase 2's"
+            exact = k_state.d2
+        inv = incremental_invariants(c, i_state, exact, t_total)
+        tick = incremental_tick_launches(c, i_state,
+                                         tuple(b[-1] for b in batches),
+                                         use_window)
+        incr[name] = dict(
+            ms_per_tick=i_ms, plain_ms_per_tick=ip_ms,
+            sweeps=i_stats.num_sweeps.tolist(),
+            inserted=i_stats.num_inserted.tolist(),
+            deleted=i_stats.num_deleted.tolist(), launches=i_launches,
+            invariants=inv, next_tick=tick)
+        log(f"incremental {name} stream bit-equal to plain ({ip_ms:.3f} "
+            f"ms/tick plain); sweeps per tick {incr[name]['sweeps']}, "
+            f"inserted {incr[name]['inserted']}, deleted "
+            f"{incr[name]['deleted']}; invariants {inv}; one more tick: "
+            f"{tick['cuda_launches']:g} CUDA launches, busy "
+            f"{tick['busy_ms']:.3f} ms (relax {tick['relax_device_ms']:.3f})"
+            f"; on {card}")
+        if name == "global":
+            relax = relax_row(calls, i_state.d2.numel())
+    most = relax["most"]
+    rows.append(dict(
+        name="relax", source="fiesta_tpu_torch/kernels/relax.cu",
+        replaces="fiesta_tpu/ops/esdf.py:187 (relax_to_fixpoint's "
+                 "lax.while_loop; port-only: XLA fusion in fiesta_tpu)",
+        err=max(r["err"] for r in relax.values()), ms=most["ms"],
+        device_ms=most["device_ms"], host_ms=most["host_ms"],
+        plain_ms=most["plain_ms"], library_ms=None,
+        bound=(most["bound_ms"], most["bound_by"]),
+        cuda_launches=most["cuda_launches"], by_kernel=most["by_kernel"]))
+    for which, r in relax.items():
+        label = {"most": "the tick with the most sweeps",
+                 "last": "the last tick"}[which]
+        log(f"relax ({label}: {r['sweeps']} sweeps, "
+            f"{r['directions']} directions): {r['ms']:.3f} ms host-paced, "
+            f"{r['device_ms']:.3f} on the card alone "
+            f"({r['device_ms_per_sweep']:.4f} ms a sweep; bound "
+            f"{r['bound_ms']:.3f} ms by {r['bound_by']}, "
+            f"{r['bound_ms_per_sweep']:.4f} a sweep); plain loop "
+            f"{r['plain_ms']:.1f} ms; {r['cuda_launches']:g} CUDA launches "
+            f"a call; on {card}")
+    kernels.reset_launch_counts()
+    eng_frames = frames[:ENGINE_FRAMES]
+    ie_pipe, ie_out, ie_frame_ms, ie_update_ms = run_engine(
+        icfg, eng_frames, "scanline", dev, no_sync=True)
+    ie_launches = read_launches(INCR_KERNELS)
+    check_launched(ie_launches, "the incremental engine")
+    assert ie_launches["relax"] == ie_pipe.esdf_cnt, ie_launches
+    launches.update(ie_launches)
+    with plain_versions():
+        _, iep_out, iep_frame_ms, iep_update_ms = run_engine(
+            icfg, eng_frames, "scanline", dev)
+    for f in ie_out:
+        bit_equal(ie_out[f], iep_out[f], f"incremental engine {f}")
+    incr["engine"] = dict(frame_ms=ie_frame_ms, update_ms=ie_update_ms,
+                          plain_frame_ms=iep_frame_ms,
+                          plain_update_ms=iep_update_ms,
+                          updates=ie_pipe.esdf_cnt, launches=ie_launches)
+    log(f"incremental engine (kernels): {ie_frame_ms:.3f} ms per process() "
+        f"frame, {ie_update_ms:.3f} ms per update(), neither waiting for "
+        f"the device; bit-equal to plain ({iep_frame_ms:.3f} / "
+        f"{iep_update_ms:.3f} ms); launches {ie_launches}; on {card}")
+    return incr, relax
+
+
+def unbounded_world(cfg, h, w, dev, card, launches):
+    """Phase 11: the persistent scrolling engine at ``cfg`` on an orbit
+    past its grid, in rebuild then incremental mode (``world_path``).
+    Adds the launches to ``launches``; returns the summaries."""
+    t0 = time.perf_counter()
+    wframes = world_frames(cfg, h, w)
+    log(f"unbounded world: {WORLD_FRAMES} scans on an orbit of "
+        f"{WORLD_RADIUS} m in a {WORLD_SIZE} m world rendered in "
+        f"{time.perf_counter() - t0:.1f} s")
+    world = {}
+    for mode in ("rebuild", "incremental"):
+        mcfg = dataclasses.replace(cfg, esdf_mode=mode).validate()
+        world[mode] = world_path(mcfg, wframes, dev)
+        launches.update(world[mode]["launches"])
+        parts = world[mode]["per_recenter_ms"]
+        log(f"unbounded world ({mode}): {world[mode]['scrolls']} scrolls, "
+            f"{world[mode]['restores']} restores "
+            f"({world[mode]['checks']}), {world[mode]['tiles']} tiles; "
+            f"kernels == plain and the checkpoint loads back bit-equal with "
+            f"its anchor {world[mode]['origin_vox']}; "
+            f"{world[mode]['recenters']} recenters, median "
+            f"{world[mode]['recenter_ms_median']} ms, per recenter "
+            f"{ {k: round(v, 3) for k, v in parts.items()} } ms; launches "
+            f"{world[mode]['launches']}; on {card}")
+    return world
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -948,6 +1363,7 @@ def run(dev, cfg, h, w, ticks, dcfg, dh, dw, dticks):
     """The phases on ``dev`` for ``cfg`` with ``ticks`` ticks of three
     h x w scans, and for the demo config ``dcfg`` with ``dticks`` ticks of
     three dh x dw depth images."""
+    t_run = time.perf_counter()
     # -- phase 1: device and build ------------------------------------
     card = card_line()
     log(f"card: {card} ({torch.cuda.get_device_name(0)}, "
@@ -961,6 +1377,7 @@ def run(dev, cfg, h, w, ticks, dcfg, dh, dw, dticks):
             if "registers" in line or "smem" in line:
                 log(f"  ptxas {src}: {line.strip()}")
 
+    log(f"[{time.perf_counter() - t_run:.0f} s] phase 2")
     # -- phase 2: the tick stream, kernels then plain --------------------
     t0 = time.perf_counter()
     _, frames = replay.make_sequence(
@@ -996,6 +1413,7 @@ def run(dev, cfg, h, w, ticks, dcfg, dh, dw, dticks):
     assert n_occ > MIN_OCCUPIED, f"scene mapped only {n_occ} occupied voxels"
     assert bool((k_state.d2 < ft.grid.INF_D2).any())
 
+    log(f"[{time.perf_counter() - t_run:.0f} s] phase 3")
     # -- phase 3: the closest/query path, kernels then plain ------------
     eager = tuple(b[:EAGER_TICKS] for b in batches)
     pos = query_positions(cfg, dev)
@@ -1032,6 +1450,7 @@ def run(dev, cfg, h, w, ticks, dcfg, dh, dw, dticks):
         f"ms); three queries of {QUERIES} positions: {query_ms:.4f} ms; "
         f"on {card}")
 
+    log(f"[{time.perf_counter() - t_run:.0f} s] phase 4")
     # -- phase 4: the sorted splat -----------------------------------------
     kernels.reset_launch_counts()
     with sorted_splat():
@@ -1048,6 +1467,7 @@ def run(dev, cfg, h, w, ticks, dcfg, dh, dw, dticks):
     log("sorted-splat stream bit-equal to the direct splat's")
     launches.update(sort_launches)
 
+    log(f"[{time.perf_counter() - t_run:.0f} s] phase 5")
     # -- phase 5: the app engine ------------------------------------------
     eng_frames = frames[:ENGINE_FRAMES]
     kernels.reset_launch_counts()
@@ -1080,6 +1500,7 @@ def run(dev, cfg, h, w, ticks, dcfg, dh, dw, dticks):
             f"{o_up:.3f} ms per update; occupied {n_o}; on {card}")
         assert n_o > 0, f"the {method} engine mapped nothing"
 
+    log(f"[{time.perf_counter() - t_run:.0f} s] phase 6")
     # -- phase 6: the demo preset's windowed depth tick -------------------
     t0 = time.perf_counter()
     dbatches = demo_batches(dcfg, dh, dw, dticks, dev)
@@ -1106,6 +1527,7 @@ def run(dev, cfg, h, w, ticks, dcfg, dh, dw, dticks):
         f"{ {f: v.tolist() for f, v in zip(d_stats._fields, d_stats)} }")
     assert n_demo >= DEMO_MIN_OCCUPIED, f"demo mapped only {n_demo} voxels"
 
+    log(f"[{time.perf_counter() - t_run:.0f} s] phase 7")
     # -- phase 7: each kernel against its plain version ------------------
     rows = []
     pts, vals, tfs, _ = (b[0] for b in batches)
@@ -1372,6 +1794,7 @@ def run(dev, cfg, h, w, ticks, dcfg, dh, dw, dticks):
         f"{window['far_device_ms']:.4f} ms on the card alone with every "
         f"value at cap")
 
+    log(f"[{time.perf_counter() - t_run:.0f} s] phase 8")
     # -- phase 8: the two-level (hierarchical) cow tick -------------------
     hcfg = dataclasses.replace(cfg, edt_fine_dist=HIER_FINE_DIST).validate()
     t_fine, t_total = pipeline._levels(hcfg)
@@ -1431,6 +1854,7 @@ def run(dev, cfg, h, w, ticks, dcfg, dh, dw, dticks):
             f"alone (plain {r['plain_ms']:.4f}, bound {r['bound_ms']:.4f} "
             f"ms by {r['bound_by']}), bit-equal; on {card}")
 
+    log(f"[{time.perf_counter() - t_run:.0f} s] phase 9")
     # -- phase 9: the planner on phase 2's final map ----------------------
     planner = run_planner(cfg, k_state, dev)
     log(f"planner (MPCConfig(): {mpc.MPCConfig().n_rollouts} rollouts, "
@@ -1443,6 +1867,15 @@ def run(dev, cfg, h, w, ticks, dcfg, dh, dw, dticks):
         f"card vs CPU from the same draws {planner['card_vs_cpu']}; "
         f"through a mapped obstacle {planner['crossing']}; "
         f"on {card}")
+
+    log(f"[{time.perf_counter() - t_run:.0f} s] phase 10")
+    # -- phase 10: the incremental cow stream ------------------------------
+    incr, relax = incremental_path(cfg, batches, k_state, frames, dev, card,
+                                   rows, launches)
+
+    log(f"[{time.perf_counter() - t_run:.0f} s] phase 11")
+    # -- phase 11: the unbounded world -------------------------------------
+    world = unbounded_world(cfg, h, w, dev, card, launches)
 
     for r in rows:
         if r["name"] not in EARLIER_LAUNCHES:
@@ -1506,7 +1939,10 @@ def run(dev, cfg, h, w, ticks, dcfg, dh, dw, dticks):
                                         for r in rows
                                         if "far_device_ms" in r},
                       "closest_binary_tiles": binary["tiles"],
-                      "two_level": hier, "planner": planner}))
+                      "two_level": hier, "planner": planner,
+                      "incremental": incr, "relax": relax,
+                      "unbounded_world": world}))
+    log(f"[{time.perf_counter() - t_run:.0f} s] phases done")
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -231,8 +231,9 @@ class FiestaConfig:
     #   "incremental": queue-semantics masked relaxation (reference parity,
     #                  unbounded distances).  VALIDATION ORACLE, not a
     #                  production option: bit-exact vs the reference's
-    #                  queue fixpoint for tests; this port has the
-    #                  rebuild engine only — deploy with "rebuild".
+    #                  queue fixpoint for tests; unbounded distances
+    #                  cost many sweeps on fresh streams — deploy with
+    #                  "rebuild".
     esdf_mode: str = "rebuild"
     # Truncation radius (meters) for rebuild mode; distances beyond read as
     # infinity.  Planners consume distances well below sensor range.

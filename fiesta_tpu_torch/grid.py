@@ -284,11 +284,23 @@ def window_mask(cfg: FiestaConfig, min_vec: torch.Tensor,
     return mx[:, None, None] & my[None, :, None] & mz[None, None, :]
 
 
+def coord_grids(shape, device: Device = None) -> torch.Tensor:
+    """[3, X, Y, Z] int16 self-coordinates (closest-obstacle seeding)."""
+    dev = resolve_device(device)
+    axes = [torch.arange(g, dtype=torch.int16, device=dev) for g in shape]
+    return torch.stack(torch.meshgrid(*axes, indexing="ij"))
+
+
 def occupied_grid(cfg: FiestaConfig, logodds: torch.Tensor) -> torch.Tensor:
     """Occupancy predicate ``Exist`` (ESDFMap.cpp:16-22)."""
     if cfg.probabilistic:
         return logodds > cfg.min_occupancy_log
     return logodds == 1.0
+
+
+def state_bytes(state: MapState) -> int:
+    """Bytes the map state holds on its device."""
+    return sum(getattr(state, f).nbytes for f in FIELDS)
 
 
 def check_same_device(state: MapState, *tensors: Optional[torch.Tensor]):

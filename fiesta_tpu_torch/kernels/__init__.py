@@ -40,7 +40,7 @@ NVCC_FLAGS = (
 #: per-kernel wrapper calls that launched on the card
 LAUNCHES = {"splat": 0, "carve": 0, "edt_binary": 0, "edt_minplus": 0,
             "fuse": 0, "boxadd": 0, "closest_binary": 0,
-            "closest_window": 0, "closest_split": 0, "sort": 0}
+            "closest_window": 0, "closest_split": 0, "sort": 0, "relax": 0}
 
 #: compiler output (ptxas register/shared-memory report) per source
 BUILD_LOG: dict = {}
@@ -67,6 +67,8 @@ _SIGNATURES = {
     "closest_split": ("closest.cu", "fiesta_closest_split",
                       [_P, _P, _L, _I, _L, _I, _I, _I, _P]),
     "sort": ("sort.cu", "fiesta_sort_pairs", [_P, _P, _L, _P, _P, _L, _P]),
+    "relax": ("relax.cu", "fiesta_relax",
+              [_P] * 10 + [_I] * 3 + [_P] + [_I] * 2 + [_P]),
 }
 SOURCES = tuple(sorted({s for s, _, _ in _SIGNATURES.values()}))
 
@@ -443,3 +445,75 @@ def sort_pairs(keys: torch.Tensor, vals: torch.Tensor):
     _launch("sort", keys.device, keys.data_ptr(), vals.data_ptr(), n,
             k_out.data_ptr(), v_out.data_ptr(), n_pad)
     return k_out[:n], v_out[:n]
+
+
+#: directions a ``relax_to_fixpoint`` call takes, at most (``relax.cu``)
+RELAX_MAX_DIRS = 128
+
+
+def _relax_mask(mask, d2: torch.Tensor, what: str):
+    """A bool or u8 [X,Y,Z] mask as the kernel's u8 pointer (None: 0)."""
+    if mask is None:
+        return None
+    if mask.dtype == torch.bool:
+        mask = mask.view(torch.uint8)
+    _check(mask, torch.uint8, f"relax {what}")
+    if mask.shape != d2.shape:
+        raise ValueError(f"relax {what}: shape {tuple(mask.shape)} != "
+                         f"{tuple(d2.shape)}")
+    _same_device(f"relax {what}", d2, mask)
+    return mask
+
+
+def relax_to_fixpoint(d2: torch.Tensor, closest: torch.Tensor, update_mask,
+                      source_mask, dirs, max_iters: int = 0,
+                      push_src_mask=None, push_recv_mask=None):
+    """Sweep the incremental ESDF's relaxation (``esdf.relax_once``) to its
+    fixpoint, or ``max_iters`` sweeps when > 0, in one cooperative CUDA
+    launch: d2 [X,Y,Z] i32 and closest [3,X,Y,Z] i16 in, (d2, closest,
+    num_sweeps 0-dim i32) out, new tensors, nothing read back.  ``dirs``
+    are the stencil offsets (taken in ``esdf.consideration_order``);
+    masks are bool or u8 [X,Y,Z] or None, the push masks both or neither.
+    Replaces ``esdf.relax_to_fixpoint``'s ``lax.while_loop`` (no Pallas
+    kernel)."""
+    from ..ops.esdf import consideration_order
+
+    _check(d2, torch.int32, "relax d2")
+    _check(closest, torch.int16, "relax closest")
+    if d2.dim() != 3 or tuple(closest.shape) != (3,) + tuple(d2.shape):
+        raise ValueError("relax: expected d2 [X,Y,Z] and closest [3,X,Y,Z]")
+    _same_device("relax", d2, closest)
+    gx, gy, gz = d2.shape
+    # int16 coordinates, int32 voxel indices and int32 candidates
+    if max(gx, gy, gz) >= 1 << 15 or d2.numel() >= 1 << 31 or \
+            (gx - 1) ** 2 + (gy - 1) ** 2 + (gz - 1) ** 2 >= 1 << 31:
+        raise ValueError(f"relax: grid {tuple(d2.shape)} does not fit the "
+                         "kernel's int16 coordinates and int32 indices")
+    if (push_src_mask is None) != (push_recv_mask is None):
+        raise ValueError("relax: push_src_mask and push_recv_mask go "
+                         "together")
+    small, jumps = consideration_order(dirs)
+    order = small + jumps
+    if len(order) > RELAX_MAX_DIRS:
+        raise ValueError(f"relax: {len(order)} directions exceed the "
+                         f"kernel's {RELAX_MAX_DIRS}")
+    table = np.ascontiguousarray(np.array(order, np.int64).reshape(-1, 3).T)
+    if np.abs(table).max(initial=0) >= 1 << 15:
+        raise ValueError("relax: an offset does not fit the kernel's int16 "
+                         "direction table")
+    table = table.astype(np.int16)
+    if not 0 <= int(max_iters) < 1 << 31:
+        raise ValueError(f"relax: max_iters {max_iters} out of range")
+    masks = [_relax_mask(m, d2, what) for m, what in (
+        (update_mask, "update_mask"), (source_mask, "source_mask"),
+        (push_src_mask, "push_src_mask"), (push_recv_mask, "push_recv_mask"))]
+    d2_out, d2_scr = torch.empty_like(d2), torch.empty_like(d2)
+    c_out, c_scr = torch.empty_like(closest), torch.empty_like(closest)
+    state = torch.empty(2, dtype=torch.int32, device=d2.device)
+    _launch("relax", d2.device, d2.data_ptr(), closest.data_ptr(),
+            d2_out.data_ptr(), c_out.data_ptr(), d2_scr.data_ptr(),
+            c_scr.data_ptr(),
+            *(None if m is None else m.data_ptr() for m in masks),
+            gx, gy, gz, table.ctypes.data, len(order), int(max_iters),
+            state.data_ptr())
+    return d2_out, c_out, state[1]

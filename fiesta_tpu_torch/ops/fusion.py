@@ -4,6 +4,11 @@ Reference semantics (src/ESDFMap.cpp:235-271, 401-450): each queued voxel
 (``miss_cnt > 0``) applies ONE clamped log-odds step, a hit iff
 ``2*hit >= miss``; occupancy flips count as inserts/deletes.
 
+``fuse_counts`` is the drain with its insert/delete masks, which the
+incremental engine consumes (``fusion.py:37``), and
+``set_occupancy_direct`` the deterministic direct write (``fusion.py:82``);
+both are plain PyTorch, as in the JAX package.
+
 ``fuse_drain`` is the one-pass drain of the rebuild tick
 (``ops/pallas/fuse.py:fuse_counts_pallas``): it returns the u8 occupancy
 and only the counts of the flips.  In local-update mode an inclusive voxel
@@ -15,10 +20,83 @@ the plain version here.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import numpy as np
 import torch
 
 from .. import kernels
+from ..config import FiestaConfig
+from ..grid import occupied_grid, vox_in_grid, vox_to_idx
+
+
+def _f32(v: float) -> float:
+    """``v`` rounded to f32 (as a JAX weak-typed scalar meets an f32
+    array)."""
+    return float(np.float32(v))
+
+
+class FusionResult(NamedTuple):
+    logodds: torch.Tensor       # updated log-odds
+    seen: torch.Tensor          # updated observed mask (u8)
+    occupied: torch.Tensor      # occupancy AFTER the update (bool)
+    insert_mask: torch.Tensor   # flipped free -> occupied (insert_queue_)
+    delete_mask: torch.Tensor   # flipped occupied -> free (delete_queue_)
+    num_observed: torch.Tensor  # queued-voxel count, 0-dim i32
+
+
+def fuse_counts(cfg: FiestaConfig, logodds: torch.Tensor, seen: torch.Tensor,
+                hit_cnt: torch.Tensor, miss_cnt: torch.Tensor,
+                window_mask=None) -> FusionResult:
+    """Drain the observation counters into log-odds (UpdateOccupancy,
+    ``fusion.py:37-79``): each voxel with ``miss_cnt > 0`` (inside
+    ``window_mask`` [X,Y,Z] bool when given) takes one clamped log-odds
+    step, a hit iff ``2*hit >= miss``.  The counters are left as they
+    are; the caller zeroes them."""
+    observed = miss_cnt > 0
+    if window_mask is not None:
+        observed = observed & window_mask
+    is_hit = 2 * hit_cnt.to(torch.int32) >= miss_cnt.to(torch.int32)
+    step = torch.where(is_hit, _f32(cfg.prob_hit_log),
+                       _f32(cfg.prob_miss_log))
+    occ_before = occupied_grid(cfg, logodds)
+    new_lo = torch.clamp(logodds + step, _f32(cfg.clamp_min_log),
+                         _f32(cfg.clamp_max_log))
+    new_lo = torch.where(observed, new_lo, logodds)
+    occ_after = occupied_grid(cfg, new_lo)
+    return FusionResult(
+        logodds=new_lo, seen=seen | observed.to(seen.dtype),
+        occupied=occ_after, insert_mask=occ_after & ~occ_before,
+        delete_mask=~occ_after & occ_before,
+        num_observed=observed.sum(dtype=torch.int32))
+
+
+def set_occupancy_direct(cfg: FiestaConfig, logodds: torch.Tensor,
+                         vox: torch.Tensor, occ: torch.Tensor):
+    """Deterministic direct occupancy write (the ``#ifndef PROBABILISTIC``
+    branch of SetOccupancy, ESDFMap.cpp:438-450; ``fusion.py:82-126``):
+    voxels ``vox`` [N,3] take ``occ`` [N] in {0,1}, the later of duplicate
+    writes winning and writes outside the grid dropped.  Returns
+    (new_logodds, insert_mask, delete_mask)."""
+    n = logodds.numel()
+    lin = torch.where(vox_in_grid(cfg, vox), vox_to_idx(cfg, vox), n)
+    # later writes win: the max of (write order, occ) packed, so the
+    # latest write decides; slot n takes the dropped writes
+    order = torch.arange(occ.shape[0], dtype=torch.int32,
+                         device=logodds.device)
+    packed = torch.full((n + 1,), -1, dtype=torch.int32,
+                        device=logodds.device).scatter_reduce_(
+        0, lin.to(torch.int64), order * 2 + occ.to(torch.int32), "amax")[:n]
+    if cfg.probabilistic:
+        on, off = cfg.clamp_max_log, cfg.clamp_min_log
+    else:
+        on, off = 1.0, 0.0
+    written = torch.where((packed & 1) == 1, _f32(on), _f32(off))
+    new_lo = torch.where(packed >= 0, written,
+                         logodds.reshape(-1)).reshape(logodds.shape)
+    occ_before = occupied_grid(cfg, logodds)
+    occ_after = occupied_grid(cfg, new_lo)
+    return new_lo, occ_after & ~occ_before, ~occ_after & occ_before
 
 
 def _in_window(shape, window, device) -> torch.Tensor:
@@ -34,8 +112,7 @@ def _fuse_drain_plain(logodds, seen, hit_cnt, miss_cnt, *, l_hit, l_miss,
                       window=None):
     """Plain version of the one-pass drain, with the arithmetic of
     ``fuse_counts_pallas``'s kernel body."""
-    f32 = lambda v: float(np.float32(v))  # noqa: E731
-    thr = f32(occ_thresh)
+    thr = _f32(occ_thresh)
 
     def occ_of(lo):
         return (lo == thr) if occ_is_eq else (lo > thr)
@@ -45,8 +122,8 @@ def _fuse_drain_plain(logodds, seen, hit_cnt, miss_cnt, *, l_hit, l_miss,
     if window is not None:
         obs = obs & _in_window(logodds.shape, window, logodds.device)
     is_hit = 2 * hit_cnt.to(torch.int32) >= miss32
-    step = torch.where(is_hit, f32(l_hit), f32(l_miss))
-    new = torch.clamp(logodds + step, f32(clamp_min), f32(clamp_max))
+    step = torch.where(is_hit, _f32(l_hit), _f32(l_miss))
+    new = torch.clamp(logodds + step, _f32(clamp_min), _f32(clamp_max))
     new = torch.where(obs, new, logodds)
     occ_b, occ_a = occ_of(logodds), occ_of(new)
     return (new, seen | obs.to(seen.dtype), occ_a.to(torch.uint8),

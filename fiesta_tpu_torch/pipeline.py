@@ -18,8 +18,11 @@ the 10 Hz update (``update``), serving the planner's queries from the map.
 
 A config with ``edt_fine_dist < trunc_dist`` (on an even grid) rebuilds
 with the two-level EDT (``edt.hierarchical_edt_d2`` and its closest form)
-wherever the tick, the closest path and the engine rebuild.  The
-incremental ESDF engine raises ``NotImplementedError``.
+wherever the tick, the closest path and the engine rebuild.  With
+``esdf_mode="incremental"`` the update runs the incremental engine in
+place of the rebuild: the fusion drain with its insert/delete masks and
+FIESTA's insert/delete relaxation (``esdf.update_esdf``), swept to its
+fixpoint on the device by the ``relax`` kernel.
 """
 
 from __future__ import annotations
@@ -34,9 +37,9 @@ import torch
 from .config import FiestaConfig
 from .grid import (Device, MapState, check_same_device, closest_packed_state,
                    local_window, local_window_np, make_state, occupied_grid,
-                   resolve_device)
+                   resolve_device, window_mask)
 from .io.replay import pad_cloud_np, pose_to_matrix
-from .ops import edt, fusion, query, raycast
+from .ops import edt, esdf, fusion, query, raycast
 from .ops.depth import depth_to_cloud, depth_to_cloud_components, \
     sensor_to_world
 from .timing import Timer
@@ -161,17 +164,21 @@ def integrate_scan(cfg: FiestaConfig, state: MapState,
 
 def esdf_update(cfg: FiestaConfig, state: MapState,
                 cur_pos: Optional[torch.Tensor] = None,
-                use_window: bool = False):
-    """One-pass fusion drain + EDT rebuild (``pipeline.py:232-310``).  With
-    ``use_window`` the drain applies only the observations inside the local
-    window around ``cur_pos`` [3] f32 (every counter is still zeroed);
-    the EDT is rebuilt over the whole grid.  Returns (new state,
-    UpdateStats); the counts come from the drain and no insert/delete
-    masks are built."""
+                use_window: bool = False, max_iters: int = 0):
+    """Fusion and ESDF maintenance (``pipeline.py:232-310``).  With
+    ``use_window`` only the observations inside the local window around
+    ``cur_pos`` [3] f32 apply (every counter is still zeroed).  Returns
+    (new state, UpdateStats).
+
+    Rebuild mode: the one-pass drain, then the EDT rebuilt over the whole
+    grid; the counts come from the drain (no insert/delete masks are
+    built) and ``max_iters`` is unused.  Incremental mode: ``fuse_counts``
+    and ``esdf.update_esdf`` (in the window when ``use_window``), whose
+    relaxation stops after ``max_iters`` sweeps when it is > 0; the stats
+    come from the masks."""
     if cfg.esdf_mode != "rebuild":
-        raise NotImplementedError(
-            f"esdf_mode={cfg.esdf_mode!r}: this port has the rebuild "
-            "engine only")
+        return _incremental_update(cfg, state, cur_pos, use_window,
+                                   max_iters)
     window = local_window(cfg, cur_pos) if use_window else None
     on, off_eq = ((cfg.min_occupancy_log, False) if cfg.probabilistic
                   else (1.0, True))
@@ -188,6 +195,28 @@ def esdf_update(cfg: FiestaConfig, state: MapState,
     stats = UpdateStats(
         num_observed=n_obs, num_inserted=n_ins, num_deleted=n_del,
         num_sweeps=torch.zeros((), dtype=torch.int32, device=d2.device))
+    return new_state, stats
+
+
+def _incremental_update(cfg: FiestaConfig, state: MapState, cur_pos,
+                        use_window: bool, max_iters: int):
+    """The incremental engine's update (``pipeline.py:282-310``)."""
+    wmask = None
+    if use_window:
+        wmask = window_mask(cfg, *local_window(cfg, cur_pos))
+    fr = fusion.fuse_counts(cfg, state.logodds, state.seen, state.hit_cnt,
+                            state.miss_cnt, window_mask=wmask)
+    d2, closest, sweeps = esdf.update_esdf(
+        state.d2, state.closest, fr.occupied, fr.insert_mask,
+        fr.delete_mask, wmask, cfg.relax_dirs, max_iters=max_iters)
+    new_state = MapState(logodds=fr.logodds, d2=d2, closest=closest,
+                         seen=fr.seen, hit_cnt=torch.zeros_like(state.hit_cnt),
+                         miss_cnt=torch.zeros_like(state.miss_cnt))
+    stats = UpdateStats(
+        num_observed=fr.num_observed,
+        num_inserted=fr.insert_mask.sum(dtype=torch.int32),
+        num_deleted=fr.delete_mask.sum(dtype=torch.int32),
+        num_sweeps=sweeps)
     return new_state, stats
 
 
@@ -227,15 +256,18 @@ def integrate_scan_batch(cfg: FiestaConfig, state: MapState, points, valids,
 
 def fused_batch_step(cfg: FiestaConfig, state: MapState, points, valids,
                      transforms: torch.Tensor, cur_pos: torch.Tensor,
-                     use_window: bool = False, method: str = "scanline"):
-    """One ESDF tick: batched scan integration, occupancy fusion and EDT
-    rebuild (``pipeline.py:359-382``).  ``cur_pos`` [3] is the robot
-    position, the window centre in local-update mode.  The caller gives up
-    ``state`` (see ``integrate_scan_batch``)."""
+                     use_window: bool = False, method: str = "scanline",
+                     max_iters: int = 0):
+    """One ESDF tick: batched scan integration, occupancy fusion and ESDF
+    maintenance (``pipeline.py:359-382``).  ``cur_pos`` [3] is the robot
+    position, the window centre in local-update mode; ``max_iters`` caps
+    the incremental engine's sweeps (see ``esdf_update``).  The caller
+    gives up ``state`` (see ``integrate_scan_batch``)."""
     state = integrate_scan_batch(cfg, state, points, valids, transforms,
                                  cur_pos, use_window=use_window,
                                  method=method)
-    return esdf_update(cfg, state, cur_pos, use_window=use_window)
+    return esdf_update(cfg, state, cur_pos, use_window=use_window,
+                       max_iters=max_iters)
 
 
 def _stack_stats(per_tick):
@@ -245,7 +277,7 @@ def _stack_stats(per_tick):
 def fused_stream(cfg: FiestaConfig, state: MapState, points: torch.Tensor,
                  valids: torch.Tensor, transforms: torch.Tensor,
                  cur_positions: torch.Tensor, use_window: bool = False,
-                 method: str = "scanline"):
+                 method: str = "scanline", max_iters: int = 0):
     """N consecutive ticks (``pipeline.py:465-502``): points [N,K,P,3],
     valids [N,K,P], transforms [N,K,4,4], cur_positions [N,3].  Returns
     the final state and UpdateStats with each field stacked to [N].  The
@@ -254,7 +286,8 @@ def fused_stream(cfg: FiestaConfig, state: MapState, points: torch.Tensor,
     for i in range(points.shape[0]):
         state, stats = fused_batch_step(
             cfg, state, points[i], valids[i], transforms[i],
-            cur_positions[i], use_window=use_window, method=method)
+            cur_positions[i], use_window=use_window, method=method,
+            max_iters=max_iters)
         per_tick.append(stats)
     return state, _stack_stats(per_tick)
 
@@ -264,7 +297,7 @@ def fused_depth_batch_step(cfg: FiestaConfig, state: MapState,
                            prev_depth: torch.Tensor,
                            prev_transform: torch.Tensor,
                            cur_pos: torch.Tensor, use_window: bool = False,
-                           use_filter: bool = True):
+                           use_filter: bool = True, max_iters: int = 0):
     """Depth-image tick (``pipeline.py:385-428``): K depth frames [K,H,W]
     f32 (meters) with camera-to-world transforms [K,4,4] are back-projected
     and consistency-filtered against their chained predecessors (the first
@@ -284,13 +317,13 @@ def fused_depth_batch_step(cfg: FiestaConfig, state: MapState,
     points = (torch.stack(xs), torch.stack(ys), torch.stack(zs))
     return fused_batch_step(cfg, state, points, torch.stack(vals),
                             transforms, cur_pos, use_window=use_window,
-                            method="scanline")
+                            method="scanline", max_iters=max_iters)
 
 
 def fused_depth_stream(cfg: FiestaConfig, state: MapState,
                        depths: torch.Tensor, transforms: torch.Tensor,
                        cur_positions: torch.Tensor, use_window: bool = False,
-                       use_filter: bool = True):
+                       use_filter: bool = True, max_iters: int = 0):
     """N depth ticks (``pipeline.py:431-462``): depths [N,K,H,W],
     transforms [N,K,4,4], cur_positions [N,3], a Python loop that chains the
     consistency filter across ticks (the first tick's first frame is its
@@ -301,7 +334,8 @@ def fused_depth_stream(cfg: FiestaConfig, state: MapState,
     for i in range(depths.shape[0]):
         state, stats = fused_depth_batch_step(
             cfg, state, depths[i], transforms[i], prev_d, prev_t,
-            cur_positions[i], use_window=use_window, use_filter=use_filter)
+            cur_positions[i], use_window=use_window, use_filter=use_filter,
+            max_iters=max_iters)
         per_tick.append(stats)
         prev_d, prev_t = depths[i, -1], transforms[i, -1]
     return state, _stack_stats(per_tick)
@@ -535,9 +569,10 @@ class FiestaPipeline:
             n_frames += 1
         return n_frames
 
-    def update(self) -> Optional[UpdateStats]:
+    def update(self, max_iters: int = 0) -> Optional[UpdateStats]:
         """The 10 Hz ESDF tick (UpdateEsdfEvent, Fiesta.h:481-539); None
-        when no frame arrived since the last one."""
+        when no frame arrived since the last one.  ``max_iters`` caps the
+        incremental engine's relaxation sweeps (0: to the fixpoint)."""
         if not self.new_msg:
             return None
         self.new_msg = False
@@ -546,7 +581,7 @@ class FiestaPipeline:
             self.state, stats = esdf_update(
                 self.cfg, self.state,
                 self._upload(np.asarray(self.cur_pos, np.float32)),
-                use_window=not self.cfg.global_update)
+                use_window=not self.cfg.global_update, max_iters=max_iters)
         if self.cfg.signed_needed:
             # maintain the signed field every tick (the reference's inverse
             # map, Fiesta.h:216-218)

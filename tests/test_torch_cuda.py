@@ -33,7 +33,9 @@ import fiesta_tpu_torch as ft  # noqa: E402
 from fiesta_tpu_torch import kernels  # noqa: E402
 from fiesta_tpu_torch import pipeline  # noqa: E402
 from fiesta_tpu_torch.io import replay  # noqa: E402
-from fiesta_tpu_torch.ops import edt, fusion, raycast, sort  # noqa: E402
+from fiesta_tpu_torch.config import (jump_offsets,  # noqa: E402
+                                     stencil_offsets)
+from fiesta_tpu_torch.ops import edt, esdf, fusion, raycast, sort  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -547,7 +549,7 @@ def test_stream_kernels_equal_plain(dev, monkeypatch):
     assert kernels.LAUNCHES == {
         "splat": 4, "carve": 4, "edt_binary": 4, "edt_minplus": 8,
         "fuse": 4, "boxadd": 4, "closest_binary": 0, "closest_window": 0,
-        "closest_split": 0, "sort": 0}
+        "closest_split": 0, "sort": 0, "relax": 0}
     monkeypatch.setattr(raycast, "splat_packed", raycast._splat_packed_plain)
     monkeypatch.setattr(raycast, "carve_free_mask_batch",
                         raycast._carve_free_plain)
@@ -803,3 +805,232 @@ def test_plan_step_card_matches_cpu(dev):
                         torch.Generator(device=dev).manual_seed(0))
     assert all(bool(torch.isfinite(x).all()) for x in res)
     assert float(res.best_sample_cost) <= float(res.mean_sample_cost)
+
+
+# ---------------------------------------------------------------------------
+# the relax kernel (the incremental ESDF)
+# ---------------------------------------------------------------------------
+
+RELAX_SHAPE = (40, 36, 24)
+
+
+def _relax_dirs(conn, jumps, shape=RELAX_SHAPE):
+    extra = tuple(d for d in jump_offsets(16)
+                  if all(abs(d[i]) < shape[i] for i in range(3)))
+    return stencil_offsets(conn) + (extra if jumps else ())
+
+
+def _relax_seeds(shape, p, seed, dev):
+    """d2 / closest seeded at a random occupancy, on ``dev``."""
+    g = torch.Generator().manual_seed(seed)
+    occ = (torch.rand(shape, generator=g) < p).to(dev)
+    d2 = torch.where(occ, 0, ft.grid.INF_D2).to(torch.int32)
+    c = torch.where(occ[None], ft.grid.coord_grids(shape, dev), -1)
+    return occ, d2, c.to(torch.int16)
+
+
+def _relax_check(d2, c, masks, dirs, max_iters=0):
+    """The kernel (one CUDA launch, ``relax_sweeps``) against
+    ``relax_once``'s host loop; returns the sweeps."""
+    before = kernels.LAUNCHES["relax"]
+    got, names = _cuda_kernels(lambda: esdf.relax_to_fixpoint(
+        d2, c, *masks[:2], dirs, max_iters, *masks[2:]))
+    assert kernels.LAUNCHES["relax"] == before + 1
+    assert names == ["relax_sweeps"]
+    ref = esdf._relax_to_fixpoint_plain(d2, c, *masks[:2], dirs, max_iters,
+                                        *masks[2:])
+    for a, b in zip(got, ref):
+        _eq(a, b)
+    return int(got[2])
+
+
+@pytest.mark.parametrize("jumps", [False, True], ids=["stencil", "jumps"])
+@pytest.mark.parametrize("conn", [6, 24, 62])
+def test_relax_kernel(dev, conn, jumps):
+    occ, d2, c = _relax_seeds(RELAX_SHAPE, 0.002, conn, dev)
+    sweeps = _relax_check(d2, c, (None,) * 4, _relax_dirs(conn, jumps))
+    assert sweeps > 2
+
+
+def _relax_window(occ):
+    w = torch.zeros_like(occ)
+    w[6:30, 4:28, 3:17] = True
+    return (w | occ, w, occ, w)
+
+
+@pytest.mark.parametrize("max_iters", [0, 1, 2])
+@pytest.mark.parametrize("window", [False, True], ids=["global", "window"])
+def test_relax_kernel_masks_and_max_iters(dev, window, max_iters):
+    """The windowed masks with the push pass (update = window | queued,
+    source = window, push from the queued voxels into the window), and
+    ``max_iters`` 1, 2 and 0 (to the fixpoint)."""
+    occ, d2, c = _relax_seeds(RELAX_SHAPE, 0.002, 5, dev)
+    masks = _relax_window(occ) if window else (None,) * 4
+    sweeps = _relax_check(d2, c, masks, _relax_dirs(24, True), max_iters)
+    if max_iters:
+        assert sweeps == max_iters
+
+
+def test_relax_kernel_converged_and_undefined(dev):
+    """A converged input takes exactly one sweep and comes back equal; so
+    does an all-undefined grid."""
+    occ, d2, c = _relax_seeds(RELAX_SHAPE, 0.002, 8, dev)
+    dirs = _relax_dirs(24, True)
+    d2f, cf, _ = esdf.relax_to_fixpoint(d2, c, None, None, dirs)
+    assert _relax_check(d2f, cf, (None,) * 4, dirs) == 1
+    _eq(esdf.relax_to_fixpoint(d2f, cf, None, None, dirs)[0], d2f)
+    none_d2 = torch.full(RELAX_SHAPE, ft.grid.INF_D2, dtype=torch.int32,
+                         device=dev)
+    none_c = torch.full((3,) + RELAX_SHAPE, -1, dtype=torch.int16,
+                        device=dev)
+    assert _relax_check(none_d2, none_c, (None,) * 4, dirs) == 1
+    out = esdf.relax_to_fixpoint(none_d2, none_c, None, None, dirs)
+    _eq(out[0], none_d2)
+    _eq(out[1], none_c)
+
+
+def test_relax_kernel_tie_order(dev):
+    """A jump listed before a reach-1 offset with the same least
+    candidate: the reach-1 offset wins, as in ``relax_once``."""
+    shape = (10, 10, 10)
+    d2 = torch.full(shape, ft.grid.INF_D2, dtype=torch.int32)
+    c = torch.full((3,) + shape, -1, dtype=torch.int16)
+    d2[6, 5, 5], c[:, 6, 5, 5] = 0, torch.tensor([6, 5, 5])
+    d2[2, 6, 5], c[:, 2, 6, 5] = 9, torch.tensor([2, 9, 5])
+    d2, c = d2.to(dev), c.to(dev)
+    _relax_check(d2, c, (None,) * 4, ((4, 0, 0), (0, 1, 0)), max_iters=1)
+    out = esdf.relax_to_fixpoint(d2, c, None, None, ((4, 0, 0), (0, 1, 0)),
+                                 max_iters=1)
+    assert out[1][:, 2, 5, 5].tolist() == [2, 9, 5]
+
+
+def test_relax_kernel_several_voxels_a_thread(dev):
+    """3.2 M voxels, more than the cooperative grid's resident threads."""
+    shape = (200, 200, 80)
+    occ, d2, c = _relax_seeds(shape, 2e-5, 9, dev)
+    sweeps = _relax_check(d2, c, _relax_window(occ),
+                          _relax_dirs(24, True, shape))
+    assert sweeps > 2
+
+
+def test_relax_kernel_rejects_what_it_cannot_index(dev):
+    d2 = torch.zeros((4, 4, 4), dtype=torch.int32, device=dev)
+    c = torch.zeros((3, 4, 4, 4), dtype=torch.int16, device=dev)
+    with pytest.raises(ValueError, match="int16 direction table"):
+        kernels.relax_to_fixpoint(d2, c, None, None, ((1 << 15, 0, 0),))
+    with pytest.raises(ValueError, match="exceed"):
+        kernels.relax_to_fixpoint(d2, c, None, None,
+                                  tuple((0, 0, k) for k in range(3, 132)))
+    with pytest.raises(ValueError, match="go together"):
+        kernels.relax_to_fixpoint(d2, c, None, None, ((1, 0, 0),),
+                                  push_src_mask=d2 == 0)
+
+
+def _incremental_plain(monkeypatch):
+    monkeypatch.setattr(raycast, "splat_packed", raycast._splat_packed_plain)
+    monkeypatch.setattr(raycast, "carve_free_mask_batch",
+                        raycast._carve_free_plain)
+    monkeypatch.setattr(raycast, "apply_box_counts",
+                        raycast._apply_box_counts_plain)
+    monkeypatch.setattr(fusion, "fuse_drain", fusion._fuse_drain_plain)
+    monkeypatch.setattr(edt, "binary_pass", edt._binary_pass_plain)
+    monkeypatch.setattr(edt, "minplus_pass", edt._minplus_pass_plain)
+    monkeypatch.setattr(esdf, "relax_to_fixpoint",
+                        esdf._relax_to_fixpoint_plain)
+
+
+def _incremental_cfg(window):
+    return replay.scale_intrinsics(ft.FiestaConfig(
+        resolution=0.1, origin=(-2.4, -2.4, -0.5), map_size=(4.8, 4.8, 2.0),
+        min_ray_length=0.3, max_ray_length=2.0, max_points_per_scan=24 * 32,
+        esdf_mode="incremental", global_update=not window,
+        radius=(1.8, 1.8, 0.5)), 24, 32)
+
+
+@pytest.mark.parametrize("window", [False, True], ids=["global", "window"])
+def test_incremental_stream_and_engine_kernels_equal_plain(dev, monkeypatch,
+                                                           window):
+    """The incremental tick stream (one relax launch a tick) and
+    ``FiestaPipeline`` in incremental mode (one a ``update()``, which
+    never waits for the device), kernels against plain versions."""
+    cfg = _incremental_cfg(window)
+    _, frames = replay.make_sequence(cfg, n_frames=9, n_boxes=5, seed=3,
+                                     height=24, width=32, orbit_radius=0.6)
+    batches = replay.stage_update_batches(cfg, frames, device=dev)
+
+    def engine(sync_mode):
+        pipe = ft.FiestaPipeline(cfg, method="scanline", device=dev)
+        torch.cuda.set_sync_debug_mode(sync_mode)
+        try:
+            for i, (t, (pos, quat), scan) in enumerate(frames):
+                pipe.observe_pose(t, pos, quat)
+                pipe.observe_cloud(t, scan)
+                pipe.process()
+                if i % 3 == 2:
+                    pipe.update(max_iters=0 if i < 6 else 2)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        pipe.sync_device()
+        return pipe.state
+
+    kernels.reset_launch_counts()
+    k_state, k_stats = pipeline.fused_stream(cfg, ft.make_state(cfg, dev),
+                                             *batches, use_window=window)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["relax"] == 3
+    k_eng = engine("error")
+    assert kernels.LAUNCHES["relax"] == 6
+    _incremental_plain(monkeypatch)
+    p_state, p_stats = pipeline.fused_stream(cfg, ft.make_state(cfg, dev),
+                                             *batches, use_window=window)
+    p_eng = engine("default")
+    assert kernels.LAUNCHES["relax"] == 6
+    for f in dataclasses.fields(k_state):
+        _eq(getattr(k_state, f.name), getattr(p_state, f.name))
+        _eq(getattr(k_eng, f.name), getattr(p_eng, f.name))
+    for a, b in zip(k_stats, p_stats):
+        _eq(a, b)
+    assert int(k_stats.num_sweeps.max()) > 1
+
+
+@pytest.mark.parametrize("mode", ["rebuild", "incremental"])
+def test_scrolling_engine_kernels_equal_plain(dev, monkeypatch, mode):
+    """The persistent scrolling engine on an orbit past its grid: it
+    scrolls, archives and restores, equal to the same run on the plain
+    versions (states, anchor, archive tiles)."""
+    from fiesta_tpu_torch.scrolling import ScrollingFiestaPipeline
+
+    cfg = dataclasses.replace(_incremental_cfg(False), esdf_mode=mode)
+    world = dataclasses.replace(cfg, origin=(-8.0, -8.0, -0.5),
+                                map_size=(16.0, 16.0, 2.0))
+    _, frames = replay.make_sequence(world, n_frames=12, n_boxes=10, seed=4,
+                                     height=24, width=32, orbit_radius=3.0,
+                                     period=0.4)
+
+    def run():
+        pipe = ScrollingFiestaPipeline(cfg, archive=True, device=dev)
+        for i, (t, (pos, quat), scan) in enumerate(frames):
+            pipe.observe_pose(t, pos, quat)
+            pipe.observe_cloud(t, scan)
+            if i + 1 < len(frames):
+                pipe.observe_pose(frames[i + 1][0], *frames[i + 1][1])
+            pipe.process()
+            pipe.update()
+        pipe.sync_device()
+        return pipe
+
+    kernels.reset_launch_counts()
+    k = run()
+    assert k.scroll_count > 1 and k.restore_count > 0
+    assert kernels.LAUNCHES["relax" if mode == "incremental"
+                            else "edt_binary"] > 0
+    _incremental_plain(monkeypatch)
+    p = run()
+    for f in dataclasses.fields(k.state):
+        _eq(getattr(k.state, f.name), getattr(p.state, f.name))
+    np.testing.assert_array_equal(k.origin_vox, p.origin_vox)
+    assert sorted(k.archive.tiles) == sorted(p.archive.tiles)
+    for key, tile in k.archive.tiles.items():
+        for name in ("logodds", "seen"):
+            np.testing.assert_array_equal(tile[name],
+                                          p.archive.tiles[key][name])

@@ -15,7 +15,9 @@ pytest.importorskip("jax")
 torch = pytest.importorskip("torch")
 
 import fiesta_tpu_torch as ft  # noqa: E402
+from fiesta_tpu_torch import checkpoint, grid  # noqa: E402
 from fiesta_tpu_torch.io import replay  # noqa: E402
+from fiesta_tpu_torch.scrolling import ScrollingFiestaPipeline  # noqa: E402
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "fiesta_tpu")
@@ -30,7 +32,10 @@ def test_package_import_leaves_jax_out():
             "fiesta_tpu_torch.io.replay, fiesta_tpu_torch.kernels, "
             "fiesta_tpu_torch.timing, fiesta_tpu_torch.ops.sort, "
             "fiesta_tpu_torch.ops.depth, fiesta_tpu_torch.ops.query, "
-            "fiesta_tpu_torch.planning, fiesta_tpu_torch.planning.mpc; "
+            "fiesta_tpu_torch.planning, fiesta_tpu_torch.planning.mpc, "
+            "fiesta_tpu_torch.ops.esdf, fiesta_tpu_torch.ops.fusion, "
+            "fiesta_tpu_torch.scrolling, fiesta_tpu_torch.archive, "
+            "fiesta_tpu_torch.checkpoint, fiesta_tpu_torch.viz; "
             "print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'fiesta_tpu')))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -56,14 +61,24 @@ def test_sources_import_no_jax(path):
             assert not bad, f"{f.name} imports {bad}"
 
 
-def test_entry_points_default_to_cuda():
+def test_entry_points_default_to_cuda(tmp_path):
     cfg = ft.FiestaConfig(resolution=0.5, origin=(0.0, 0.0, 0.0),
                           map_size=(4.0, 4.0, 2.0))
+    path = str(tmp_path / "map.npz")
+    checkpoint.save(path, cfg, ft.make_state(cfg, device="cpu"))
     if torch.cuda.is_available():
         assert ft.make_state(cfg).d2.is_cuda
+        assert ScrollingFiestaPipeline(cfg).state.d2.is_cuda
+        assert checkpoint.load(path)[1].d2.is_cuda
         return
-    with pytest.raises(RuntimeError, match="CUDA"):
-        ft.make_state(cfg)
-    with pytest.raises(RuntimeError, match="CUDA"):
-        replay.stage_update_batches(cfg, [])
+    for entry in (lambda: ft.make_state(cfg),
+                  lambda: replay.stage_update_batches(cfg, []),
+                  lambda: ScrollingFiestaPipeline(cfg),
+                  lambda: checkpoint.load(path),
+                  lambda: grid.coord_grids((2, 2, 2))):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            entry()
     assert ft.make_state(cfg, device="cpu").d2.device.type == "cpu"
+    assert ScrollingFiestaPipeline(cfg, device="cpu").state.d2.device.type \
+        == "cpu"
+    assert checkpoint.load(path, device="cpu")[1].d2.device.type == "cpu"

@@ -217,10 +217,12 @@ def test_tick_gives_up_its_input_state():
 
 
 def test_tick_raises_for_paths_not_ported():
-    """The drain's shard offset (multi-GPU) and the incremental engine are
-    not ported: each raises.  The hierarchical EDT (edt_fine_dist <
-    trunc_dist) is: ``rebuild_d2``, ``rebuild_esdf`` and the eager tick's
-    rebuild equal the JAX package's on the same occupancy."""
+    """The drain's shard offset (multi-GPU) is not ported: it raises.  The
+    hierarchical EDT (edt_fine_dist < trunc_dist) is: ``rebuild_d2``,
+    ``rebuild_esdf`` and the eager tick's rebuild equal the JAX package's
+    on the same occupancy.  So is the incremental engine (it raised until
+    it was ported): an incremental ``esdf_update`` of a state with
+    pending counters equals the JAX package's, sweeps included."""
     cfg = ft.config_from_fields(dataclasses.asdict(GRIDS["aligned"]))
     occ = np.random.default_rng(0).random(cfg.grid_shape) < 0.01
     hier = dataclasses.replace(cfg, edt_fine_dist=0.5)
@@ -249,6 +251,30 @@ def test_tick_raises_for_paths_not_ported():
             window=(torch.zeros(3, dtype=torch.int32),
                     torch.full((3,), 7, dtype=torch.int32)),
             x_offset=torch.zeros((), dtype=torch.int32))
-    with pytest.raises(NotImplementedError):
-        tpipe.esdf_update(dataclasses.replace(cfg, esdf_mode="incremental"),
-                          state)
+    j_incr = FiestaConfig(resolution=0.5, origin=(-3.0, -2.5, -1.0),
+                          map_size=(6.0, 5.0, 4.0), esdf_mode="incremental")
+    incr = ft.config_from_fields(dataclasses.asdict(j_incr))
+    rng = np.random.default_rng(1)
+    shape = incr.grid_shape
+    miss = rng.integers(0, 3, shape).astype(np.uint8)
+    hit = np.where(rng.random(shape) < 0.1, miss, 0).astype(np.uint8)
+    lo = np.where(rng.random(shape) < 0.5, 1.2, 0.0).astype(
+        np.float32)                        # one hit step from occupied
+    state = dataclasses.replace(ft.make_state(incr, device="cpu"),
+                                logodds=torch.from_numpy(lo),
+                                hit_cnt=torch.from_numpy(hit),
+                                miss_cnt=torch.from_numpy(miss))
+    j_state = dataclasses.replace(jgrid.make_state(j_incr),
+                                  logodds=jnp.asarray(lo),
+                                  hit_cnt=jnp.asarray(hit),
+                                  miss_cnt=jnp.asarray(miss))
+    got, got_stats = tpipe.esdf_update(incr, state)
+    ref, ref_stats = jpipe.esdf_update(j_incr, j_state,
+                                       jnp.zeros(3, jnp.float32))
+    for f in ft.grid.FIELDS:
+        np.testing.assert_array_equal(getattr(got, f).numpy(),
+                                      np.asarray(getattr(ref, f)),
+                                      err_msg=f)
+    assert tuple(int(x) for x in got_stats) == \
+        tuple(int(x) for x in ref_stats)
+    assert int(got_stats.num_inserted) > 0 and int(got_stats.num_sweeps) > 1
