@@ -3,15 +3,17 @@
 
     python3 chip_smoke.py
 
-Nine paths are driven, eight at cow_and_lady size (400x400x80 voxels at
+Eleven paths are driven, ten at cow_and_lady size (400x400x80 voxels at
 0.05 m, exact EDT truncated at 100 voxels) on replayed scans made from
 seed 0: the mapping tick stream (3 scans of 192x256 rays per tick, lazy
 closest), the closest-obstacle query path on the map it leaves, the same
 stream with the sorted splat, the app engine (``FiestaPipeline``), the
 same stream with the two-level EDT, the planner on the stream's map, the
-stream and the engine with the incremental ESDF engine, and the unbounded
-world (the scrolling grid with its tile archive); and the demo preset's
-windowed depth tick (400x400x36 voxels at 0.1 m, 120x160 depth images).
+stream and the engine with the incremental ESDF engine, the unbounded
+world (the scrolling grid with its tile archive), the app itself
+(``python -m fiesta_tpu_torch.run``, with its npz and ROS-bag inputs)
+and the soak drill (``soak_torch.py``); and the demo preset's windowed
+depth tick (400x400x36 voxels at 0.1 m, 120x160 depth images).
 Each path's kernel launch counts are zeroed just before it and read just
 after.  Phases, in order; any failure raises and
 exits non-zero:
@@ -102,7 +104,8 @@ exits non-zero:
    and every tick's UpdateStats (sweeps included) bit-equal, one relax
    launch a tick, every defined voxel's d2 equal to |v - closest|^2 with
    its closest occupied, and d2 never below the exact EDT where that is
-   below t^2 (phase 2's, globally); the relax kernel on the tick with the
+   below t^2 (phase 2's, globally), counted over the grid and, windowed,
+   inside the last update window too; the relax kernel on the tick with the
    most sweeps and on the last, timed host-paced and on the card alone
    per call and per sweep beside its bound and the plain loop; one more
    tick's CUDA launches and busy time; then ``FiestaPipeline`` in
@@ -116,8 +119,27 @@ exits non-zero:
    states, anchor, counts and tiles bit-equal; a checkpoint saved on the
    card loads back bit-equal with its anchor; ms per recenter with its
    drain, strip transfers and re-derive;
-12. a JSON line of per-kernel numbers (with the launches, device times,
-   carve steps and window offsets above, and phases 8 to 11), the
+12. the app: ``fiesta_tpu_torch.run.main`` in this process at
+   ``--preset cow_and_lady`` on 30 synthetic frames, an update every
+   third, with ``--checkpoint-every 3``, ``--viz-dir``,
+   ``--ground-truth-check`` and ``--mpc``, its replay loop under sync
+   debug mode "error" (no ``process()`` or ``update()`` waits for the
+   device): the stream's kernels launched, the oracle's count_under 0, a
+   finite MPC cost; ms per frame (its steady-state line), per ``update()``
+   (its timing table), the loop's seconds with those of its
+   ``process()``, ``update()`` and periodic checkpoint saves apart (a save
+   reads the map back, so it waits for the device), and the wall time.  Then the same run on the plain
+   versions, and the same frames replayed from an ``.npz`` and from a ROS
+   bag with the preset's topics (an update a frame): checkpoints
+   bit-equal kernels == plain and npz == bag; and once with
+   ``--esdf-mode incremental``, the relax kernel launched;
+13. the soak: ``soak_torch.py``'s drill at cow scale (150 frames, 1.25
+   orbits of 6 m): a reference leg, a victim leg SIGKILLed mid-flight and
+   a leg resumed from its last checkpoint + archive pair, the C20 oracle
+   along the way; at least two scrolls and a restore, and the resumed map
+   bit-equal to the reference's;
+14. a JSON line of per-kernel numbers (with the launches, device times,
+   carve steps and window offsets above, and phases 8 to 13), the
    nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
 
 The script needs a CUDA card and the rest of the repository; without
@@ -127,7 +149,10 @@ either it exits non-zero and prints no result.
 import collections
 import contextlib
 import dataclasses
+import io
 import json
+import pathlib
+import re
 import statistics
 import subprocess
 import sys
@@ -139,10 +164,12 @@ import torch
 
 import fiesta_tpu_torch as ft
 from fiesta_tpu_torch import checkpoint, kernels, pipeline
-from fiesta_tpu_torch.io import replay
+from fiesta_tpu_torch import run as fiesta_run
+from fiesta_tpu_torch.io import replay, rosbag
 from fiesta_tpu_torch.ops import edt, esdf, fusion, query, raycast, sort
 from fiesta_tpu_torch.planning import mpc
 from fiesta_tpu_torch.scrolling import ScrollingFiestaPipeline
+from fiesta_tpu_torch.timing import Timing
 
 H, W = 192, 256          # scan size of the cow_and_lady bench (bench.py)
 TICKS = 5                # timed ticks of 3 scans each
@@ -172,6 +199,12 @@ WORLD_FRAMES = 24        # phase 11: one orbit of WORLD_RADIUS in 0.8 s
 WORLD_PERIOD = 0.8
 WORLD_RADIUS = 8.0       # m: past the cow grid's central box (2.5 m)
 WORLD_SIZE = 60.0        # m: the world the orbit's boxes fill (grid 20 m)
+APP_FRAMES = 30          # phase 12: run.py's synthetic frames (>= 20 for its
+                         # steady-state line), an update every third
+SOAK_FRAMES = 150        # phase 13: 1.25 orbits of 6 m at cow scale
+SOAK_CHECK_EVERY = 75    # C20 oracle interval (updates; one a frame)
+SOAK_CK_EVERY = 25       # checkpoint + archive interval (updates)
+SOAK_TIMEOUT_S = 480
 # H100 SXM published peaks (NVIDIA data sheet and Hopper white paper)
 HBM_BYTES_PER_S = 3.35e12
 # 67 TFLOP/s of non-tensor f32 counts an FMA as two operations; the kernels
@@ -988,12 +1021,14 @@ def recorded_relax():
         kernels.relax_to_fixpoint = wrapped
 
 
-def incremental_invariants(cfg, state, exact_d2, t):
+def incremental_invariants(cfg, state, exact_d2, t, window=None):
     """FIESTA's consistency on an incremental map: every defined voxel's
     d2 is |v - closest|^2 and its closest is occupied, and where the exact
     d2 is below t^2 the map's d2 is at least that (the fixpoint never
     undercuts the exact EDT; the 24-stencil BFS overestimates).  Returns
-    counts."""
+    counts over the grid and, given ``window`` (the last update window's
+    [X,Y,Z] mask; voxels outside it stay undefined by design), the same
+    counts inside it."""
     c = state.closest.to(torch.int32)
     defined = c[0] >= 0
     assert torch.equal(defined, state.d2 < ft.grid.INF_D2), \
@@ -1012,9 +1047,19 @@ def incremental_invariants(cfg, state, exact_d2, t):
     near = exact_d2 < t * t
     assert bool((state.d2[near] >= exact_d2[near]).all()), \
         "the incremental d2 undercuts the exact EDT"
-    return dict(defined=int(defined.sum()), near=int(near.sum()),
-                over_exact=int((state.d2[near] > exact_d2[near]).sum()),
-                occupied=int(occ.sum()))
+    out = dict(defined=int(defined.sum()), near=int(near.sum()),
+               over_exact=int((state.d2[near] > exact_d2[near]).sum()),
+               occupied=int(occ.sum()))
+    if window is not None:
+        near_in = near & window
+        assert bool((state.d2[near_in] >= exact_d2[near_in]).all()), \
+            "the incremental d2 undercuts the exact EDT in the window"
+        out["in_window"] = dict(
+            voxels=int(window.sum()), defined=int((defined & window).sum()),
+            near=int(near_in.sum()),
+            over_exact=int((state.d2[near_in] > exact_d2[near_in]).sum()),
+            near_undefined=int((near_in & ~defined).sum()))
+    return out
 
 
 def relax_row(calls, nvox):
@@ -1258,7 +1303,9 @@ def incremental_path(cfg, batches, k_state, frames, dev, card, rows,
             assert torch.equal(i_state.logodds, k_state.logodds), \
                 "the incremental stream's log-odds differ from phase 2's"
             exact = k_state.d2
-        inv = incremental_invariants(c, i_state, exact, t_total)
+        wmask = (ft.grid.window_mask(c, *ft.local_window(c, batches[3][-1]))
+                 if use_window else None)
+        inv = incremental_invariants(c, i_state, exact, t_total, wmask)
         tick = incremental_tick_launches(c, i_state,
                                          tuple(b[-1] for b in batches),
                                          use_window)
@@ -1347,6 +1394,221 @@ def unbounded_world(cfg, h, w, dev, card, launches):
             f"{ {k: round(v, 3) for k, v in parts.items()} } ms; launches "
             f"{world[mode]['launches']}; on {card}")
     return world
+
+
+@contextlib.contextmanager
+def no_device_wait():
+    """Run every ``FiestaPipeline.process()`` and ``update()`` under
+    PyTorch's sync debug mode "error", so that one that waits for the
+    device raises; restored afterwards."""
+    cls = ft.FiestaPipeline
+    saved = cls.process, cls.update
+
+    def guarded(fn):
+        def call(*args, **kw):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return fn(*args, **kw)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        return call
+
+    cls.process, cls.update = guarded(saved[0]), guarded(saved[1])
+    try:
+        yield
+    finally:
+        cls.process, cls.update = saved
+
+
+@contextlib.contextmanager
+def timed(owner, name, into):
+    """Append the host seconds of every ``owner.<name>(...)`` call to the
+    list ``into``; restored afterwards."""
+    fn = getattr(owner, name)
+
+    def call(*args, **kw):
+        t0 = time.perf_counter()
+        try:
+            return fn(*args, **kw)
+        finally:
+            into.append(time.perf_counter() - t0)
+
+    setattr(owner, name, call)
+    try:
+        yield into
+    finally:
+        setattr(owner, name, fn)
+
+
+def run_app(argv):
+    """``fiesta_tpu_torch.run.main(argv)`` in this process with the
+    timing registry reset; returns (its stderr, wall s)."""
+    Timing.reset()
+    err = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stderr(err):
+        rc = fiesta_run.main(argv)
+    wall = time.perf_counter() - t0
+    assert rc == 0, err.getvalue()[-2000:]
+    return err.getvalue(), wall
+
+
+def same_checkpoint(a, b, what):
+    """Two checkpoints (state, config, anchor) equal bit for bit."""
+    with np.load(a) as x, np.load(b) as y:
+        assert sorted(x.files) == sorted(y.files), what
+        for k in x.files:
+            assert x[k].dtype == y[k].dtype and \
+                x[k].tobytes() == y[k].tobytes(), f"{what}: {k} differs"
+
+
+def app_path(card, launches):
+    """Phase 12: the app (``python -m fiesta_tpu_torch.run``) in this
+    process at cow_and_lady: the kernel run with periodic checkpoints, the
+    viz artifacts, the ground-truth oracle and an MPC solve, its
+    ``process()`` and ``update()`` under sync debug mode "error", launch
+    counts zeroed just before and read just after, the host seconds of
+    its ``process()``, ``update()`` and checkpoint saves apart; the same
+    frames on the plain versions, then replayed from an ``.npz`` and from
+    a ROS bag with the preset's topics, and once in incremental mode.
+    Checkpoints bit-equal kernels == plain and npz == bag.  Adds the
+    launches to ``launches``; returns a summary."""
+    base = ["--preset", "cow_and_lady", "--platform", "cuda",
+            "--update-every", "3"]
+    out = {}
+    host = {"process": [], "update": [], "save": []}
+    with tempfile.TemporaryDirectory() as tmp:
+        synth = base + ["--frames", str(APP_FRAMES)]
+        kernels.reset_launch_counts()
+        with no_device_wait(), \
+                timed(ft.FiestaPipeline, "process", host["process"]), \
+                timed(ft.FiestaPipeline, "update", host["update"]), \
+                timed(checkpoint, "save", host["save"]):
+            err, wall = run_app(synth + [
+                "--checkpoint", f"{tmp}/k.npz", "--checkpoint-every", "3",
+                "--viz-dir", f"{tmp}/viz", "--ground-truth-check", "--mpc"])
+        app_launches = read_launches(STREAM_KERNELS)
+        check_launched(app_launches, "the app")
+        launches.update(app_launches)
+        update_ms = Timing.get_mean_seconds("UpdateESDF") * 1e3
+        steady = re.search(r"steady-state: (\S+) ms/frame", err)
+        report = json.loads(re.search(r"^\{\n.*?^\}$", err,
+                                      re.S | re.M).group(0))
+        cost = float(re.search(r"MPC: \d+ rollouts, cost (\S+),",
+                               err).group(1))
+        assert report["count_under"] == 0, report
+        assert np.isfinite(cost), cost
+        for name in ("slice.npz", "occ_pc.npz", "slice_00010.npz"):
+            assert (pathlib.Path(tmp) / "viz" / name).exists(), name
+        processed = re.search(r"^processed .* in (\S+)s \(.*$", err, re.M)
+        loop_s = float(processed.group(1))
+        # the periodic saves run in the loop (each reads the map back from
+        # the card); the last save is the final one, after the loop
+        saves = host["save"][:-1]
+        out["kernels"] = dict(
+            wall_s=wall, steady_ms_per_frame=float(steady.group(1)),
+            processed=processed.group(0), loop_s=loop_s,
+            process_s=sum(host["process"]), update_s=sum(host["update"]),
+            periodic_save_s=saves, update_ms=update_ms,
+            launches=app_launches,
+            rms_error=report["rms_error"], count_under=report["count_under"],
+            count_over=report["count_over"], num_known=report["num_known"],
+            mpc_cost=cost)
+        log(f"app (kernels): {processed.group(0)}; steady state "
+            f"{out['kernels']['steady_ms_per_frame']} ms/frame (median "
+            f"host seconds a frame over the replay's 2nd half, frames with "
+            f"a checkpoint save among them); the loop "
+            f"{loop_s:.2f} s: process() {sum(host['process']):.3f} s and "
+            f"update() {sum(host['update']):.3f} s over "
+            f"{len(host['process'])} / {len(host['update'])} calls (host, "
+            f"none waiting for the device), periodic checkpoint saves "
+            f"{' + '.join(f'{x:.3f}' for x in saves)} s (each waits for "
+            f"the device); {update_ms:.3f} "
+            f"ms per update() (timing table, host enqueue), wall "
+            f"{wall:.2f} s; oracle rms_error {report['rms_error']:.6f}, "
+            f"count_under {report['count_under']}, count_over "
+            f"{report['count_over']} of {report['num_known']}; MPC cost "
+            f"{cost:.2f}; launches {app_launches}; on {card}")
+
+        with plain_versions():
+            _, p_wall = run_app(synth + ["--checkpoint", f"{tmp}/p.npz"])
+        same_checkpoint(f"{tmp}/k.npz", f"{tmp}/p.npz", "app kernels/plain")
+        out["plain_wall_s"] = p_wall
+        log(f"app checkpoint bit-equal to the plain run's ({p_wall:.2f} s "
+            "plain)")
+
+        cfg, h, w = fiesta_run._preset_cfg("cow_and_lady")
+        _, seq = replay.make_sequence(cfg, n_frames=APP_FRAMES, n_boxes=12,
+                                      seed=0, height=h, width=w)
+        np.savez(f"{tmp}/seq.npz", t=np.asarray([t for t, _, _ in seq]),
+                 pos=np.stack([p for _, (p, _), _ in seq]),
+                 quat=np.stack([q for _, (_, q), _ in seq]),
+                 clouds=np.stack([c for _, _, c in seq]))
+        sensor, pose = fiesta_run.PRESET_TOPICS["cow_and_lady"]
+        rosbag.frames_to_bag(f"{tmp}/seq.bag", seq, kind="cloud",
+                             sensor_topic=sensor, pose_topic=pose)
+        # an update every frame: the npz replay integrates its last frame
+        # after the loop, the bag replay at its flush, so with an update
+        # every third frame the two group the last tick alike only when
+        # the frame count is no multiple of 3 (run.py, as fiesta_tpu's)
+        every = base[:-2] + ["--update-every", "1", "--sensor-topic",
+                             sensor, "--pose-topic", pose]
+        with no_device_wait():
+            _, r_wall = run_app(every + ["--replay", f"{tmp}/seq.npz",
+                                         "--checkpoint", f"{tmp}/r.npz"])
+            _, b_wall = run_app(every + ["--bag", f"{tmp}/seq.bag",
+                                         "--checkpoint", f"{tmp}/b.npz"])
+        same_checkpoint(f"{tmp}/r.npz", f"{tmp}/b.npz", "app npz/bag")
+        out["replay_wall_s"], out["bag_wall_s"] = r_wall, b_wall
+        log(f"app --replay and --bag checkpoints bit-equal ({r_wall:.2f} / "
+            f"{b_wall:.2f} s, topics {sensor} {pose})")
+
+        kernels.reset_launch_counts()
+        with no_device_wait():
+            i_err, i_wall = run_app(synth + ["--esdf-mode", "incremental"])
+        i_launches = read_launches(INCR_KERNELS)
+        check_launched(i_launches, "the incremental app")
+        launches.update(i_launches)
+        out["incremental"] = dict(
+            wall_s=i_wall, launches=i_launches,
+            steady_ms_per_frame=float(re.search(
+                r"steady-state: (\S+) ms/frame", i_err).group(1)))
+        log(f"app --esdf-mode incremental: {out['incremental']}; on {card}")
+    return out
+
+
+def soak_path(card):
+    """Phase 13: ``soak_torch.py``'s drill at cow scale (ref, victim
+    SIGKILLed mid-flight, resume from its last checkpoint + archive pair)
+    in a subprocess: at least two scrolls and a restore, the resumed map
+    bit-equal to the reference's.  Returns the drill's summary."""
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, str(pathlib.Path(__file__).with_name(
+                "soak_torch.py")), "--scale", "cow", "--platform", "cuda",
+             "--frames", str(SOAK_FRAMES), "--check-every",
+             str(SOAK_CHECK_EVERY), "--ck-every", str(SOAK_CK_EVERY),
+             "--workdir", tmp],
+            capture_output=True, text=True, timeout=SOAK_TIMEOUT_S)
+        wall = time.perf_counter() - t0
+    for line in proc.stderr.splitlines():
+        if line.startswith(("===", "[")):
+            log(f"  soak {line}")
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    summary = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert summary["bitexact_after_resume"], summary["mismatched_fields"]
+    ref = summary["ref"]
+    assert ref["scrolls"] >= 2 and ref["restores"] >= 1, ref
+    summary["drill_wall_s"] = wall
+    log(f"soak drill: {SOAK_FRAMES} frames at {summary['scale']} scale in "
+        f"{wall:.1f} s; ref "
+        f"{ref['ms_per_frame']:.2f} ms/frame, {ref['scrolls']} scrolls, "
+        f"{ref['restores']} restores, {ref['c20_checks']} C20 checks; "
+        f"victim killed, resumed from frame {summary['resumed_from_frame']}"
+        f"; resumed map bit-equal to the reference's; on {card}")
+    return summary
 
 
 def main():
@@ -1877,6 +2139,14 @@ def run(dev, cfg, h, w, ticks, dcfg, dh, dw, dticks):
     # -- phase 11: the unbounded world -------------------------------------
     world = unbounded_world(cfg, h, w, dev, card, launches)
 
+    log(f"[{time.perf_counter() - t_run:.0f} s] phase 12")
+    # -- phase 12: the app at cow_and_lady --------------------------------
+    app = app_path(card, launches)
+
+    log(f"[{time.perf_counter() - t_run:.0f} s] phase 13")
+    # -- phase 13: the soak drill at cow scale ------------------------------
+    soak = soak_path(card)
+
     for r in rows:
         if r["name"] not in EARLIER_LAUNCHES:
             continue
@@ -1941,7 +2211,7 @@ def run(dev, cfg, h, w, ticks, dcfg, dh, dw, dticks):
                       "closest_binary_tiles": binary["tiles"],
                       "two_level": hier, "planner": planner,
                       "incremental": incr, "relax": relax,
-                      "unbounded_world": world}))
+                      "unbounded_world": world, "app": app, "soak": soak}))
     log(f"[{time.perf_counter() - t_run:.0f} s] phases done")
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -19,7 +19,8 @@ lengths below, at and above one shared-memory tile (up to 2^20 + 5
 pairs, where the merge
 levels split, and the cow splat's 147 456) with duplicate and sentinel
 keys, equal, sorted and reverse-sorted keys, the splat at the cow box
-size, and windows of the drain that cut, cover or miss the grid.
+size, and windows of the drain that cut, cover or miss the grid.  The
+app's prefetch worker uploads on the stream its replay loop reads.
 """
 
 import dataclasses
@@ -1034,3 +1035,30 @@ def test_scrolling_engine_kernels_equal_plain(dev, monkeypatch, mode):
         for name in ("logodds", "seen"):
             np.testing.assert_array_equal(tile[name],
                                           p.archive.tiles[key][name])
+
+
+def test_app_prefetch_copies_on_the_loop_stream(dev, tmp_path, monkeypatch):
+    """``run.main``'s prefetch worker enqueues its uploads on the stream
+    the replay loop reads them on: run under a side stream, every upload
+    goes there and the final map equals the default stream's run."""
+    from fiesta_tpu_torch import checkpoint, run
+
+    streams = []
+    preload = ft.FiestaPipeline.preload_cloud
+
+    def recorded(self, scan):
+        streams.append(torch.cuda.current_stream(dev))
+        return preload(self, scan)
+
+    monkeypatch.setattr(ft.FiestaPipeline, "preload_cloud", recorded)
+    argv = ["--preset", "small", "--frames", "6"]
+    run.main(argv + ["--checkpoint", str(tmp_path / "default.npz")])
+    side = torch.cuda.Stream(dev)
+    streams.clear()
+    with torch.cuda.stream(side):
+        run.main(argv + ["--checkpoint", str(tmp_path / "side.npz")])
+    assert len(streams) == 6 and all(s == side for s in streams)
+    _, a = checkpoint.load(str(tmp_path / "default.npz"), device=dev)
+    _, b = checkpoint.load(str(tmp_path / "side.npz"), device=dev)
+    for f in dataclasses.fields(a):
+        _eq(getattr(a, f.name), getattr(b, f.name))

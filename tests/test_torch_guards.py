@@ -1,7 +1,8 @@
 """fiesta_tpu_torch import and device guards.
 
-The port imports neither JAX nor the JAX package, ``chip_smoke.py`` does
-not either, and the entry points run on CUDA unless asked for the CPU.
+The port imports neither JAX nor the JAX package, ``chip_smoke.py`` and
+``soak_torch.py`` do not either, and the entry points (the app among
+them) run on CUDA unless asked for the CPU.
 """
 
 import ast
@@ -15,7 +16,7 @@ pytest.importorskip("jax")
 torch = pytest.importorskip("torch")
 
 import fiesta_tpu_torch as ft  # noqa: E402
-from fiesta_tpu_torch import checkpoint, grid  # noqa: E402
+from fiesta_tpu_torch import checkpoint, grid, run  # noqa: E402
 from fiesta_tpu_torch.io import replay  # noqa: E402
 from fiesta_tpu_torch.scrolling import ScrollingFiestaPipeline  # noqa: E402
 
@@ -35,7 +36,9 @@ def test_package_import_leaves_jax_out():
             "fiesta_tpu_torch.planning, fiesta_tpu_torch.planning.mpc, "
             "fiesta_tpu_torch.ops.esdf, fiesta_tpu_torch.ops.fusion, "
             "fiesta_tpu_torch.scrolling, fiesta_tpu_torch.archive, "
-            "fiesta_tpu_torch.checkpoint, fiesta_tpu_torch.viz; "
+            "fiesta_tpu_torch.checkpoint, fiesta_tpu_torch.viz, "
+            "fiesta_tpu_torch.run, fiesta_tpu_torch.debug, "
+            "fiesta_tpu_torch.io.rosbag, fiesta_tpu_torch.io.lz4f; "
             "print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'fiesta_tpu')))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -44,7 +47,8 @@ def test_package_import_leaves_jax_out():
     assert out.stdout.strip() == "[]"
 
 
-@pytest.mark.parametrize("path", ["chip_smoke.py", "fiesta_tpu_torch"])
+@pytest.mark.parametrize("path", ["chip_smoke.py", "soak_torch.py",
+                                  "fiesta_tpu_torch"])
 def test_sources_import_no_jax(path):
     files = ([ROOT / path] if path.endswith(".py")
              else sorted((ROOT / path).rglob("*.py")))
@@ -82,3 +86,12 @@ def test_entry_points_default_to_cuda(tmp_path):
     assert ScrollingFiestaPipeline(cfg, device="cpu").state.d2.device.type \
         == "cpu"
     assert checkpoint.load(path, device="cpu")[1].d2.device.type == "cpu"
+
+
+def test_app_refuses_to_run_on_the_cpu_unasked():
+    """Without a card, ``python -m fiesta_tpu_torch.run`` stops unless
+    given ``--platform cpu``; it never falls back to the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default run uses it")
+    with pytest.raises(SystemExit, match="--platform cpu"):
+        run.main(["--preset", "small", "--frames", "2"])
