@@ -19,7 +19,8 @@ after.  Phases, in order; any failure raises and
 exits non-zero:
 
 1. device and build: the card's name and power limit (nvidia-smi), then
-   every kernel built with nvcc from the sources in this checkout (timed);
+   every kernel built with nvcc from the sources in this checkout, with
+   relax.cu's measurement variants beside them (timed);
 2. the stream: ``fused_stream`` with the kernels, launch counts zeroed
    just before and read just after (each of its kernels must have
    launched); then the same ticks through the plain PyTorch versions on
@@ -105,10 +106,17 @@ exits non-zero:
    launch a tick, every defined voxel's d2 equal to |v - closest|^2 with
    its closest occupied, and d2 never below the exact EDT where that is
    below t^2 (phase 2's, globally), counted over the grid and, windowed,
-   inside the last update window too; the relax kernel on the tick with the
-   most sweeps and on the last, timed host-paced and on the card alone
-   per call and per sweep beside its bound and the plain loop; one more
-   tick's CUDA launches and busy time; then ``FiestaPipeline`` in
+   inside the last update window too; the relax kernel, on each stream's
+   tick with the most sweeps and its last, timed host-paced and on the
+   card alone per call and per sweep beside the earlier dense kernel's
+   time, its two bounds (dense, and the frontier's: the dense first sweep
+   and then the candidates of changed neighbours), the frontier's own
+   bit tests and tile moves apart, and the plain loop, with the voxels
+   that changed in each sweep (the plain loop on the card), the tiles the
+   kernel visited and its grid's blocks an SM; its measurement variants
+   (the frontier without the changed-neighbour pull, caps of 80 and 128
+   registers) bit-equal to the plain loop and timed in turns with it;
+   one more tick's CUDA launches and busy time; then ``FiestaPipeline`` in
    incremental mode on phase 5's frames, ``update()`` every third frame
    under sync debug mode "error", kernels then plain;
 11. the unbounded world: ``ScrollingFiestaPipeline`` with a tile archive
@@ -147,6 +155,7 @@ either it exits non-zero and prints no result.
 """
 
 import collections
+import concurrent.futures
 import contextlib
 import dataclasses
 import io
@@ -195,6 +204,19 @@ INCR_KERNELS = ("splat", "carve", "boxadd", "relax")   # the incremental tick
 # checks folded, the neighbour index, the defined test, three differences,
 # three squares and two adds, the compare (the kernel's inner loop)
 RELAX_OPS = 12
+# the relax kernel before its redesign (every sweep dense) on the tick
+# with the most sweeps (18) at cow, host-paced: ms a call and a sweep, on
+# an H100 80GB HBM3 at 700 W (PERF.md, kernel table)
+EARLIER_RELAX_MS = (28.594, 1.589)
+# measurement variants of relax.cu (kernels.build_variants), timed beside
+# it on phase 10's calls: the tile frontier without the changed-neighbour
+# pull, and launch bounds of 3 and 2 blocks an SM (80 and 128 registers)
+# in place of 4 (64)
+RELAX_VARIANTS = {
+    "frontier_alone": ("relax.cu", ("FIESTA_RELAX_PULL_ALL=1",)),
+    "min_blocks_3": ("relax.cu", ("FIESTA_RELAX_MIN_BLOCKS=3",)),
+    "min_blocks_2": ("relax.cu", ("FIESTA_RELAX_MIN_BLOCKS=2",)),
+}
 WORLD_FRAMES = 24        # phase 11: one orbit of WORLD_RADIUS in 0.8 s
 WORLD_PERIOD = 0.8
 WORLD_RADIUS = 8.0       # m: past the cow grid's central box (2.5 m)
@@ -212,7 +234,9 @@ HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12 / 2
 I32_OPS_PER_S = 132 * 64 * 1.98e9      # 64 INT32 lanes/SM x 132 SMs x boost
 SLEEP_CYCLES = 40_000_000   # ~20 ms at the H100's 1.98 GHz boost clock
-MARK_CYCLES = 100_000       # ~50 us: the profiler's first kernel
+MARK_CYCLES = 5_000_000     # ~2.5 ms: each of the profiler's first kernels
+MARKS = 8                   # sleeps that open a trace (the profiler drops
+                            # its first kernel, on some cards two)
 # host-paced ms per call of the splat (three launches), the sort (28
 # launches at 2^18 pairs), the carve (217 launches at cow), the min-plus
 # pass (mean of axes 1 and 2), the EDT binary pass (a thread a column),
@@ -353,36 +377,40 @@ def profiled(fn, calls, attempts=3):
     """Run ``fn`` ``calls`` times under ``torch.profiler``: returns (device
     ms per call by kernel name, launches per call by kernel name, names cut
     at their argument list, and wall ms per call).  The trace drops the
-    first kernel launched in it, so a short device sleep goes first and is
-    left out.  Now and then the profiler returns a trace with no kernel at
-    all: that trace is taken again, up to ``attempts`` times, and raises
-    if none lists a kernel."""
+    first kernels launched in it, so ``MARKS`` device sleeps go first and
+    are left out.  A trace in which no sleep is left, or no other kernel,
+    may have dropped some of ``fn``'s: it is taken again, up to
+    ``attempts`` times, and raises if none lists both."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     for _ in range(attempts):
         torch.cuda.synchronize()
         with torch.profiler.profile(activities=acts) as prof:
-            torch.cuda._sleep(MARK_CYCLES)
+            for _ in range(MARKS):
+                torch.cuda._sleep(MARK_CYCLES)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
-        by_name, count = {}, {}
+        by_name, count, marked = {}, {}, False
         for e in prof.key_averages():
             dt = getattr(e, "device_time_total", None)
             if dt is None:
                 dt = getattr(e, "cuda_time_total", 0.0)
-            if dt and e.device_type == torch.autograd.DeviceType.CUDA and \
-                    "spin_kernel" not in e.key:
-                name = e.key.split("(")[0]
-                by_name[name] = by_name.get(name, 0.0) + dt / 1e3 / calls
-                count[name] = count.get(name, 0) + e.count / calls
-        if by_name:
+            if not dt or e.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            if "spin_kernel" in e.key:
+                marked = True
+                continue
+            name = e.key.split("(")[0]
+            by_name[name] = by_name.get(name, 0.0) + dt / 1e3 / calls
+            count[name] = count.get(name, 0) + e.count / calls
+        if by_name and marked:
             return by_name, count, wall_ms / calls
-    raise RuntimeError(f"torch.profiler listed no kernel in {attempts} "
-                       "traces")
+    raise RuntimeError(f"torch.profiler listed no kernel after its marks in "
+                       f"{attempts} traces")
 
 
 def max_abs_err(got, ref):
@@ -1062,32 +1090,103 @@ def incremental_invariants(cfg, state, exact_d2, t, window=None):
     return out
 
 
-def relax_row(calls, nvox):
+def relax_changed_per_sweep(d2, c, update, source, dirs, max_iters=0,
+                            push_src=None, push_recv=None):
+    """The voxels whose d2 fell in each sweep of the plain loop (on the
+    tensors' device): what a frontier has to visit."""
+    counts = []
+    while True:
+        nd2, c, _ = esdf.relax_once(d2, c, update, source, dirs, push_src,
+                                    push_recv)
+        counts.append(int((nd2 < d2).sum()))
+        d2 = nd2
+        if not counts[-1] or (max_iters and len(counts) >= max_iters):
+            return counts
+
+
+def relax_bounds(nvox, ndirs, sweeps, changed, visited):
+    """The relax kernel's bounds for a call, each the larger of its bytes
+    (d2 and closest read and written once) and its operations: the dense
+    one (every sweep computes every candidate of every voxel) and the
+    frontier one, the work the function needs: the dense first sweep,
+    then each later sweep's candidates of the neighbours that changed in
+    the sweep before.  Beside them, not in them, the frontier design's own
+    extra work: one changed-bit test a direction for each voxel of a tile
+    visited after the first sweep, and those tiles' d2 and closest read
+    and written.  Returns (dense, frontier, extra), each (ms, by)."""
+    io_bytes = nvox * 20
+    dense = bound(io_bytes, RELAX_OPS * ndirs * nvox * sweeps, I32_OPS_PER_S)
+    frontier = bound(io_bytes, RELAX_OPS * ndirs * (
+        nvox + sum(changed[:sweeps - 1])), I32_OPS_PER_S)
+    later = sum(visited[1:]) * int(np.prod(kernels.RELAX_TILE))
+    extra = bound(later * 20, ndirs * later, I32_OPS_PER_S)
+    return dense, frontier, extra
+
+
+def relax_logged(args, kw, lib=None):
+    """One relax kernel call through ``kernels.relax_sweeps``: (d2,
+    closest, sweeps tensor, sweeps, the grid's blocks, tiles visited per
+    sweep)."""
+    d2, c, state = kernels.relax_sweeps(*args, **kw, lib=lib)
+    st = state.cpu().tolist()
+    return d2, c, state[1], st[1], st[2], st[3:3 + st[1]]
+
+
+def relax_row(calls, nvox, variants):
     """The relax kernel at the main path's shapes: on the recorded call
     with the most sweeps and on the last, timed beside the plain loop and
-    the card's bound; one CUDA launch a call."""
+    the bounds, with the voxels that changed in each sweep (the plain loop
+    on the card), the tiles the kernel visited and its cooperative grid's
+    blocks an SM; one CUDA launch a call.  The measurement ``variants``
+    ({name: library}) must equal the plain loop too, and are timed in
+    turns with the package's kernel (forward, then backward)."""
     out = {}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     most = max(calls, key=lambda c: int(c[2]))
     for name, (args, kw, sweeps) in (("most", most), ("last", calls[-1])):
         sweeps = int(sweeps)
         kern = lambda: kernels.relax_to_fixpoint(*args, **kw)  # noqa: E731
         plain = lambda: esdf._relax_to_fixpoint_plain(*args, **kw)  # noqa
-        got, ref = kern(), plain()
+        ref = plain()
+        *got, logged, blocks, visited = relax_logged(args, kw)
         err = max_abs_err(got, ref)
+        changed = relax_changed_per_sweep(*args, **kw)
+        assert logged == len(changed) == len(visited) == sweeps, \
+            (logged, len(changed), len(visited), sweeps)
+        grid = {"package": blocks / sms}
+        fns = {"package": kern}
+        for vname, lib in variants.items():
+            *vgot, vn, vblocks, _ = relax_logged(args, kw, lib)
+            err = max(err, max_abs_err(vgot, ref))
+            assert vn == sweeps, (vname, vn, sweeps)
+            grid[vname] = vblocks / sms
+            fns[vname] = (lambda lib: lambda: kernels.relax_sweeps(
+                *args, **kw, lib=lib))(lib)
+        turns = {v: [] for v in fns}
+        for order in (list(fns), list(fns)[::-1]):
+            for v in order:
+                turns[v].append(time_ms(fns[v], calls=2, windows=3))
         times = kernel_times(kern, calls=2, windows=3)
         by_name, counts, _ = profiled(kern, 2)
         ndirs = len(args[4])
-        # bytes: d2 (4) and closest (6) in and out once; ops: each sweep's
-        # candidates over every direction and voxel
-        b = bound(nvox * 20, RELAX_OPS * ndirs * nvox * sweeps,
-                  I32_OPS_PER_S)
+        ntiles = int(np.prod([-(-n // t) for n, t in zip(
+            args[0].shape, kernels.RELAX_TILE)]))
+        dense, frontier, extra = relax_bounds(nvox, ndirs, sweeps, changed,
+                                              visited)
         out[name] = dict(
             sweeps=sweeps, err=err, ms=times["ms"],
             device_ms=times["device_ms"], host_ms=times["host_ms"],
             ms_per_sweep=times["ms"] / sweeps,
             device_ms_per_sweep=times["device_ms"] / sweeps,
             plain_ms=time_ms(plain, calls=1, windows=1),
-            bound_ms=b[0], bound_by=b[1], bound_ms_per_sweep=b[0] / sweeps,
+            bound_ms=frontier[0], bound_by=frontier[1],
+            bound_ms_per_sweep=frontier[0] / sweeps,
+            dense_bound_ms=dense[0], dense_bound_by=dense[1],
+            dense_bound_ms_per_sweep=dense[0] / sweeps,
+            tile_extra_ms=extra[0], tile_extra_by=extra[1],
+            changed_per_sweep=changed, tiles_per_sweep=visited,
+            tiles=ntiles, tile_share=sum(visited) / (ntiles * sweeps),
+            blocks_per_sm=grid, sms=sms, variant_ms=turns,
             cuda_launches=sum(counts.values()), by_kernel=by_name,
             directions=ndirs)
     return out
@@ -1266,17 +1365,19 @@ def world_path(cfg, frames, dev):
 
 
 def incremental_path(cfg, batches, k_state, frames, dev, card, rows,
-                     launches):
+                     launches, relax_variants):
     """Phase 10: the phase-2 stream in incremental mode, global and in the
     demo preset's window, kernels then plain; the invariants against phase
-    2's exact d2 (``k_state``); the relax kernel's row (appended to
-    ``rows``); the incremental engine under sync debug mode "error".  Adds
-    the launches to ``launches``; returns (summary, relax timings)."""
+    2's exact d2 (``k_state``); the relax kernel's timings on each
+    stream's calls beside ``relax_variants`` ({name: library}) and its row
+    (the global stream's, appended to ``rows``); the incremental engine
+    under sync debug mode "error".  Adds the launches to ``launches``;
+    returns (summary, relax timings by stream)."""
     icfg = dataclasses.replace(cfg, esdf_mode="incremental").validate()
     wcfg = dataclasses.replace(icfg, global_update=False,
                                radius=ft.DEMO_ONBOARD.radius).validate()
     t_total = edt.trunc_vox_for(cfg.resolution, cfg.trunc_dist)
-    incr = {}
+    incr, relax_calls = {}, {}
     for name, c in (("global", icfg), ("window", wcfg)):
         use_window = not c.global_update
         kernels.reset_launch_counts()
@@ -1322,29 +1423,51 @@ def incremental_path(cfg, batches, k_state, frames, dev, card, rows,
             f"{tick['cuda_launches']:g} CUDA launches, busy "
             f"{tick['busy_ms']:.3f} ms (relax {tick['relax_device_ms']:.3f})"
             f"; on {card}")
-        if name == "global":
-            relax = relax_row(calls, i_state.d2.numel())
-    most = relax["most"]
+        relax_calls[name] = calls
+    # after both streams' launch counts were read
+    relax = {name: relax_row(calls, i_state.d2.numel(), relax_variants)
+             for name, calls in relax_calls.items()}
+    most = relax["global"]["most"]
     rows.append(dict(
         name="relax", source="fiesta_tpu_torch/kernels/relax.cu",
         replaces="fiesta_tpu/ops/esdf.py:187 (relax_to_fixpoint's "
                  "lax.while_loop; port-only: XLA fusion in fiesta_tpu)",
-        err=max(r["err"] for r in relax.values()), ms=most["ms"],
+        err=max(r["err"] for rs in relax.values() for r in rs.values()),
+        ms=most["ms"],
         device_ms=most["device_ms"], host_ms=most["host_ms"],
         plain_ms=most["plain_ms"], library_ms=None,
         bound=(most["bound_ms"], most["bound_by"]),
+        dense_bound=(most["dense_bound_ms"], most["dense_bound_by"]),
         cuda_launches=most["cuda_launches"], by_kernel=most["by_kernel"]))
-    for which, r in relax.items():
-        label = {"most": "the tick with the most sweeps",
-                 "last": "the last tick"}[which]
-        log(f"relax ({label}: {r['sweeps']} sweeps, "
-            f"{r['directions']} directions): {r['ms']:.3f} ms host-paced, "
-            f"{r['device_ms']:.3f} on the card alone "
-            f"({r['device_ms_per_sweep']:.4f} ms a sweep; bound "
-            f"{r['bound_ms']:.3f} ms by {r['bound_by']}, "
-            f"{r['bound_ms_per_sweep']:.4f} a sweep); plain loop "
-            f"{r['plain_ms']:.1f} ms; {r['cuda_launches']:g} CUDA launches "
-            f"a call; on {card}")
+    for stream, rs in relax.items():
+        for which, r in rs.items():
+            label = {"most": "the tick with the most sweeps",
+                     "last": "the last tick"}[which]
+            earlier = (f" (before the redesign, every sweep dense: "
+                       f"{EARLIER_RELAX_MS[0]} ms a call of 18 sweeps, "
+                       f"{EARLIER_RELAX_MS[1]} a sweep, host-paced, in an "
+                       f"earlier call)"
+                       if (stream, which) == ("global", "most") else "")
+            log(f"relax ({stream}, {label}: {r['sweeps']} sweeps, "
+                f"{r['directions']} directions): {r['ms']:.3f} ms "
+                f"host-paced, {r['device_ms']:.3f} on the card alone "
+                f"({r['ms_per_sweep']:.4f} / {r['device_ms_per_sweep']:.4f}"
+                f" ms a sweep){earlier}; frontier bound {r['bound_ms']:.3f} "
+                f"ms by {r['bound_by']} ({r['bound_ms_per_sweep']:.4f} a "
+                f"sweep), dense bound {r['dense_bound_ms']:.3f} ms by "
+                f"{r['dense_bound_by']} ({r['dense_bound_ms_per_sweep']:.4f}"
+                f" a sweep); apart from the bounds, the frontier's own "
+                f"bit tests and tile moves {r['tile_extra_ms']:.3f} ms by "
+                f"{r['tile_extra_by']}; plain loop {r['plain_ms']:.1f} ms; "
+                f"{r['cuda_launches']:g} CUDA launches a call; voxels "
+                f"changed per sweep (plain loop) {r['changed_per_sweep']}; "
+                f"tiles visited per sweep (kernel, of {r['tiles']}) "
+                f"{r['tiles_per_sweep']}, {100 * r['tile_share']:.1f} % of "
+                f"the dense work; on {card}")
+            log(f"relax ({stream}, {label}): host-paced ms a call in turns "
+                f"(forward, backward) {r['variant_ms']}; the cooperative "
+                f"grid's blocks an SM ({r['sms']} SMs) {r['blocks_per_sm']}"
+                f"; every variant bit-equal to the plain loop; on {card}")
     kernels.reset_launch_counts()
     eng_frames = frames[:ENGINE_FRAMES]
     ie_pipe, ie_out, ie_frame_ms, ie_update_ms = run_engine(
@@ -1631,9 +1754,13 @@ def run(dev, cfg, h, w, ticks, dcfg, dh, dw, dticks):
     log(f"card: {card} ({torch.cuda.get_device_name(0)}, "
         f"torch {torch.__version__}, cuda {torch.version.cuda})")
     t0 = time.perf_counter()
-    kernels.build()
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        variants = pool.submit(kernels.build_variants, RELAX_VARIANTS)
+        kernels.build()
+        relax_variants = variants.result()
     log(f"kernels built in {time.perf_counter() - t0:.1f} s "
-        f"({', '.join(kernels.SOURCES)})")
+        f"({', '.join(kernels.SOURCES)}; relax.cu's measurement variants "
+        f"{', '.join(RELAX_VARIANTS)})")
     for src, text in sorted(kernels.BUILD_LOG.items()):
         for line in text.splitlines():
             if "registers" in line or "smem" in line:
@@ -2133,7 +2260,7 @@ def run(dev, cfg, h, w, ticks, dcfg, dh, dw, dticks):
     log(f"[{time.perf_counter() - t_run:.0f} s] phase 10")
     # -- phase 10: the incremental cow stream ------------------------------
     incr, relax = incremental_path(cfg, batches, k_state, frames, dev, card,
-                                   rows, launches)
+                                   rows, launches, relax_variants)
 
     log(f"[{time.perf_counter() - t_run:.0f} s] phase 11")
     # -- phase 11: the unbounded world -------------------------------------
@@ -2174,7 +2301,10 @@ def run(dev, cfg, h, w, ticks, dcfg, dh, dw, dticks):
             "replaces": r["replaces"], "launches": calls,
             "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
-            "library_ms": r["library_ms"]})
+            "library_ms": r["library_ms"],
+            **({"dense_bound_ms": r["dense_bound"][0],
+                "dense_bound_by": r["dense_bound"][1]}
+               if "dense_bound" in r else {})})
     print(json.dumps({"kernels": out,
                       "device_ms": {r["name"]: r["device_ms"] for r in rows},
                       "host_ms": {r["name"]: r["host_ms"] for r in rows

@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
+import itertools
 import os
 import shutil
 import subprocess
@@ -68,7 +69,8 @@ _SIGNATURES = {
                       [_P, _P, _L, _I, _L, _I, _I, _I, _P]),
     "sort": ("sort.cu", "fiesta_sort_pairs", [_P, _P, _L, _P, _P, _L, _P]),
     "relax": ("relax.cu", "fiesta_relax",
-              [_P] * 10 + [_I] * 3 + [_P] + [_I] * 2 + [_P]),
+              [_P] * 10 + [_I] * 3 + [_P, _I, _I, _P, _I, _I, _I, _P, _P,
+                                       _P]),
 }
 SOURCES = tuple(sorted({s for s, _, _ in _SIGNATURES.values()}))
 
@@ -92,37 +94,37 @@ def _nvcc() -> str:
     return path
 
 
-def build() -> dict:
-    """Compile (where needed) and load every kernel library.  Returns
-    {source: ctypes.CDLL}; raises with nvcc's output if a build fails."""
-    todo = [s for s in SOURCES if s not in _libs]
-    if not todo:
-        return _libs
+def _compile(jobs: dict) -> dict:
+    """Compile {key: (source, extra nvcc flags)} where needed, one nvcc
+    process each, all started together, and load them.  Returns {key:
+    ctypes.CDLL}; raises with nvcc's output if a build fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     headers = b"".join(h.read_bytes() for h in sorted(_HERE.glob("*.cuh")))
     targets, procs = {}, {}
-    for src in todo:
-        key = (_HERE / src).read_bytes() + headers + " ".join(
-            NVCC_FLAGS).encode()
-        so = BUILD_DIR / f"{Path(src).stem}-{hashlib.sha256(key).hexdigest()[:16]}.so"
-        targets[src] = so
+    for key, (src, extra) in jobs.items():
+        flags = (*NVCC_FLAGS, *extra)
+        digest = hashlib.sha256((_HERE / src).read_bytes() + headers +
+                                " ".join(flags).encode()).hexdigest()[:16]
+        so = BUILD_DIR / f"{Path(src).stem}-{digest}.so"
+        targets[key] = so
         if not so.exists():
             tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-            procs[src] = (tmp, subprocess.Popen(
-                [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_HERE / src)],
+            procs[key] = (tmp, subprocess.Popen(
+                [_nvcc(), *flags, "-o", str(tmp), str(_HERE / src)],
                 stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
     errors = []
-    for src, (tmp, proc) in procs.items():
+    for key, (tmp, proc) in procs.items():
         out, err = proc.communicate()
-        BUILD_LOG[src] = out + err
+        BUILD_LOG[key] = out + err
         if proc.returncode:
-            errors.append(f"{src}: nvcc exited {proc.returncode}\n{err}")
+            errors.append(f"{key}: nvcc exited {proc.returncode}\n{err}")
         else:
-            os.replace(tmp, targets[src])
+            os.replace(tmp, targets[key])
     if errors:
         raise RuntimeError("kernel build failed:\n" + "\n".join(errors))
-    for src in todo:
-        lib = ctypes.CDLL(str(targets[src]))
+    libs = {}
+    for key, (src, _) in jobs.items():
+        lib = ctypes.CDLL(str(targets[key]))
         lib.fiesta_cuda_error_string.argtypes = [_I]
         lib.fiesta_cuda_error_string.restype = ctypes.c_char_p
         if src == "carve.cu":
@@ -135,13 +137,30 @@ def build() -> dict:
             if s == src:
                 getattr(lib, sym).argtypes = argtypes
                 getattr(lib, sym).restype = _I
-        _libs[src] = lib
+        libs[key] = lib
+    return libs
+
+
+def build() -> dict:
+    """Compile (where needed) and load every kernel library.  Returns
+    {source: ctypes.CDLL}; raises with nvcc's output if a build fails."""
+    _libs.update(_compile({s: (s, ()) for s in SOURCES if s not in _libs}))
     return _libs
 
 
-def _launch(name: str, device: torch.device, *args) -> None:
+def build_variants(variants: dict) -> dict:
+    """Variants of kernel sources for measurement, beside the package's
+    own libraries: {name: (source, macros)} with macros ``NAME=VALUE``
+    strings passed as ``-D``.  Returns {name: ctypes.CDLL}; ``BUILD_LOG``
+    keeps each one's compiler output under its name.  The wrappers take
+    one through their ``lib`` argument; no package path uses them."""
+    return _compile({name: (src, tuple(f"-D{m}" for m in macros))
+                     for name, (src, macros) in variants.items()})
+
+
+def _launch(name: str, device: torch.device, *args, lib=None) -> None:
     src, sym, _ = _SIGNATURES[name]
-    lib = _libs.get(src) or build()[src]
+    lib = lib or _libs.get(src) or build()[src]
     fn = getattr(lib, sym)
     # PyTorch's current stream on ``device``, as a raw handle; the launch
     # goes to the calling thread's current device, so switch only when the
@@ -449,6 +468,28 @@ def sort_pairs(keys: torch.Tensor, vals: torch.Tensor):
 
 #: directions a ``relax_to_fixpoint`` call takes, at most (``relax.cu``)
 RELAX_MAX_DIRS = 128
+#: the relax kernel's tile of voxels along (x, y, z): its unit of activity
+#: (``relax.cu``: 256 threads, 4 voxels each, z the contiguous axis)
+RELAX_TILE = (8, 8, 16)
+#: tile offsets a call's marking table holds, at most (``relax.cu``)
+RELAX_MAX_TILE_OFFSETS = 320
+#: sweeps of a call whose visited tiles ``relax_sweeps``' state records
+RELAX_LOG_SWEEPS = 1024
+
+
+def relax_tile_offsets(dirs, tile=RELAX_TILE):
+    """The tiles that a tile with a changed voxel activates for the next
+    sweep, as offsets (dx, dy, dz) in tiles: for every direction d and
+    every voxel u of a tile of shape ``tile``, the tile of the receiver
+    u - d (which pulls from u), and the tile itself (visited in the next
+    sweep, it brings its other buffer up to date).  Built from the call's
+    own direction table; sorted."""
+    offs = {(0, 0, 0)}
+    for d in dirs:
+        offs.update(itertools.product(*(
+            sorted({(m - int(o)) // t for m in range(t)})
+            for o, t in zip(d, tile))))
+    return tuple(sorted(offs))
 
 
 def _relax_mask(mask, d2: torch.Tensor, what: str):
@@ -476,6 +517,24 @@ def relax_to_fixpoint(d2: torch.Tensor, closest: torch.Tensor, update_mask,
     masks are bool or u8 [X,Y,Z] or None, the push masks both or neither.
     Replaces ``esdf.relax_to_fixpoint``'s ``lax.while_loop`` (no Pallas
     kernel)."""
+    d2_out, c_out, state = relax_sweeps(
+        d2, closest, update_mask, source_mask, dirs, max_iters,
+        push_src_mask, push_recv_mask)
+    return d2_out, c_out, state[1]
+
+
+def relax_sweeps(d2: torch.Tensor, closest: torch.Tensor, update_mask,
+                 source_mask, dirs, max_iters: int = 0, push_src_mask=None,
+                 push_recv_mask=None, lib=None):
+    """``relax_to_fixpoint``'s launch, returning (d2, closest, state):
+    ``state`` is the kernel's i32 scratch on the card, [3 +
+    ``RELAX_LOG_SWEEPS``], holding the sweep count at [1], the
+    cooperative grid's blocks at [2] and the tiles visited in sweep k at
+    [3 + k].  After the first, dense sweep the kernel visits only the
+    tiles of ``RELAX_TILE`` voxels that ``relax_tile_offsets`` marks from
+    the tiles that changed, and pulls only from neighbours that changed.
+    ``lib``: a variant of ``relax.cu`` from ``build_variants`` (None: the
+    package's)."""
     from ..ops.esdf import consideration_order
 
     _check(d2, torch.int32, "relax d2")
@@ -502,18 +561,37 @@ def relax_to_fixpoint(d2: torch.Tensor, closest: torch.Tensor, update_mask,
         raise ValueError("relax: an offset does not fit the kernel's int16 "
                          "direction table")
     table = table.astype(np.int16)
+    toffs = np.ascontiguousarray(
+        np.array(relax_tile_offsets(order), np.int16).T)
+    if toffs.shape[1] > RELAX_MAX_TILE_OFFSETS:
+        raise ValueError(f"relax: {toffs.shape[1]} tile offsets exceed the "
+                         f"kernel's {RELAX_MAX_TILE_OFFSETS}")
     if not 0 <= int(max_iters) < 1 << 31:
         raise ValueError(f"relax: max_iters {max_iters} out of range")
     masks = [_relax_mask(m, d2, what) for m, what in (
         (update_mask, "update_mask"), (source_mask, "source_mask"),
         (push_src_mask, "push_src_mask"), (push_recv_mask, "push_recv_mask"))]
     d2_out, d2_scr = torch.empty_like(d2), torch.empty_like(d2)
-    c_out, c_scr = torch.empty_like(closest), torch.empty_like(closest)
-    state = torch.empty(2, dtype=torch.int32, device=d2.device)
+    c_out = torch.empty_like(closest)
+    # two buffers of packed closest words (8 bytes a voxel); state: the
+    # changed stamp, the sweep count, the grid's blocks, tiles visited per
+    # sweep; aux per
+    # tile: the activity stamp, the changed stamp of each sweep parity, and
+    # each parity's changed bits (a u16 per z row); three lists of tiles
+    # to visit, with their counts and cursors
+    words = torch.empty(2 * d2.numel(), dtype=torch.int64, device=d2.device)
+    state = torch.empty(3 + RELAX_LOG_SWEEPS, dtype=torch.int32,
+                        device=d2.device)
+    ntiles = int(np.prod([-(-n // t)
+                          for n, t in zip(d2.shape, RELAX_TILE)]))
+    rows = RELAX_TILE[0] * RELAX_TILE[1]
+    aux = torch.empty(ntiles * (6 + rows) + 6, dtype=torch.int32,
+                      device=d2.device)
     _launch("relax", d2.device, d2.data_ptr(), closest.data_ptr(),
             d2_out.data_ptr(), c_out.data_ptr(), d2_scr.data_ptr(),
-            c_scr.data_ptr(),
+            words.data_ptr(),
             *(None if m is None else m.data_ptr() for m in masks),
-            gx, gy, gz, table.ctypes.data, len(order), int(max_iters),
-            state.data_ptr())
-    return d2_out, c_out, state[1]
+            gx, gy, gz, table.ctypes.data, len(order), len(small),
+            toffs.ctypes.data, toffs.shape[1], int(max_iters),
+            RELAX_LOG_SWEEPS, state.data_ptr(), aux.data_ptr(), lib=lib)
+    return d2_out, c_out, state

@@ -34,8 +34,8 @@ import fiesta_tpu_torch as ft  # noqa: E402
 from fiesta_tpu_torch import kernels  # noqa: E402
 from fiesta_tpu_torch import pipeline  # noqa: E402
 from fiesta_tpu_torch.io import replay  # noqa: E402
-from fiesta_tpu_torch.config import (jump_offsets,  # noqa: E402
-                                     stencil_offsets)
+from fiesta_tpu_torch.config import (STENCILS,  # noqa: E402
+                                     jump_offsets, stencil_offsets)
 from fiesta_tpu_torch.ops import edt, esdf, fusion, raycast, sort  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -58,11 +58,11 @@ def _eq(a, b):
 
 def _cuda_kernels(fn, attempts=3):
     """(fn(), the names of the CUDA kernels it launched, in order), read
-    from ``torch.profiler``.  The trace drops the first kernel launched in
-    it, so a short device sleep goes first and is left out.  Now and then
-    the profiler returns a trace with no kernel at all: that trace is
-    taken again, up to ``attempts`` times, and ``kernels.LAUNCHES`` counts
-    one call."""
+    from ``torch.profiler``.  The trace drops the first kernels launched
+    in it (one, on some cards two), so device sleeps go first and are
+    left out.  A trace in which no sleep is left, or no kernel at all,
+    may have dropped some of ``fn``'s: it is taken again, up to
+    ``attempts`` times, and ``kernels.LAUNCHES`` counts one call."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     before = dict(kernels.LAUNCHES)
@@ -70,15 +70,16 @@ def _cuda_kernels(fn, attempts=3):
         kernels.LAUNCHES.update(before)
         torch.cuda.synchronize()
         with torch.profiler.profile(activities=acts) as prof:
-            torch.cuda._sleep(100_000)
+            for _ in range(8):
+                torch.cuda._sleep(5_000_000)
             torch.cuda.synchronize()
             out = fn()
             torch.cuda.synchronize()
-        events = sorted((e for e in prof.events()
-                         if e.device_type == torch.autograd.DeviceType.CUDA
-                         and "spin_kernel" not in e.name),
+        device = [e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        events = sorted((e for e in device if "spin_kernel" not in e.name),
                         key=lambda e: e.time_range.start)
-        if events:
+        if events and len(events) < len(device):
             break
     return out, [e.name.split("(")[0] for e in events]
 
@@ -634,6 +635,56 @@ def test_fuse_kernel_window(dev, shape, window):
         _eq(a, b)
 
 
+def test_fuse_kernel_window_past_2_31_voxels(dev):
+    """The windowed drain's 64-bit form (``fuse_kernel<true, unsigned long
+    long>``, taken past 2^31 voxels) on a grid of 2.18 G voxels (about
+    33 GB at 15 bytes a voxel) with a small window across voxel 2^31.
+    The drain writes every voxel, so every output is compared chunk by
+    chunk along x with the plain drain of that chunk (its window moved to
+    the chunk's coordinates), and the three counts with the chunks' sums:
+    the plain drain of the whole grid would not fit beside the kernel's
+    buffers."""
+    free, _ = torch.cuda.mem_get_info(dev)
+    if free < 40 * 2 ** 30:
+        pytest.skip(f"needs 40 GB of free card memory, has "
+                    f"{free / 2 ** 30:.1f} GB")
+    shape = (1040, 1024, 2048)
+    assert np.prod(shape) > 2 ** 31
+    g = torch.Generator(device=dev).manual_seed(0)
+    lo = torch.empty(shape, dtype=torch.float32, device=dev).uniform_(
+        -2.0, 3.5, generator=g)
+    seen, hit, miss = (torch.randint(0, n, shape, dtype=torch.uint8,
+                                     device=dev, generator=g)
+                       for n in (2, 256, 256))
+    wmin = torch.tensor([1020, 300, 900], dtype=torch.int32, device=dev)
+    wmax = torch.tensor([1030, 340, 1000], dtype=torch.int32, device=dev)
+    kw = dict(l_hit=0.85, l_miss=-0.4, clamp_min=-2.0, clamp_max=3.5,
+              occ_thresh=0.4, occ_is_eq=False)
+    kernels.reset_launch_counts()
+    got, names = _cuda_kernels(lambda: fusion.fuse_drain(
+        lo, seen, hit, miss, window=(wmin, wmax), **kw))
+    assert kernels.LAUNCHES["fuse"] == 1
+    # beside the wrapper's own small launches (the counts' zero fill and
+    # the window's bounds)
+    fuse = [n for n in names if "fuse_kernel" in n]
+    assert len(fuse) == 1 and \
+        "fuse_kernel<true, unsigned long long>" in fuse[0], names
+    sums = [0, 0, 0]
+    for x0 in range(0, shape[0], 16):
+        x1 = min(x0 + 16, shape[0])
+        off = torch.tensor([x0, 0, 0], dtype=torch.int32, device=dev)
+        ref = fusion._fuse_drain_plain(
+            lo[x0:x1], seen[x0:x1], hit[x0:x1], miss[x0:x1],
+            window=(wmin - off, wmax - off), **kw)
+        _eq(got[0][x0:x1].view(torch.int32), ref[0].view(torch.int32))
+        for a, b in zip(got[1:5], ref[1:5]):
+            _eq(a[x0:x1], b)
+        for i in range(3):
+            sums[i] += int(ref[5 + i])
+    assert [int(n) for n in got[5:]] == sums
+    assert sums[0] > 0
+
+
 def test_sorted_stream_launches_sort(dev, monkeypatch):
     """The stream in sorted-splat mode with the bitonic sort: the sort
     kernel launches once a tick and the state equals the direct splat's."""
@@ -831,8 +882,11 @@ def _relax_seeds(shape, p, seed, dev):
 
 
 def _relax_check(d2, c, masks, dirs, max_iters=0):
-    """The kernel (one CUDA launch, ``relax_sweeps``) against
-    ``relax_once``'s host loop; returns the sweeps."""
+    """The kernel (one CUDA launch, ``relax_sweeps``, through
+    ``esdf.relax_to_fixpoint``) against ``relax_once``'s host loop, and the
+    tiles ``kernels.relax_sweeps`` logs it visited per sweep: every tile in
+    the first sweep, between 1 and every tile in each later one, none after
+    the last.  Returns (sweeps, tiles visited per sweep, tile count)."""
     before = kernels.LAUNCHES["relax"]
     got, names = _cuda_kernels(lambda: esdf.relax_to_fixpoint(
         d2, c, *masks[:2], dirs, max_iters, *masks[2:]))
@@ -842,14 +896,28 @@ def _relax_check(d2, c, masks, dirs, max_iters=0):
                                         *masks[2:])
     for a, b in zip(got, ref):
         _eq(a, b)
-    return int(got[2])
+    sweeps = int(got[2])
+    ntiles = int(np.prod([-(-n // t) for n, t in zip(d2.shape,
+                                                      kernels.RELAX_TILE)]))
+    d2_s, c_s, state = kernels.relax_sweeps(
+        d2, c, *masks[:2], dirs, max_iters, *masks[2:])
+    _eq(d2_s, ref[0])
+    _eq(c_s, ref[1])
+    state = state.cpu().tolist()
+    assert state[1] == sweeps
+    assert 1 <= state[2] <= ntiles          # the cooperative grid's blocks
+    visited = state[3:3 + sweeps]
+    assert visited[0] == ntiles
+    assert all(0 < v <= ntiles for v in visited)
+    assert not any(state[3 + sweeps:])
+    return sweeps, visited, ntiles
 
 
 @pytest.mark.parametrize("jumps", [False, True], ids=["stencil", "jumps"])
-@pytest.mark.parametrize("conn", [6, 24, 62])
+@pytest.mark.parametrize("conn", sorted(STENCILS))
 def test_relax_kernel(dev, conn, jumps):
     occ, d2, c = _relax_seeds(RELAX_SHAPE, 0.002, conn, dev)
-    sweeps = _relax_check(d2, c, (None,) * 4, _relax_dirs(conn, jumps))
+    sweeps, _, _ = _relax_check(d2, c, (None,) * 4, _relax_dirs(conn, jumps))
     assert sweeps > 2
 
 
@@ -859,15 +927,17 @@ def _relax_window(occ):
     return (w | occ, w, occ, w)
 
 
-@pytest.mark.parametrize("max_iters", [0, 1, 2])
+@pytest.mark.parametrize("max_iters", [0, 1, 2, 3])
 @pytest.mark.parametrize("window", [False, True], ids=["global", "window"])
 def test_relax_kernel_masks_and_max_iters(dev, window, max_iters):
     """The windowed masks with the push pass (update = window | queued,
     source = window, push from the queued voxels into the window), and
-    ``max_iters`` 1, 2 and 0 (to the fixpoint)."""
+    ``max_iters`` 1, 2, 3 (stopping on an odd and on an even sweep: the
+    final copy of the scratch) and 0 (to the fixpoint)."""
     occ, d2, c = _relax_seeds(RELAX_SHAPE, 0.002, 5, dev)
     masks = _relax_window(occ) if window else (None,) * 4
-    sweeps = _relax_check(d2, c, masks, _relax_dirs(24, True), max_iters)
+    sweeps, _, _ = _relax_check(d2, c, masks, _relax_dirs(24, True),
+                                max_iters)
     if max_iters:
         assert sweeps == max_iters
 
@@ -878,13 +948,13 @@ def test_relax_kernel_converged_and_undefined(dev):
     occ, d2, c = _relax_seeds(RELAX_SHAPE, 0.002, 8, dev)
     dirs = _relax_dirs(24, True)
     d2f, cf, _ = esdf.relax_to_fixpoint(d2, c, None, None, dirs)
-    assert _relax_check(d2f, cf, (None,) * 4, dirs) == 1
+    assert _relax_check(d2f, cf, (None,) * 4, dirs)[0] == 1
     _eq(esdf.relax_to_fixpoint(d2f, cf, None, None, dirs)[0], d2f)
     none_d2 = torch.full(RELAX_SHAPE, ft.grid.INF_D2, dtype=torch.int32,
                          device=dev)
     none_c = torch.full((3,) + RELAX_SHAPE, -1, dtype=torch.int16,
                         device=dev)
-    assert _relax_check(none_d2, none_c, (None,) * 4, dirs) == 1
+    assert _relax_check(none_d2, none_c, (None,) * 4, dirs)[0] == 1
     out = esdf.relax_to_fixpoint(none_d2, none_c, None, None, dirs)
     _eq(out[0], none_d2)
     _eq(out[1], none_c)
@@ -909,9 +979,65 @@ def test_relax_kernel_several_voxels_a_thread(dev):
     """3.2 M voxels, more than the cooperative grid's resident threads."""
     shape = (200, 200, 80)
     occ, d2, c = _relax_seeds(shape, 2e-5, 9, dev)
-    sweeps = _relax_check(d2, c, _relax_window(occ),
-                          _relax_dirs(24, True, shape))
+    sweeps, _, _ = _relax_check(d2, c, _relax_window(occ),
+                                _relax_dirs(24, True, shape))
     assert sweeps > 2
+
+
+@pytest.mark.parametrize("shape", [(37, 29, 21), (9, 7, 17), (3, 2, 1)])
+def test_relax_kernel_ragged_tiles(dev, shape):
+    """Grids whose axes are no multiples of the 8 x 8 x 16 tile: partial
+    tiles on every far face, and grids smaller than one tile."""
+    occ, d2, c = _relax_seeds(shape, 0.01, sum(shape), dev)
+    d2[0, 0, 0], c[:, 0, 0, 0] = 0, 0
+    _relax_check(d2, c, (None,) * 4, _relax_dirs(24, True, shape))
+
+
+def test_relax_kernel_sparse_corner_change(dev):
+    """A converged map with one obstacle added in a corner: after the
+    first sweep only the tiles around the change are visited."""
+    shape = (64, 48, 40)
+    occ, d2, c = _relax_seeds(shape, 3e-4, 12, dev)
+    dirs = _relax_dirs(24, True, shape)
+    d2f, cf, _ = esdf.relax_to_fixpoint(d2, c, None, None, dirs)
+    d2f[1, 1, 1], cf[:, 1, 1, 1] = 0, 1
+    sweeps, visited, ntiles = _relax_check(d2f, cf, (None,) * 4, dirs)
+    assert sweeps > 2 and max(visited[1:]) < ntiles
+
+
+def test_relax_kernel_far_jumps(dev):
+    """Jumps of up to 64 voxels, past several tiles along every axis."""
+    shape = (140, 72, 100)
+    occ, d2, c = _relax_seeds(shape, 2e-5, 13, dev)
+    dirs = stencil_offsets(24) + tuple(
+        d for d in jump_offsets(64)
+        if all(abs(d[i]) < shape[i] for i in range(3)))
+    sweeps, _, _ = _relax_check(d2, c, (None,) * 4, dirs)
+    assert sweeps > 2
+
+
+def test_relax_kernel_change_carried_by_a_jump_alone(dev):
+    """A change that only a long jump carries into a tile whose reach-2
+    neighbours did not change: the tile is visited for the jump's changed
+    bits, read from a tile two tiles away."""
+    shape = (48, 8, 16)
+    d2 = torch.full(shape, ft.grid.INF_D2, dtype=torch.int32)
+    c = torch.full((3,) + shape, -1, dtype=torch.int16)
+    d2[44, 3, 5], c[:, 44, 3, 5] = 0, torch.tensor([44, 3, 5])
+    dirs = ((1, 0, 0), (-1, 0, 0), (16, 0, 0), (-16, 0, 0))
+    sweeps, visited, ntiles = _relax_check(d2.to(dev), c.to(dev),
+                                           (None,) * 4, dirs)
+    assert sweeps > 3 and min(visited[1:]) < ntiles
+
+
+def test_relax_kernel_caller_order_table(dev):
+    """The 24-stencil in another order is no compiled stencil: the kernel
+    takes its table loop, in the caller's order (ties included)."""
+    rng = np.random.default_rng(3)
+    dirs = tuple(stencil_offsets(24)[i] for i in rng.permutation(24)) + \
+        _relax_dirs(24, True)[24:]
+    occ, d2, c = _relax_seeds(RELAX_SHAPE, 0.002, 14, dev)
+    _relax_check(d2, c, _relax_window(occ), dirs)
 
 
 def test_relax_kernel_rejects_what_it_cannot_index(dev):
