@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Eleven paths are driven, ten at cow_and_lady size (400x400x80 voxels at
+Twelve paths are driven, eleven at cow_and_lady size (400x400x80 voxels at
 0.05 m, exact EDT truncated at 100 voxels) on replayed scans made from
 seed 0: the mapping tick stream (3 scans of 192x256 rays per tick, lazy
 closest), the closest-obstacle query path on the map it leaves, the same
@@ -11,12 +11,14 @@ stream with the sorted splat, the app engine (``FiestaPipeline``), the
 same stream with the two-level EDT, the planner on the stream's map, the
 stream and the engine with the incremental ESDF engine, the unbounded
 world (the scrolling grid with its tile archive), the app itself
-(``python -m fiesta_tpu_torch.run``, with its npz and ROS-bag inputs)
-and the soak drill (``soak_torch.py``); and the demo preset's windowed
-depth tick (400x400x36 voxels at 0.1 m, 120x160 depth images).
+(``python -m fiesta_tpu_torch.run``, with its npz and ROS-bag inputs),
+the soak drill (``soak_torch.py``) and the multi-device engine
+(``fiesta_tpu_torch.parallel``) on virtual meshes of the one card; and
+the demo preset's windowed depth tick (400x400x36 voxels at 0.1 m,
+120x160 depth images).
 Each path's kernel launch counts are zeroed just before it and read just
-after.  Phases, in order; any failure raises and
-exits non-zero:
+after.  Phases, in order but for 14, which runs after 10; any failure
+raises and exits non-zero:
 
 1. device and build: the card's name and power limit (nvidia-smi), then
    every kernel built with nvcc from the sources in this checkout, with
@@ -146,9 +148,40 @@ exits non-zero:
    a leg resumed from its last checkpoint + archive pair, the C20 oracle
    along the way; at least two scrolls and a restore, and the resumed map
    bit-equal to the reference's;
-14. a JSON line of per-kernel numbers (with the launches, device times,
-   carve steps and window offsets above, and phases 8 to 13), the
-   nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
+14. (run after phase 10: it reads ``torch.profiler``, which on the card
+   has traced nothing, three times in a row, now and then after phase
+   12's in-process app runs) the multi-device engine on virtual meshes
+   of the card (every shard on cuda:0; the halos, relays and gathers are
+   copies on it): phase 2's ticks through ``sharded_fused_tick`` at 2
+   and 8 shards (final state and every tick's stats bit-equal to phase
+   2's, the sharded lazy ``derive_closest`` to phase 3's closest grid,
+   each stream and closest kernel launched; ms a tick host-paced and
+   busy, CUDA launches a tick, the copies' device time by kernel name);
+   the two-level tick (phase 8's, bit-equal) and the demo window
+   (bit-equal to the single-device windowed stream) at 8 shards, each
+   run's launches read apart; ``sharded_esdf_update`` on phase 10's
+   first insert tick (d2, closest and sweeps bit-equal to the
+   single-device relax kernel's, one relax launch a sweep a shard, one
+   host sync a sweep, timed); ``ShardedFiestaPipeline`` on phase 5's
+   frames (bit-equal to the fused ticks on the same scan groups), the
+   rollout-sharded planner at ``MPCConfig()`` (within PLAN_TOL of the
+   single-device solve from the same generator), and
+   ``ShardedScrollingFiestaPipeline`` at 2 shards on phase 11's frames,
+   a tick a frame (states and tiles bit-equal to the single-device
+   scrolling engine's); one tick through ``distributed_mesh`` on NCCL at
+   world size 1 (bit-equal to phase 2's first tick, its collectives
+   through ``torch.distributed``); the app with ``--devices 1`` (9
+   frames, phase 12's other flags: stream kernels launched, the
+   oracle's count_under 0); and each kernel at the 8-shard slab shapes
+   against its plain version (the relax kernel with an x origin on a
+   halo-extended slab, the box add with out-of-slab corners on a slab
+   whose far face the boxes cross and on one whose low face they do),
+   timed beside its flat-shape time;
+15. a JSON line of per-kernel numbers (with the launches, device times,
+   carve steps and window offsets above, phases 8 to 14, and for each
+   row its launches on the sharded path and its time at the slab
+   shapes), the nvidia-smi line, and last ``{"ok": true, "device":
+   {...}}``.
 
 The script needs a CUDA card and the rest of the repository; without
 either it exits non-zero and prints no result.
@@ -160,6 +193,7 @@ import contextlib
 import dataclasses
 import io
 import json
+import os
 import pathlib
 import re
 import statistics
@@ -176,6 +210,9 @@ from fiesta_tpu_torch import checkpoint, kernels, pipeline
 from fiesta_tpu_torch import run as fiesta_run
 from fiesta_tpu_torch.io import replay, rosbag
 from fiesta_tpu_torch.ops import edt, esdf, fusion, query, raycast, sort
+from fiesta_tpu_torch.parallel import sharding
+from fiesta_tpu_torch.parallel.engine import (ShardedFiestaPipeline,
+                                              ShardedScrollingFiestaPipeline)
 from fiesta_tpu_torch.planning import mpc
 from fiesta_tpu_torch.scrolling import ScrollingFiestaPipeline
 from fiesta_tpu_torch.timing import Timing
@@ -227,6 +264,8 @@ SOAK_FRAMES = 150        # phase 13: 1.25 orbits of 6 m at cow scale
 SOAK_CHECK_EVERY = 75    # C20 oracle interval (updates; one a frame)
 SOAK_CK_EVERY = 25       # checkpoint + archive interval (updates)
 SOAK_TIMEOUT_S = 480
+SHARDS = (2, 8)          # phase 14: virtual meshes of the one card
+SHARD_APP_FRAMES = 9     # phase 14: run.py --devices 1
 # H100 SXM published peaks (NVIDIA data sheet and Hopper white paper)
 HBM_BYTES_PER_S = 3.35e12
 # 67 TFLOP/s of non-tensor f32 counts an FMA as two operations; the kernels
@@ -1734,6 +1773,517 @@ def soak_path(card):
     return summary
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the multi-device engine on virtual meshes of the card
+# ---------------------------------------------------------------------------
+
+
+def virtual_mesh(n, dev):
+    """n X-slab shards, all on the one card (``make_mesh``'s virtual
+    form)."""
+    return sharding.make_mesh(n, [dev] * n)
+
+
+def sharded_stream(cfg, mesh, batches):
+    """The phase-2 ticks through ``sharded_fused_tick`` from an empty map:
+    (sharded state, UpdateStats stacked over the ticks, ms a tick from
+    CUDA events, host-paced)."""
+    step = sharding.sharded_fused_tick(cfg, mesh)
+    state = sharding.shard_state(ft.make_state(cfg, mesh.devices[0]), mesh)
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    per_tick = []
+    for i in range(batches[0].shape[0]):
+        state, stats = step(state, *(x[i] for x in batches))
+        per_tick.append(stats)
+    b.record()
+    b.synchronize()
+    return (state, pipeline._stack_stats(per_tick),
+            a.elapsed_time(b) / batches[0].shape[0])
+
+
+def gathered(mesh, xs):
+    """A per-shard list gathered along x (the closest planes along 1)."""
+    return sharding._gather_axis(mesh, xs, 1 if xs[0].dim() == 4 else 0)
+
+
+def same_state(got, want, what):
+    for f in ft.grid.FIELDS:
+        a, b = getattr(got, f), getattr(want, f)
+        assert a.dtype == b.dtype and a.shape == b.shape, f"{what} {f}"
+        if a.dtype == torch.float32:
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        assert torch.equal(a, b), f"{what}: {f} differs"
+
+
+def same_stats(got, want, what):
+    for f, a, b in zip(got._fields, got, want):
+        assert torch.equal(a.to(b.device), b), f"{what}: UpdateStats.{f}"
+
+
+def copy_kernel_ms(by_name):
+    """Device ms of the copy kernels in a profile (the halos' and
+    gathers' concatenations and plane copies), by name."""
+    keys = ("Cat", "copy", "Copy", "fill", "nccl")
+    return {k: round(v, 4) for k, v in by_name.items()
+            if any(s in k for s in keys)}
+
+
+def drive_synced(pipe, frames, every):
+    """``tests/test_sharding.py``'s feed: each frame followed by the next
+    pose (the last by one a second later), ``update()`` every ``every``
+    frames."""
+    for i, (t, (p, q), scan) in enumerate(frames):
+        pipe.observe_pose(t, p, q)
+        pipe.observe_cloud(t, scan)
+        if i + 1 < len(frames):
+            pipe.observe_pose(frames[i + 1][0], *frames[i + 1][1])
+        else:
+            pipe.observe_pose(t + 1.0, p, q)
+        pipe.process()
+        if i % every == every - 1:
+            pipe.update()
+    torch.cuda.synchronize()
+    return pipe
+
+
+def fused_groups(cfg, frames, dev):
+    """The single-device fused ticks on the engine's scan groups of three
+    (padded as the engine pads them)."""
+    state = ft.make_state(cfg, dev)
+    for i in range(0, len(frames), 3):
+        group = frames[i:i + 3]
+        pv = [replay.pad_cloud_np(cfg, np.ascontiguousarray(s, np.float32),
+                                  np.isfinite(s).all(axis=-1))
+              for _, _, s in group]
+        tfs = np.stack([replay.pose_to_matrix(p, q)
+                        for _, (p, q), _ in group]).astype(np.float32)
+        state, _ = ft.fused_batch_step(
+            cfg, state,
+            *(torch.from_numpy(np.stack(x)).to(dev) for x in zip(*pv)),
+            torch.from_numpy(tfs).to(dev),
+            torch.tensor(group[-1][1][0], dtype=torch.float32, device=dev))
+    return state
+
+
+def slab_rows(cfg, mesh, batches, k_state, icfg, ext, rows, card):
+    """The kernels at the sharded path's slab shapes (n = mesh.size, one
+    shard's slab of the final map, one shard's scans), each against its
+    plain version: host-paced ms and ms on the card alone, beside the
+    row's time at the flat shape (phase 7).  ``ext``: (d2, closest, own
+    mask, x_offset) of a halo-extended slab for the relax sweep.  The
+    relax kernel's x-origin form and the box add's out-of-slab corners
+    (on shard j's slab, and on the first whose low face a box crosses)
+    are held to their plain versions here."""
+    n, gx = mesh.size, cfg.grid_shape[0]
+    lx = gx // n
+    j = n // 2 - 1                          # an interior shard
+    x0 = j * lx
+    occ = ft.occupied_grid(cfg, k_state.logodds)[x0:x0 + lx].contiguous()
+    flat = {r["name"]: r["ms"] for r in rows}
+    out = {}
+
+    def row(name, kern, plain, what=""):
+        err = max_abs_err(*(list(v) if isinstance(v, tuple) else [v]
+                            for v in (kern(), plain())))
+        t = kernel_times(kern)
+        out[name] = dict(shape=what, err=err, ms=t["ms"],
+                         device_ms=t["device_ms"],
+                         plain_ms=time_ms(plain, calls=1, windows=3),
+                         flat_ms=flat.get(name))
+
+    pts, vals, tfs, cur = (b[0] for b in batches)
+    own = slice(0, 1)                  # one shard's scans at n >= 3 scans
+    _, po, lin, val, _ = raycast._scanline_splat_prep(
+        cfg, pts[own], vals[own], transforms=tfs[own])
+    box = raycast._carve_box_shape(cfg)
+    nb = box[0] * box[1] * box[2]
+    thr = raycast._epfree_threshold(cfg)
+    row("splat", lambda: kernels.splat(lin, val, nb, thr),
+        lambda: raycast._splat_packed_plain(lin, val, nb, thr),
+        "one scan's rays")
+    seeds = kernels.splat(lin, val, nb, thr)[0].view((1,) + box)
+    carve = (cfg.resolution, cfg.min_ray_length, cfg.max_ray_length)
+    row("carve", lambda: kernels.carve(seeds, po, *carve),
+        lambda: raycast._carve_free_plain(cfg, seeds, po), "one scan's box")
+    t = edt.trunc_vox_for(cfg.resolution, cfg.trunc_dist)
+    f = edt.binary_field(occ)
+    row("edt_binary", lambda: kernels.edt_binary(f, t, False),
+        lambda: edt._binary_pass_plain(f, t, False), f"raw, {lx} planes")
+    p1 = edt.square_l1(kernels.edt_binary(f, t, False), t)
+    row("edt_minplus", lambda: (kernels.edt_minplus(p1, t, 1),
+                                kernels.edt_minplus(p1, t, 2)),
+        lambda: (edt._minplus_pass_plain(p1, t, 1),
+                 edt._minplus_pass_plain(p1, t, 2)), "y and z passes")
+    s = [getattr(k_state, name)[x0:x0 + lx].contiguous()
+         for name in ("logodds", "seen", "hit_cnt", "miss_cnt")]
+    on, off_eq = ((cfg.min_occupancy_log, False) if cfg.probabilistic
+                  else (1.0, True))
+    drain = dict(l_hit=cfg.prob_hit_log, l_miss=cfg.prob_miss_log,
+                 clamp_min=cfg.clamp_min_log, clamp_max=cfg.clamp_max_log,
+                 occ_thresh=on, occ_is_eq=off_eq)
+    row("fuse", lambda: kernels.fuse(*s, **drain),
+        lambda: fusion._fuse_drain_plain(*s, **drain), "global drain")
+    starts, hitc, missc, _, _ = raycast.scanline_batch_boxes(
+        cfg, pts, vals, transforms=tfs)
+    z = torch.zeros_like(s[2])
+    bx = hitc.shape[1]
+
+    def boxadd_row(name, i):
+        """The box add on shard i's slab, the corners shifted by -x0."""
+        shifted = (starts - torch.tensor([i * lx, 0, 0], dtype=torch.int32,
+                                         device=starts.device)).contiguous()
+        row(name, lambda: kernels.boxadd(z.clone(), z.clone(), shifted,
+                                         hitc, missc),
+            lambda: raycast._apply_box_counts_plain(z.clone(), z.clone(),
+                                                    shifted, hitc, missc),
+            f"{starts.shape[0]} boxes on shard {i}, corners x "
+            f"{shifted[:, 0].tolist()}")
+
+    # shard j's slab, and the first whose low face the boxes cross (their
+    # corners below 0 there)
+    boxadd_row("boxadd", j)
+    cx = starts[:, 0].tolist()
+    low = [i for i in range(n) if any(c < i * lx < c + bx for c in cx)]
+    assert low, f"no box crosses a slab's low face: corners x {cx}"
+    boxadd_row("boxadd_low_face", low[0])
+    plan = edt.closest_plan(cfg.grid_shape, t)
+    u8 = edt._as_u8(occ)
+    row("closest_binary", lambda: kernels.closest_binary(u8, plan, 0, False),
+        lambda: edt._binary_packed_plain(u8, plan, 0, False), "raw")
+    c1 = edt.square_packed_l1(kernels.closest_binary(u8, plan, 0, False)
+                              + x0, plan)
+    row("closest_window",
+        lambda: kernels.closest_window(c1, plan, plan["b"]),
+        lambda: edt._window_packed_plain(c1, plan, plan["b"]))
+    c2 = kernels.closest_window(c1, plan, plan["b"])
+    row("closest_split", lambda: kernels.closest_split(c2, plan, plan["c"]),
+        lambda: edt._split_packed_plain(c2, plan, plan["c"]))
+    d2e, ce, mask, xo = ext
+    row("relax", lambda: esdf.relax_sweep(d2e, ce, mask, None, icfg.stencil,
+                                          x_offset=xo),
+        lambda: esdf.relax_once(d2e, ce, mask, None, icfg.stencil,
+                                x_offset=xo),
+        f"one sweep, halo-extended {tuple(d2e.shape)}, x_offset {xo}")
+    for name, r in out.items():
+        log(f"{name} at the n = {n} slab shapes ({r['shape'] or lx}): "
+            f"{r['ms']:.4f} ms host-paced, {r['device_ms']:.4f} on the card "
+            f"alone (plain {r['plain_ms']:.4f}; at the flat shape "
+            f"{r['flat_ms']}), bit-equal to plain; on {card}")
+    return out
+
+
+def sharded_path(cfg, h, w, batches, k_state, k_stats, k_ms, closest_ref,
+                 hcfg, h_out, h_stats, frames, dev, card, rows, launches,
+                 sharded_launches):
+    """Phase 14: the multi-device engine (``fiesta_tpu_torch.parallel``)
+    on virtual meshes of the one card (every shard's slab on cuda:0, the
+    halos, relays and gathers copies on it): phase 2's ticks at 2 and 8
+    shards, the two-level and windowed ticks, the incremental update,
+    the engines, the planner, the NCCL transport at world size 1, the app
+    with ``--devices 1``, and the kernels at slab shapes.  Bit-equal to
+    the single-device results throughout.  Adds the launches to
+    ``launches`` and ``sharded_launches``; returns a summary."""
+    import torch.distributed as dist
+
+    out = dict(note="all shards share one card (a virtual mesh): the "
+                    "collectives are copies on it; no scaling is measured")
+    log("sharded path: every shard of these meshes lies on the one card "
+        f"({card}); halos, relays and gathers are copies on it")
+    flat_busy = busy_ms_per_tick(cfg, batches, dev)
+    ticks = batches[0].shape[0]
+    stream_names = STREAM_KERNELS + CLOSEST_KERNELS
+    out["stream"] = {}
+    for n in SHARDS:
+        mesh = virtual_mesh(n, dev)
+        sharded_stream(cfg, mesh, tuple(b[:1] for b in batches))   # warm-up
+        kernels.reset_launch_counts()
+        before = collections.Counter(sharding.COLLECTIVES)
+        state, stats, ms = sharded_stream(cfg, mesh, batches)
+        derive = sharding.sharded_derive_closest(cfg, mesh)
+        cl = gathered(mesh, derive(state.logodds))
+        got = read_launches(stream_names)
+        check_launched(got, f"the sharded stream at n = {n}")
+        launches.update(got)
+        sharded_launches.update(got)
+        same_state(sharding.gather_state(state, mesh), k_state,
+                   f"sharded stream n = {n}")
+        same_stats(stats, k_stats, f"sharded stream n = {n}")
+        bit_equal(cl, closest_ref, f"sharded derive_closest n = {n}")
+        coll = dict(sharding.COLLECTIVES - before)
+        by_name, counts, _ = profiled(
+            lambda: sharded_stream(cfg, mesh, batches), 1)
+        derive_ms = time_ms(lambda: derive(state.logodds))
+        out["stream"][n] = dict(
+            ms_per_tick=ms, busy_ms_per_tick=sum(by_name.values()) / ticks,
+            cuda_launches_per_tick=sum(counts.values()) / ticks,
+            launches=got, collectives=coll, derive_closest_ms=derive_ms,
+            copies_device_ms_per_tick={
+                k: v / ticks for k, v in copy_kernel_ms(by_name).items()})
+        log(f"sharded stream n = {n} (virtual mesh, one card): {ms:.3f} "
+            f"ms/tick host-paced, busy "
+            f"{out['stream'][n]['busy_ms_per_tick']:.3f} ms/tick, "
+            f"{out['stream'][n]['cuda_launches_per_tick']:.0f} CUDA launches "
+            f"a tick (phase 2's flat tick {k_ms:.3f} ms host-paced, busy "
+            f"{flat_busy:.3f}); state, stats and derive_closest bit-equal to "
+            f"phases 2 and 3; derive {derive_ms:.3f} ms; launches {got}; "
+            f"collectives over the run {coll}; copy kernels' device ms a tick "
+            f"{out['stream'][n]['copies_device_ms_per_tick']}; on {card}")
+    out["flat_busy_ms_per_tick"] = flat_busy
+
+    mesh8 = virtual_mesh(8, dev)
+    # the two-level tick (phase 8) and the demo window on phase 2's frames,
+    # each run's launches zeroed just before it and read just after
+    wcfg = dataclasses.replace(cfg, global_update=False,
+                               radius=ft.DEMO_ONBOARD.radius).validate()
+    w_state, w_stats, w_flat_ms = run_stream(wcfg, batches, dev, True)
+    kernels.reset_launch_counts()
+    hs, hstats, h_ms = sharded_stream(hcfg, mesh8, batches)
+    h_closest = gathered(mesh8, sharding.sharded_derive_closest(hcfg, mesh8)(
+        hs.logodds))
+    h_got = read_launches(stream_names)
+    check_launched(h_got, "the sharded two-level tick")
+    same_state(sharding.gather_state(hs, mesh8), ft.grid.MapState(
+        **{f: h_out[f] for f in ft.grid.FIELDS}), "sharded two-level tick")
+    same_stats(hstats, pipeline.UpdateStats(*h_stats[:4]),
+               "sharded two-level tick")
+    bit_equal(h_closest, h_out["closest_lazy"], "sharded two-level closest")
+    kernels.reset_launch_counts()
+    ws, wstats, w_ms = sharded_stream(wcfg, mesh8, batches)
+    w_got = read_launches(STREAM_KERNELS)
+    check_launched(w_got, "the sharded window tick")
+    same_state(sharding.gather_state(ws, mesh8), w_state,
+               "sharded window tick")
+    same_stats(wstats, w_stats, "sharded window tick")
+    for got in (h_got, w_got):
+        launches.update(got)
+        sharded_launches.update(got)
+    out["two_level"] = dict(ms_per_tick=h_ms, launches=h_got)
+    out["window"] = dict(ms_per_tick=w_ms, flat_ms_per_tick=w_flat_ms,
+                         observed=w_stats.num_observed.tolist(),
+                         launches=w_got)
+    log(f"sharded two-level tick n = 8: {h_ms:.3f} ms/tick, bit-equal to "
+        f"phase 8 (state, stats, closest), launches {h_got}; windowed tick "
+        f"n = 8: {w_ms:.3f} ms/tick (single-device {w_flat_ms:.3f}), "
+        f"bit-equal, launches {w_got}; on {card}")
+
+    # the incremental update on phase 10's first insert tick (a voxel's
+    # first hit stays under the occupancy threshold: the second tick)
+    icfg = dataclasses.replace(cfg, esdf_mode="incremental").validate()
+    state = ft.make_state(icfg, dev)
+    for tick in range(ticks):
+        s1 = pipeline.integrate_scan_batch(
+            icfg, state, *(b[tick] for b in batches[:3]), batches[3][tick])
+        fr = fusion.fuse_counts(icfg, s1.logodds, s1.seen, s1.hit_cnt,
+                                s1.miss_cnt)
+        if bool(fr.insert_mask.any()):
+            break
+        state, _ = pipeline.esdf_update(icfg, s1)
+    d2_0, c_0 = s1.d2, s1.closest
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sd2, sc, sit = esdf.update_esdf(d2_0, c_0, fr.occupied, fr.insert_mask,
+                                    None, None, icfg.stencil)
+    sit = int(sit)
+    single_ms = (time.perf_counter() - t0) * 1e3
+    assert kernels.LAUNCHES["relax"] == 1
+    out["update"] = dict(tick=tick, sweeps=sit, single_device_ms=single_ms,
+                         inserted=int(fr.insert_mask.sum()))
+    for n in SHARDS:
+        mesh = virtual_mesh(n, dev)
+        lx = cfg.grid_shape[0] // n
+        step = sharding.sharded_esdf_update(icfg, mesh)
+
+        def slabs(x, axis=0):
+            return [x.narrow(axis, i * lx, lx).contiguous()
+                    for i in range(n)]
+
+        args = (slabs(d2_0), slabs(c_0, 1), slabs(fr.occupied),
+                slabs(fr.insert_mask))
+        kernels.reset_launch_counts()
+        syncs = sharding.COLLECTIVES["host_sync"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        d2m, cm, itm = step(*args)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        itm = int(itm)
+        syncs = sharding.COLLECTIVES["host_sync"] - syncs
+        relax_launches = kernels.LAUNCHES["relax"]
+        bit_equal(torch.cat(d2m), sd2, f"sharded update d2 n = {n}")
+        bit_equal(torch.cat(cm, 1), sc, f"sharded update closest n = {n}")
+        assert itm == sit, (itm, sit)
+        assert relax_launches == itm * n, (relax_launches, itm, n)
+        assert syncs == itm
+        launches["relax"] += relax_launches
+        sharded_launches["relax"] += relax_launches
+        by_name, counts, _ = profiled(lambda: step(*args), 1)
+        # one sweep's read of the summed change flags, with the card idle
+        flags = [torch.ones((), dtype=torch.int32, device=dev)] * n
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(100):
+            int(mesh.psum(flags)[0])
+        sync_ms = (time.perf_counter() - t0) * 10
+        out["update"][n] = dict(
+            ms=ms, host_syncs=syncs, relax_launches=relax_launches,
+            sync_ms=sync_ms, busy_ms=sum(by_name.values()),
+            relax_device_ms=by_name.get("relax_sweeps", 0.0),
+            cuda_launches=sum(counts.values()),
+            copies_device_ms=copy_kernel_ms(by_name))
+        log(f"sharded incremental update n = {n} (tick {tick}, "
+            f"{out['update']['inserted']} inserts): {ms:.1f} ms a call, "
+            f"{itm} sweeps (single-device relax kernel: {sit}, "
+            f"{single_ms:.1f} ms a call), {relax_launches} relax launches "
+            f"(one a sweep a shard), {syncs} host syncs a call (one a "
+            f"sweep: the psum of the change flags, {sync_ms:.4f} ms each "
+            f"with the card idle); {ms / itm:.3f} ms a sweep; busy "
+            f"{out['update'][n]['busy_ms']:.1f} ms (relax "
+            f"{out['update'][n]['relax_device_ms']:.1f}); copy kernels "
+            f"{out['update'][n]['copies_device_ms']}; d2, closest and "
+            f"sweeps bit-equal; on {card}")
+
+    # the engines and the planner
+    eng_frames = frames[:ENGINE_FRAMES]
+    kernels.reset_launch_counts()
+    sp = drive_synced(ShardedFiestaPipeline(cfg, mesh=mesh8,
+                                            scans_per_tick=3),
+                      eng_frames, 3)
+    got = read_launches(STREAM_KERNELS)
+    check_launched(got, "the sharded engine")
+    launches.update(got)
+    sharded_launches.update(got)
+    same_state(sp.state, fused_groups(cfg, eng_frames, dev),
+               "sharded engine")
+    p0, goal = fly_start(cfg, dev)
+    m = mpc.MPCConfig()
+    dgrid = query.distance_grid(cfg, k_state.d2, k_state.seen)
+    zeros = torch.zeros(3, device=dev)
+    nominal = torch.zeros((m.horizon, 3), device=dev)
+    single = mpc.plan_step(cfg, m, dgrid, p0, zeros, goal, nominal,
+                           torch.Generator(device=dev).manual_seed(0))
+    planner = mpc.make_sharded_planner(cfg, m, mesh8)
+    sharded = planner(dgrid, p0, zeros, goal, nominal,
+                      torch.Generator(device=dev).manual_seed(0))
+    diff = max(float((sharded.controls - single.controls).abs().max()),
+               float((sharded.positions - single.positions).abs().max()))
+    rel = abs(float(sharded.cost) - float(single.cost)) / abs(
+        float(single.cost))
+    assert diff < PLAN_TOL and rel < PLAN_TOL, (diff, rel)
+    plan_ms = time_ms(lambda: planner(
+        dgrid, p0, zeros, goal, nominal,
+        torch.Generator(device=dev).manual_seed(0)), calls=1, windows=3)
+    out["planner"] = dict(max_abs_diff=diff, cost_rel_diff=rel,
+                          ms=plan_ms, cost=float(sharded.cost))
+    log(f"sharded engine n = 8 on phase 5's frames bit-equal to the fused "
+        f"ticks on the same scan groups; sharded planner (MPCConfig(), "
+        f"n = 8): {plan_ms:.3f} ms a solve, within {diff:.2e} (controls, "
+        f"positions) and {rel:.2e} (cost, relative) of the single-device "
+        f"solve from the same generator (gate {PLAN_TOL}); on {card}")
+
+    wframes = world_frames(cfg, h, w)
+    mesh2 = virtual_mesh(2, dev)
+    kernels.reset_launch_counts()
+    ssp = drive_synced(ShardedScrollingFiestaPipeline(
+        cfg, mesh=mesh2, scans_per_tick=1, archive=True), wframes, 1)
+    got = read_launches(STREAM_KERNELS)
+    launches.update(got)
+    sharded_launches.update(got)
+    rsp = drive_synced(ScrollingFiestaPipeline(
+        cfg, method="scanline", archive=True, device=dev), wframes, 1)
+    same_state(ssp.state, rsp.state, "sharded scrolling engine")
+    assert ssp.scroll_count == rsp.scroll_count >= 2
+    assert ssp.restore_count == rsp.restore_count >= 1
+    assert np.array_equal(ssp.origin_vox, rsp.origin_vox)
+    assert sorted(ssp.archive.tiles) == sorted(rsp.archive.tiles)
+    for key, tile in rsp.archive.tiles.items():
+        for name in ("logodds", "seen"):
+            assert np.array_equal(tile[name], ssp.archive.tiles[key][name])
+    out["scrolling"] = dict(scrolls=ssp.scroll_count,
+                            restores=ssp.restore_count,
+                            tiles=ssp.archive.num_tiles)
+    log(f"sharded scrolling engine n = 2 on phase 11's frames (a tick a "
+        f"frame, the cadence on which both engines recenter alike): "
+        f"{ssp.scroll_count} scrolls, {ssp.restore_count} restores, "
+        f"{ssp.archive.num_tiles} tiles; states and tiles bit-equal to the "
+        f"single-device scrolling engine's; on {card}")
+
+    # the distributed transport: NCCL at world size 1
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    one_tick = run_stream(cfg, tuple(b[:1] for b in batches), dev)[0]
+    with tempfile.TemporaryDirectory() as tmp:
+        before = collections.Counter(sharding.COLLECTIVES)
+        t0 = time.perf_counter()
+        dmesh = sharding.distributed_mesh(init_method=f"file://{tmp}/store",
+                                          world_size=1, rank=0)
+        init_s = time.perf_counter() - t0
+        try:
+            backend = dist.get_backend()
+            assert backend == "nccl", backend
+            step = sharding.sharded_fused_tick(cfg, dmesh)
+            res = []
+            by_name, _, _ = profiled(lambda: res.append(step(
+                sharding.shard_state(ft.make_state(cfg, dev), dmesh),
+                *(b[0] for b in batches))), 1)
+            dstate = sharding.gather_state(res[-1][0], dmesh)
+        finally:
+            dist.destroy_process_group()
+    same_state(dstate, one_tick, "NCCL tick")
+    coll = dict(sharding.COLLECTIVES - before)
+    assert coll.get("nccl", 0) > 0, coll
+    nccl_kernels = {k: round(v, 4) for k, v in by_name.items()
+                    if "nccl" in k.lower()}
+    out["nccl"] = dict(world_size=1, init_s=init_s, collectives=coll,
+                       kernels=nccl_kernels)
+    log(f"NCCL at world size 1 (file store): init {init_s:.2f} s, one tick "
+        f"bit-equal to phase 2's first; collectives {coll}; NCCL kernels "
+        f"(device ms) {nccl_kernels}; on {card}")
+
+    # the app with --devices 1
+    with tempfile.TemporaryDirectory() as tmp:
+        kernels.reset_launch_counts()
+        err, wall = run_app([
+            "--preset", "cow_and_lady", "--platform", "cuda",
+            "--update-every", "3", "--frames", str(SHARD_APP_FRAMES),
+            "--devices", "1", "--checkpoint", f"{tmp}/k.npz",
+            "--checkpoint-every", "3", "--viz-dir", f"{tmp}/viz",
+            "--ground-truth-check", "--mpc"])
+    got = read_launches(STREAM_KERNELS)
+    check_launched(got, "the app with --devices 1")
+    launches.update(got)
+    sharded_launches.update(got)
+    assert "sharded engine: 1-device X-slab mesh" in err
+    report = json.loads(re.search(r"^\{\n.*?^\}$", err, re.S | re.M).group(0))
+    assert report["count_under"] == 0, report
+    cost = float(re.search(r"MPC: \d+ rollouts, cost (\S+),", err).group(1))
+    assert np.isfinite(cost)
+    out["app"] = dict(wall_s=wall, launches=got,
+                      rms_error=report["rms_error"],
+                      count_under=report["count_under"], mpc_cost=cost)
+    log(f"app --devices 1 ({SHARD_APP_FRAMES} frames, phase 12's other "
+        f"flags): {wall:.2f} s wall, oracle rms_error "
+        f"{report['rms_error']:.6f}, count_under 0, MPC cost {cost:.2f}; "
+        f"launches {got}; on {card}")
+
+    # the kernels at the n = 8 slab shapes, the relax kernel's x origin and
+    # the box add's out-of-slab corners among them
+    lx = cfg.grid_shape[0] // 8
+    pad = sharding._stencil_reach(icfg.stencil)
+    x0 = (8 // 2 - 1) * lx
+    d2g, cg, _ = esdf.apply_occupancy_changes(d2_0, c_0, fr.occupied,
+                                              fr.insert_mask)
+    ext_d2 = d2g[x0 - pad:x0 + lx + pad].contiguous()
+    ext_c = cg[:, x0 - pad:x0 + lx + pad].contiguous()
+    mask = torch.zeros(ext_d2.shape, dtype=torch.bool, device=dev)
+    mask[pad:pad + lx] = True
+    out["slab_rows"] = slab_rows(cfg, mesh8, batches, k_state, icfg,
+                                 (ext_d2, ext_c, mask, x0 - pad), rows, card)
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2262,6 +2812,14 @@ def run(dev, cfg, h, w, ticks, dcfg, dh, dw, dticks):
     incr, relax = incremental_path(cfg, batches, k_state, frames, dev, card,
                                    rows, launches, relax_variants)
 
+    log(f"[{time.perf_counter() - t_run:.0f} s] phase 14")
+    # -- phase 14: the multi-device engine on virtual meshes of the card ---
+    # (before phases 11-13, for the profiler: see the module docstring)
+    sharded_launches = collections.Counter()
+    sharded = sharded_path(cfg, h, w, batches, k_state, k_stats, k_ms,
+                           k_out["closest"], hcfg, h_out, h_stats, frames,
+                           dev, card, rows, launches, sharded_launches)
+
     log(f"[{time.perf_counter() - t_run:.0f} s] phase 11")
     # -- phase 11: the unbounded world -------------------------------------
     world = unbounded_world(cfg, h, w, dev, card, launches)
@@ -2273,6 +2831,9 @@ def run(dev, cfg, h, w, ticks, dcfg, dh, dw, dticks):
     log(f"[{time.perf_counter() - t_run:.0f} s] phase 13")
     # -- phase 13: the soak drill at cow scale ------------------------------
     soak = soak_path(card)
+
+    log(f"[{time.perf_counter() - t_run:.0f} s] phase 15")
+    # -- phase 15: the per-kernel JSON line --------------------------------
 
     for r in rows:
         if r["name"] not in EARLIER_LAUNCHES:
@@ -2302,6 +2863,9 @@ def run(dev, cfg, h, w, ticks, dcfg, dh, dw, dticks):
             "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
             "library_ms": r["library_ms"],
+            "sharded_launches": sharded_launches[r.get("counted_as",
+                                                       r["name"])],
+            "slab_ms": sharded["slab_rows"].get(r["name"], {}).get("ms"),
             **({"dense_bound_ms": r["dense_bound"][0],
                 "dense_bound_by": r["dense_bound"][1]}
                if "dense_bound" in r else {})})
@@ -2341,7 +2905,8 @@ def run(dev, cfg, h, w, ticks, dcfg, dh, dw, dticks):
                       "closest_binary_tiles": binary["tiles"],
                       "two_level": hier, "planner": planner,
                       "incremental": incr, "relax": relax,
-                      "unbounded_world": world, "app": app, "soak": soak}))
+                      "unbounded_world": world, "app": app, "soak": soak,
+                      "sharded": sharded}))
     log(f"[{time.perf_counter() - t_run:.0f} s] phases done")
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -55,11 +55,14 @@ from .pipeline import (
 
 
 def __getattr__(name):
-    # the scrolling engine and its archive load on first use, as
-    # ``fiesta_tpu`` exports them
+    # the scrolling and sharded engines and the archive load on first use,
+    # as ``fiesta_tpu`` exports them
     if name == "ScrollingFiestaPipeline":
         from .scrolling import ScrollingFiestaPipeline
         return ScrollingFiestaPipeline
+    if name == "ShardedFiestaPipeline":
+        from .parallel.engine import ShardedFiestaPipeline
+        return ShardedFiestaPipeline
     if name == "TileArchive":
         from .archive import TileArchive
         return TileArchive
@@ -76,6 +79,7 @@ __all__ = [
     "MapState",
     "ScanSynchronizer",
     "ScrollingFiestaPipeline",
+    "ShardedFiestaPipeline",
     "TileArchive",
     "UNDEFINED_COORD",
     "UpdateStats",

@@ -20,6 +20,7 @@ the fusion step rounds exactly as the plain PyTorch versions do.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import itertools
 import os
@@ -69,7 +70,7 @@ _SIGNATURES = {
                       [_P, _P, _L, _I, _L, _I, _I, _I, _P]),
     "sort": ("sort.cu", "fiesta_sort_pairs", [_P, _P, _L, _P, _P, _L, _P]),
     "relax": ("relax.cu", "fiesta_relax",
-              [_P] * 10 + [_I] * 3 + [_P, _I, _I, _P, _I, _I, _I, _P, _P,
+              [_P] * 10 + [_I] * 4 + [_P, _I, _I, _P, _I, _I, _I, _P, _P,
                                        _P]),
 }
 SOURCES = tuple(sorted({s for s, _, _ in _SIGNATURES.values()}))
@@ -492,6 +493,33 @@ def relax_tile_offsets(dirs, tile=RELAX_TILE):
     return tuple(sorted(offs))
 
 
+@functools.lru_cache(maxsize=64)
+def _relax_tables(dirs):
+    """The launch's host tables for the direction tuple ``dirs``, built
+    and checked once (the sharded relaxation launches once a sweep a
+    shard): (directions [3, n] i16 in ``esdf.consideration_order``, the
+    count of reach <= 2 among them, tile offsets [3, m] i16)."""
+    from ..ops.esdf import consideration_order
+
+    small, jumps = consideration_order(dirs)
+    order = small + jumps
+    if len(order) > RELAX_MAX_DIRS:
+        raise ValueError(f"relax: {len(order)} directions exceed the "
+                         f"kernel's {RELAX_MAX_DIRS}")
+    table = np.ascontiguousarray(np.array(order, np.int64).reshape(-1, 3).T)
+    if np.abs(table).max(initial=0) >= 1 << 15:
+        raise ValueError("relax: an offset does not fit the kernel's int16 "
+                         "direction table")
+    toffs = np.ascontiguousarray(
+        np.array(relax_tile_offsets(order), np.int16).T)
+    if toffs.shape[1] > RELAX_MAX_TILE_OFFSETS:
+        raise ValueError(f"relax: {toffs.shape[1]} tile offsets exceed the "
+                         f"kernel's {RELAX_MAX_TILE_OFFSETS}")
+    table = table.astype(np.int16)
+    table.flags.writeable = toffs.flags.writeable = False
+    return table, len(small), toffs
+
+
 def _relax_mask(mask, d2: torch.Tensor, what: str):
     """A bool or u8 [X,Y,Z] mask as the kernel's u8 pointer (None: 0)."""
     if mask is None:
@@ -508,64 +536,55 @@ def _relax_mask(mask, d2: torch.Tensor, what: str):
 
 def relax_to_fixpoint(d2: torch.Tensor, closest: torch.Tensor, update_mask,
                       source_mask, dirs, max_iters: int = 0,
-                      push_src_mask=None, push_recv_mask=None):
+                      push_src_mask=None, push_recv_mask=None,
+                      x_offset: int = 0):
     """Sweep the incremental ESDF's relaxation (``esdf.relax_once``) to its
     fixpoint, or ``max_iters`` sweeps when > 0, in one cooperative CUDA
     launch: d2 [X,Y,Z] i32 and closest [3,X,Y,Z] i16 in, (d2, closest,
     num_sweeps 0-dim i32) out, new tensors, nothing read back.  ``dirs``
     are the stencil offsets (taken in ``esdf.consideration_order``);
     masks are bool or u8 [X,Y,Z] or None, the push masks both or neither.
-    Replaces ``esdf.relax_to_fixpoint``'s ``lax.while_loop`` (no Pallas
-    kernel)."""
+    ``x_offset``: the global x of the grid's first plane when it is an
+    X-slab of a larger grid whose closest coordinates are global (0: the
+    whole grid).  Replaces ``esdf.relax_to_fixpoint``'s ``lax.while_loop``
+    (no Pallas kernel)."""
     d2_out, c_out, state = relax_sweeps(
         d2, closest, update_mask, source_mask, dirs, max_iters,
-        push_src_mask, push_recv_mask)
+        push_src_mask, push_recv_mask, x_offset=x_offset)
     return d2_out, c_out, state[1]
 
 
 def relax_sweeps(d2: torch.Tensor, closest: torch.Tensor, update_mask,
                  source_mask, dirs, max_iters: int = 0, push_src_mask=None,
-                 push_recv_mask=None, lib=None):
+                 push_recv_mask=None, lib=None, x_offset: int = 0):
     """``relax_to_fixpoint``'s launch, returning (d2, closest, state):
     ``state`` is the kernel's i32 scratch on the card, [3 +
     ``RELAX_LOG_SWEEPS``], holding the sweep count at [1], the
-    cooperative grid's blocks at [2] and the tiles visited in sweep k at
-    [3 + k].  After the first, dense sweep the kernel visits only the
+    cooperative grid's blocks at [2], the tiles visited in sweep k at
+    [3 + k], and at [0] the last sweep, plus one, in which a d2 fell (with
+    ``max_iters`` 1: 1 when the sweep changed something, else 0).  After the first, dense sweep the kernel visits only the
     tiles of ``RELAX_TILE`` voxels that ``relax_tile_offsets`` marks from
     the tiles that changed, and pulls only from neighbours that changed.
     ``lib``: a variant of ``relax.cu`` from ``build_variants`` (None: the
-    package's)."""
-    from ..ops.esdf import consideration_order
-
+    package's); ``x_offset`` as in ``relax_to_fixpoint``."""
     _check(d2, torch.int32, "relax d2")
     _check(closest, torch.int16, "relax closest")
     if d2.dim() != 3 or tuple(closest.shape) != (3,) + tuple(d2.shape):
         raise ValueError("relax: expected d2 [X,Y,Z] and closest [3,X,Y,Z]")
     _same_device("relax", d2, closest)
     gx, gy, gz = d2.shape
-    # int16 coordinates, int32 voxel indices and int32 candidates
-    if max(gx, gy, gz) >= 1 << 15 or d2.numel() >= 1 << 31 or \
-            (gx - 1) ** 2 + (gy - 1) ** 2 + (gz - 1) ** 2 >= 1 << 31:
+    # int16 coordinates, int32 voxel indices and int32 candidates, over the
+    # x extent that the slab's global coordinates span
+    xg = gx + abs(int(x_offset))
+    if max(xg, gy, gz) >= 1 << 15 or d2.numel() >= 1 << 31 or \
+            (xg - 1) ** 2 + (gy - 1) ** 2 + (gz - 1) ** 2 >= 1 << 31:
         raise ValueError(f"relax: grid {tuple(d2.shape)} does not fit the "
                          "kernel's int16 coordinates and int32 indices")
     if (push_src_mask is None) != (push_recv_mask is None):
         raise ValueError("relax: push_src_mask and push_recv_mask go "
                          "together")
-    small, jumps = consideration_order(dirs)
-    order = small + jumps
-    if len(order) > RELAX_MAX_DIRS:
-        raise ValueError(f"relax: {len(order)} directions exceed the "
-                         f"kernel's {RELAX_MAX_DIRS}")
-    table = np.ascontiguousarray(np.array(order, np.int64).reshape(-1, 3).T)
-    if np.abs(table).max(initial=0) >= 1 << 15:
-        raise ValueError("relax: an offset does not fit the kernel's int16 "
-                         "direction table")
-    table = table.astype(np.int16)
-    toffs = np.ascontiguousarray(
-        np.array(relax_tile_offsets(order), np.int16).T)
-    if toffs.shape[1] > RELAX_MAX_TILE_OFFSETS:
-        raise ValueError(f"relax: {toffs.shape[1]} tile offsets exceed the "
-                         f"kernel's {RELAX_MAX_TILE_OFFSETS}")
+    table, nsmall, toffs = _relax_tables(
+        tuple(tuple(int(o) for o in d) for d in dirs))
     if not 0 <= int(max_iters) < 1 << 31:
         raise ValueError(f"relax: max_iters {max_iters} out of range")
     masks = [_relax_mask(m, d2, what) for m, what in (
@@ -591,7 +610,8 @@ def relax_sweeps(d2: torch.Tensor, closest: torch.Tensor, update_mask,
             d2_out.data_ptr(), c_out.data_ptr(), d2_scr.data_ptr(),
             words.data_ptr(),
             *(None if m is None else m.data_ptr() for m in masks),
-            gx, gy, gz, table.ctypes.data, len(order), len(small),
+            gx, gy, gz, int(x_offset), table.ctypes.data, table.shape[1],
+            nsmall,
             toffs.ctypes.data, toffs.shape[1], int(max_iters),
             RELAX_LOG_SWEEPS, state.data_ptr(), aux.data_ptr(), lib=lib)
     return d2_out, c_out, state

@@ -19,7 +19,11 @@
 // receiver mask holds, a second pull from the same unchanged state reads
 // only push-source neighbours and replaces the first when strictly smaller;
 // voxels outside the update mask keep their values.  Masks are u8, null
-// when absent.
+// when absent.  The grid may be an X-slab of a larger one: its first plane
+// then sits at global x = x_offset, which the candidates add to the voxel's
+// own x (the closest coordinates are global), as
+// fiesta_tpu/parallel/sharding.py _relax_once_local does (:141-142);
+// bounds and neighbours stay the slab's own.
 //
 // What a sweep skips.  With fixed masks a sweep maps (d2, closest) to the
 // least of its own value and its neighbours' candidates, so once v has
@@ -159,6 +163,7 @@ struct RelaxParams {
   short toff[3][kMaxTileOffs];  // tile offsets that a changed tile marks
   int n, nsmall, ntoff;         // directions, of them reach <= 2; offsets
   int gx, gy, gz, ntx, nty, ntz;
+  int x_offset;                 // global x of the grid's first plane
   int max_iters, log_sweeps;
 };
 
@@ -184,7 +189,7 @@ struct RelaxAux {
 
 // The grid's extents in voxels and tiles, and the directions' counts.
 struct Dims {
-  int gx, gy, gz, ntx, nty, ntz, n, nsmall;
+  int gx, gy, gz, ntx, nty, ntz, n, nsmall, x_offset;
 };
 
 // One sweep's buffers: read, write.
@@ -436,8 +441,8 @@ __device__ __forceinline__ bool relax_tile(int t, Sweep s, RelaxMasks m,
       const unsigned long long* hcv = sm.hc + hc0;
       for_small<S>(sd, p.nsmall, [&](int dx, int dy, int dz) {
         if ((hbv[dx * kHY + dy] >> (lz + 2 + dz)) & 1u)
-          consider(hcv[(dx * kHY + dy) * kHZ + dz], x, y, z, recv, best,
-                   bw, pb, pw);
+          consider(hcv[(dx * kHY + dy) * kHZ + dz], x + p.x_offset, y, z,
+                   recv, best, bw, pb, pw);
       });
     }
     sm.d0[l] = d0;
@@ -471,7 +476,8 @@ __device__ __forceinline__ bool relax_tile(int t, Sweep s, RelaxMasks m,
 #pragma unroll
     for (int i = 0; i < kPerThread; ++i) {
       if (!(w[i][0] | w[i][1])) continue;
-      const int l = tid + i * kThreads, x = x0 + lx0 + 2 * i;
+      const int l = tid + i * kThreads,
+                x = x0 + lx0 + 2 * i + p.x_offset;  // global, for the candidates
       const bool recv = Push && (sm.vf[l] & 2u);
       int best = sm.best[l], pb = recv ? sm.pbest[l] : 0;
       unsigned long long bw = sm.bw[l], pw = recv ? sm.pw[l] : 0;
@@ -553,7 +559,8 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
   for (int j = tid; j < nj; j += kThreads)
     sm.jlin[j] = p.d[0][p.nsmall + j] * yz + p.d[1][p.nsmall + j] * p.gz +
                  p.d[2][p.nsmall + j];
-  const Dims g = {p.gx, p.gy, p.gz, p.ntx, p.nty, p.ntz, p.n, p.nsmall};
+  const Dims g = {p.gx,  p.gy, p.gz,     p.ntx,     p.nty,
+                  p.ntz, p.n,  p.nsmall, p.x_offset};
   for (int i = blockIdx.x * kThreads + tid; i < ntiles; i += stride) {
     a.stamp[i] = 0;
     a.chg[i] = -1;
@@ -735,7 +742,8 @@ cudaError_t resident_blocks(size_t smem, long long* out) {
 
 // d2 [X,Y,Z] i32 and closest [3,X,Y,Z] i16 in; d2_out / c_out the result,
 // d2_scr scratch of d2's shape and words scratch of 2 x X*Y*Z 8-byte words;
-// masks u8 [X,Y,Z] or null (the push masks both or neither); dirs
+// masks u8 [X,Y,Z] or null (the push masks both or neither); x_offset the
+// global x of the grid's first plane (0 for a whole grid); dirs
 // [3][ndirs] i16 in consideration order, the first nsmall of reach <= 2,
 // and toffs [3][ntoff] i16 the tile offsets a changed tile marks (host
 // memory, copied into the launch); state [3 + log_sweeps] i32 scratch
@@ -750,10 +758,10 @@ FIESTA_EXPORT int fiesta_relax(const int* d2_in, const short* c_in,
                                const unsigned char* source,
                                const unsigned char* push_src,
                                const unsigned char* push_recv, int gx, int gy,
-                               int gz, const short* dirs, int ndirs,
-                               int nsmall, const short* toffs, int ntoff,
-                               int max_iters, int log_sweeps, int* state,
-                               int* aux, cudaStream_t stream) {
+                               int gz, int x_offset, const short* dirs,
+                               int ndirs, int nsmall, const short* toffs,
+                               int ntoff, int max_iters, int log_sweeps,
+                               int* state, int* aux, cudaStream_t stream) {
   if (ndirs < 0 || ndirs > kMaxDirs || nsmall < 0 || nsmall > ndirs ||
       ntoff < 1 || ntoff > kMaxTileOffs || log_sweeps < 0 ||
       (!push_src != !push_recv))
@@ -769,6 +777,7 @@ FIESTA_EXPORT int fiesta_relax(const int* d2_in, const short* c_in,
   p.gx = gx;
   p.gy = gy;
   p.gz = gz;
+  p.x_offset = x_offset;
   p.ntx = (gx + kTX - 1) / kTX;
   p.nty = (gy + kTY - 1) / kTY;
   p.ntz = (gz + kTZ - 1) / kTZ;

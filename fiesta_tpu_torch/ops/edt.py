@@ -162,6 +162,22 @@ def minplus_pass(f: torch.Tensor, t: int, axis: int) -> torch.Tensor:
     return _minplus_pass_plain(f, t, axis)
 
 
+def binary_field(occupied: torch.Tensor) -> torch.Tensor:
+    """The binary pass's input: 0 where ``occupied`` (bool, or u8 {0,1}),
+    _INF_EDT elsewhere, i32."""
+    if occupied.dtype == torch.uint8:
+        occupied = occupied.view(torch.bool)
+    return torch.full(occupied.shape, _INF_EDT, dtype=torch.int32,
+                      device=occupied.device).masked_fill_(occupied, 0)
+
+
+def square_l1(d: torch.Tensor, t: int) -> torch.Tensor:
+    """Raw L1 distances (``binary_pass(..., square=False)``, possibly
+    composed across shards) -> the squared form ``binary_pass`` gives
+    (``ops/pallas/edt.py:342-345``)."""
+    return torch.where(d > t, _INF_EDT, d * d).to(torch.int32)
+
+
 def truncated_edt_d2(occupied: torch.Tensor, trunc_vox: int) -> torch.Tensor:
     """Exact squared EDT of ``occupied`` [X,Y,Z] (bool, or u8 {0,1} as the
     fusion drain gives it), truncated at ``trunc_vox``
@@ -170,14 +186,12 @@ def truncated_edt_d2(occupied: torch.Tensor, trunc_vox: int) -> torch.Tensor:
     Returns int32 [X,Y,Z]: exact |v - nearest obstacle|^2 in voxel units
     within trunc_vox of an obstacle, INF_D2 beyond.
     """
-    if occupied.dtype == torch.uint8:
-        occupied = occupied.view(torch.bool)
     t = int(trunc_vox)
     if t <= 0:
         return torch.full(occupied.shape, int(INF_D2), dtype=torch.int32,
-                          device=occupied.device).masked_fill_(occupied, 0)
-    f = torch.full(occupied.shape, _INF_EDT, dtype=torch.int32,
-                   device=occupied.device).masked_fill_(occupied, 0)
+                          device=occupied.device).masked_fill_(
+                              occupied.to(torch.bool), 0)
+    f = binary_field(occupied)
     # the JAX form clamps each pass's input at _INF_EDT; both passes emit
     # values <= _INF_EDT already, so the clamp is the identity here
     p1 = binary_pass(f, t)
@@ -479,23 +493,25 @@ def unpack_split(vps: torch.Tensor, plan):
             vps & ((1 << ba) - 1))
 
 
-def _axis_iota(shape, axis: int, device) -> torch.Tensor:
+def _axis_iota(shape, axis: int, device, start: int = 0) -> torch.Tensor:
     view = [1, 1, 1]
     view[axis] = shape[axis]
-    return torch.arange(shape[axis], dtype=torch.int32,
+    return torch.arange(start, start + shape[axis], dtype=torch.int32,
                         device=device).reshape(view)
 
 
 def _reconstruct_closest(shape, plan, val, sign, bstar, astar,
-                         packed_out: bool = False):
+                         packed_out: bool = False, x0: int = 0):
     """Recover c* from the winning (val, a*, b*) and the sign, and assemble
     (d2, closest) in [X,Y,Z] order: closest as one packed int32 grid
     (``grid.pack_closest`` layout, -1 undefined) when ``packed_out``, else
-    int16 [3,X,Y,Z] planes."""
+    int16 [3,X,Y,Z] planes.  ``x0``: the global x of the first plane of
+    an X-slab whose payloads hold global x (the sharded engine)."""
     t = plan["t"]
     a_ax, b_ax, c_ax = plan["a"], plan["b"], plan["c"]
     dev = val.device
-    ia, ib, ic = (_axis_iota(shape, ax, dev) for ax in (a_ax, b_ax, c_ax))
+    ia, ib, ic = (_axis_iota(shape, ax, dev, x0 if ax == 0 else 0)
+                  for ax in (a_ax, b_ax, c_ax))
     da, db = ia - astar, ib - bstar
     dc2 = val - da * da - db * db
     dc = torch.round(sqrt_f32(torch.clamp(dc2, min=0).to(torch.float32))

@@ -98,7 +98,8 @@ def _relax_pass(d2, closest, src, dirs, shape, self_c):
 
 
 def relax_once(d2: torch.Tensor, closest: torch.Tensor, update_mask,
-               source_mask, dirs, push_src_mask=None, push_recv_mask=None):
+               source_mask, dirs, push_src_mask=None, push_recv_mask=None,
+               x_offset: int = 0):
     """One Jacobi sweep of the closest-obstacle relaxation
     (``esdf.py:127-184``): every voxel pulls the best candidate
     ``|v - closest[v+d]|^2`` from its ``dirs`` neighbours.
@@ -108,10 +109,12 @@ def relax_once(d2: torch.Tensor, closest: torch.Tensor, update_mask,
     (None: all).  ``push_src_mask`` / ``push_recv_mask`` (windowed mode):
     a second pass from the unchanged state reads only ``push_src_mask``
     sources, and replaces the first pass's result where
-    ``push_recv_mask`` holds and it is strictly smaller.  Returns
-    (new_d2, new_closest, changed 0-dim bool)."""
+    ``push_recv_mask`` holds and it is strictly smaller.  ``x_offset``:
+    the global x of the first plane of an X-slab whose closest
+    coordinates are global (``sharding.py:141-142``).  Returns (new_d2,
+    new_closest, changed 0-dim bool)."""
     shape = tuple(d2.shape)
-    self_c = coord_grids(shape, d2.device).to(torch.int32)
+    self_c = _self_coords(shape, d2.device, x_offset)
     src = closest
     if source_mask is not None:
         src = torch.where(source_mask[None], closest, UNDEFINED_COORD)
@@ -126,6 +129,30 @@ def relax_once(d2: torch.Tensor, closest: torch.Tensor, update_mask,
         best_d2 = torch.where(update_mask, best_d2, d2)
         best_c = torch.where(update_mask[None], best_c, closest)
     return best_d2, best_c, torch.any(best_d2 < d2)
+
+
+def _self_coords(shape, device, x_offset: int = 0) -> torch.Tensor:
+    """[3, X, Y, Z] i32 voxel coordinates, x shifted by ``x_offset``."""
+    c = coord_grids(shape, device).to(torch.int32)
+    if x_offset:
+        c[0] += int(x_offset)
+    return c
+
+
+def relax_sweep(d2: torch.Tensor, closest: torch.Tensor, update_mask,
+                source_mask, dirs, x_offset: int = 0):
+    """One sweep of ``relax_once`` (no push masks), as the sharded engine
+    runs it on a halo-extended X-slab: (d2, closest, changed 0-dim bool).
+    CUDA tensors: one launch of the ``relax`` kernel at ``max_iters`` 1,
+    its "changed" word read from its state on the card; CPU:
+    ``relax_once``."""
+    if d2.is_cuda:
+        d2, closest, state = kernels.relax_sweeps(
+            d2, closest, update_mask, source_mask, dirs, max_iters=1,
+            x_offset=x_offset)
+        return d2, closest, state[0] > 0
+    return relax_once(d2, closest, update_mask, source_mask, dirs,
+                      x_offset=x_offset)
 
 
 def _relax_to_fixpoint_plain(d2, closest, update_mask, source_mask, dirs,
@@ -162,16 +189,19 @@ def relax_to_fixpoint(d2: torch.Tensor, closest: torch.Tensor, update_mask,
 
 def apply_occupancy_changes(d2: torch.Tensor, closest: torch.Tensor,
                             occupied: torch.Tensor,
-                            insert_mask: torch.Tensor):
+                            insert_mask: torch.Tensor, x_offset: int = 0):
     """Insert and delete effects before relaxation (``esdf.py:224-264``):
     inserts take d2 = 0 and closest = self; every voxel whose recorded
     closest obstacle is no longer occupied (the reference's DLL bucket of
-    a deleted obstacle) resets to INF_D2 / undefined.  Returns (d2,
-    closest, reset_mask)."""
+    a deleted obstacle) resets to INF_D2 / undefined.  On an X-slab whose
+    first plane is global x ``x_offset``, ``occupied`` is the whole grid's
+    (the sharded engine gathers it) and inserts take global coordinates.
+    Returns (d2, closest, reset_mask)."""
     shape = tuple(d2.shape)
     d2 = torch.where(insert_mask, 0, d2)
     closest = torch.where(insert_mask[None],
-                          coord_grids(shape, d2.device), closest)
+                          _self_coords(shape, d2.device, x_offset).to(
+                              closest.dtype), closest)
     defined = closest[0] >= 0
     _, gy, gz = shape
     c = closest.to(torch.int32)

@@ -107,6 +107,16 @@ def _in_window(shape, window, device) -> torch.Tensor:
     return m[0][:, None, None] & m[1][None, :, None] & m[2][None, None, :]
 
 
+def _slab_window(window, x_offset):
+    """A global window in the frame of an X-slab whose first plane is
+    global x ``x_offset`` (``fuse.py:181-182``)."""
+    if x_offset is None or window is None:
+        return window
+    shift = torch.zeros(3, dtype=torch.int32, device=window[0].device)
+    shift[0] = int(x_offset)
+    return tuple(w.reshape(3).to(torch.int32) - shift for w in window)
+
+
 def _fuse_drain_plain(logodds, seen, hit_cnt, miss_cnt, *, l_hit, l_miss,
                       clamp_min, clamp_max, occ_thresh, occ_is_eq,
                       window=None):
@@ -145,12 +155,10 @@ def fuse_drain(logodds, seen, hit_cnt, miss_cnt, *, l_hit, l_miss,
     and every counter is still zeroed.  Every output is a new tensor and
     the inputs are left as they are (the JAX kernel aliases them in
     place).  CUDA tensor: the ``fuse`` kernel; CPU: the plain version.
-    ``x_offset`` (a shard's slab origin) comes with the multi-GPU port and
-    raises."""
-    if x_offset is not None:
-        raise NotImplementedError(
-            "x_offset places a shard's slab in the global window; the "
-            "multi-GPU engine that passes it is not ported yet")
+    ``x_offset``: the inputs are an X-slab whose first plane is global x
+    ``x_offset`` and ``window`` is in global voxels; the window shifts by
+    -x_offset into the slab (``fuse.py:181-182``)."""
+    window = _slab_window(window, x_offset)
     args = dict(l_hit=l_hit, l_miss=l_miss, clamp_min=clamp_min,
                 clamp_max=clamp_max, occ_thresh=occ_thresh,
                 occ_is_eq=occ_is_eq, window=window)

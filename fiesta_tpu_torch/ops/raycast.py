@@ -446,22 +446,26 @@ def carve_free_mask(cfg: FiestaConfig, seeds: torch.Tensor,
 def _apply_box_counts_plain(hit_cnt, miss_cnt, starts, hitc, missc):
     """Plain version of the counter apply: one saturating u8 add per scan,
     in scan order (the JAX ``rmw`` mode), into the given grids in place.
-    The box region's flat indices are built on the device from
-    ``starts``, so no value leaves the device.  Returns (hit_cnt,
-    miss_cnt), the tensors it was given."""
-    gy, gz = hit_cnt.shape[1:]
+    Box voxels outside the grids are skipped (the sharded engine's boxes
+    reach past its slabs).  Returns (hit_cnt, miss_cnt), the tensors it
+    was given."""
+    grid = hit_cnt.shape
+    gy, gz = grid[1:]
     box = hitc.shape[1:]
     dev = hit_cnt.device
-    offs = (torch.arange(box[0], device=dev)[:, None, None] * (gy * gz)
-            + torch.arange(box[1], device=dev)[None, :, None] * gz
-            + torch.arange(box[2], device=dev)[None, None, :]).reshape(-1)
+    ax = [torch.arange(n, device=dev) for n in box]
     st = starts.to(torch.int64)
-    base = st[:, 0] * (gy * gz) + st[:, 1] * gz + st[:, 2]        # [K]
     hit_flat, miss_flat = hit_cnt.view(-1), miss_cnt.view(-1)
     for i in range(starts.shape[0]):
-        idx = offs + base[i]
+        c = [a + st[i, j] for j, a in enumerate(ax)]
+        ok = [(v >= 0) & (v < g) for v, g in zip(c, grid)]
+        inside = (ok[0][:, None, None] & ok[1][None, :, None]
+                  & ok[2][None, None, :]).reshape(-1)
+        idx = (c[0][:, None, None] * (gy * gz) + c[1][None, :, None] * gz
+               + c[2][None, None, :]).reshape(-1)[inside]
         for flat, inc in ((hit_flat, hitc[i]), (miss_flat, missc[i])):
-            reg = flat[idx].to(torch.int32) + inc.reshape(-1).to(torch.int32)
+            reg = flat[idx].to(torch.int32) + inc.reshape(-1)[inside].to(
+                torch.int32)
             flat[idx] = torch.clamp(reg, max=255).to(torch.uint8)
     return hit_cnt, miss_cnt
 

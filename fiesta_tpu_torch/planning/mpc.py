@@ -1,5 +1,5 @@
 """Sampling MPC with ESDF-gradient refinement (port of
-``fiesta_tpu/planning/mpc.py``, without ``make_sharded_planner``).
+``fiesta_tpu/planning/mpc.py``).
 
 A double-integrator point mass with velocity and acceleration limits.
 One solve (``plan_step``) draws K perturbed control sequences, rolls them
@@ -8,6 +8,7 @@ axis), scores them against the distance grid (MPPI: a softmax over K and
 the weighted control), then refines the winner with a few Adam steps on
 the gradient of the trilinearly interpolated collision cost, taken by
 autograd through ``query.get_dist_grad_trilinear``.
+``make_sharded_planner`` splits the K rollouts over a mesh's shards.
 
 Plain PyTorch on the device of the distance grid: the JAX package writes
 no Pallas kernel for the planner.  f32 expressions keep the JAX op order,
@@ -165,16 +166,30 @@ def _plan_step_impl(cfg: FiestaConfig, mpc: MPCConfig,
     """One MPC solve from standard normal draws ``normals`` [H,3,K] f32
     (``mpc.py:189-271``): MPPI sampling, then ``refine_steps`` Adam steps
     on the trajectory cost's gradient."""
-    noise = normals * mpc.sigma
-    samples = torch.clamp(nominal[:, :, None] + noise, -mpc.a_max,
-                          mpc.a_max)
+    samples = _samples(mpc, nominal, normals)
     costs = _sample_costs_soa(cfg, mpc, dist_grid, p0, v0, goal, samples)
     beta = torch.min(costs)
     w = torch.softmax(-(costs - beta) / f32_scalar(mpc.temperature, costs),
                       dim=0)
     mppi_ctrl = torch.clamp(torch.einsum("hck,k->hc", samples, w),
                             -mpc.a_max, mpc.a_max)
+    return _refine(cfg, mpc, dist_grid, p0, v0, goal, mppi_ctrl, beta,
+                   torch.mean(costs))
 
+
+def _samples(mpc: MPCConfig, nominal: torch.Tensor,
+             normals: torch.Tensor) -> torch.Tensor:
+    """The MPPI control samples [H,3,K] from standard normals."""
+    return torch.clamp(nominal[:, :, None] + normals * mpc.sigma,
+                       -mpc.a_max, mpc.a_max)
+
+
+def _refine(cfg: FiestaConfig, mpc: MPCConfig, dist_grid: torch.Tensor,
+            p0: torch.Tensor, v0: torch.Tensor, goal: torch.Tensor,
+            mppi_ctrl: torch.Tensor, beta: torch.Tensor,
+            mean_cost: torch.Tensor) -> PlanResult:
+    """``refine_steps`` Adam steps on the trajectory cost's gradient from
+    the MPPI control, and the solve's result."""
     def grad(ctrl):
         """The refinement cost's gradient at ``ctrl`` (``jax.value_and_grad``
         at ``mpc.py:237``)."""
@@ -203,8 +218,7 @@ def _plan_step_impl(cfg: FiestaConfig, mpc: MPCConfig,
     final_pos = rollout_positions(mpc, p0, v0, ctrl)
     final_cost = trajectory_cost(cfg, mpc, dist_grid, final_pos, ctrl, goal)
     return PlanResult(controls=ctrl, positions=final_pos, cost=final_cost,
-                      best_sample_cost=beta,
-                      mean_sample_cost=torch.mean(costs))
+                      best_sample_cost=beta, mean_sample_cost=mean_cost)
 
 
 def plan_step(cfg: FiestaConfig, mpc: MPCConfig, dist_grid: torch.Tensor,
@@ -233,3 +247,60 @@ def shift_nominal(controls: torch.Tensor) -> torch.Tensor:
     """Receding-horizon warm start: drop the executed step, repeat the
     last."""
     return torch.cat([controls[1:], controls[-1:]], dim=0)
+
+
+def make_sharded_planner(cfg: FiestaConfig, mpc: MPCConfig, mesh):
+    """The planner with its K rollouts split over ``mesh``'s shards
+    (``mpc.py:293-324``, scenario parallelism): each shard scores its K/n
+    samples against its copy of the distance grid, and only the softmax's
+    normaliser and the weighted control sum across shards (with the
+    least cost, its shift).  The refinement runs once, on the first local
+    shard's device.
+
+    Returns planner(dist_grids, p0, v0, goal, nominal, generator) ->
+    PlanResult, ``plan_step``'s arguments with ``dist_grids`` a grid per
+    local shard (or one grid, copied to each); the normals [H,3,K] are
+    drawn once from ``generator`` (or given as ``normals=``, as
+    ``_plan_step_impl`` takes them) and split on K, so a solve equals
+    ``plan_step`` from the same generator within the planner's
+    tolerances (the sums over K run in another order)."""
+    from ..parallel.sharding import _to
+
+    n = mesh.size
+    if mpc.n_rollouts % n:
+        raise ValueError(
+            f"n_rollouts={mpc.n_rollouts} must divide by the size of mesh "
+            f"axis 'x' ({n}) that shards the rollouts")
+    kl = mpc.n_rollouts // n
+
+    def planner(dist_grids, p0, v0, goal, nominal, generator=None,
+                normals=None):
+        if isinstance(dist_grids, torch.Tensor):
+            dist_grids = [_to(dist_grids, d) for d in mesh.devices]
+        if normals is None:
+            normals = torch.randn((mpc.horizon, 3, mpc.n_rollouts),
+                                  generator=generator, dtype=torch.float32,
+                                  device=generator.device)
+        samples, costs = [], []
+        for grid, i, dev in zip(dist_grids, mesh.local, mesh.devices):
+            s = _samples(mpc, _to(nominal, dev),
+                         _to(normals[..., i * kl:(i + 1) * kl], dev))
+            samples.append(s)
+            costs.append(_sample_costs_soa(cfg, mpc, grid, _to(p0, dev),
+                                           _to(v0, dev), _to(goal, dev), s))
+        beta = mesh.pmin([torch.min(c) for c in costs])
+        x = [-(c - b) / f32_scalar(mpc.temperature, c)
+             for c, b in zip(costs, beta)]
+        top = mesh.pmax([torch.max(xi) for xi in x])
+        e = [torch.exp(xi - t) for xi, t in zip(x, top)]
+        z = mesh.psum([torch.sum(ei) for ei in e])
+        ctrl = mesh.psum([torch.einsum("hck,k->hc", s, ei / zi)
+                          for s, ei, zi in zip(samples, e, z)])[0]
+        mppi_ctrl = torch.clamp(ctrl, -mpc.a_max, mpc.a_max)
+        total = mesh.psum([torch.sum(c) for c in costs])[0]
+        mean_cost = total / f32_scalar(mpc.n_rollouts, total)
+        dev = mesh.devices[0]
+        return _refine(cfg, mpc, dist_grids[0], _to(p0, dev), _to(v0, dev),
+                       _to(goal, dev), mppi_ctrl, beta[0], mean_cost)
+
+    return planner

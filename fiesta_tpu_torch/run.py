@@ -21,6 +21,8 @@ Usage::
     python -m fiesta_tpu_torch.run --scrolling ...       # unbounded world
     python -m fiesta_tpu_torch.run --scrolling --persist world.npz
     python -m fiesta_tpu_torch.run --platform cpu ...    # plain PyTorch, CPU
+    python -m fiesta_tpu_torch.run --devices 8 ...       # sharded engine
+    python -m fiesta_tpu_torch.run --platform cpu --devices 8 --mpc
 
 Recorded sequence format (.npz): arrays ``t [N]``, ``pos [N,3]``,
 ``quat [N,4]`` (wxyz), and either ``clouds [N,P,3]`` (sensor frame) or
@@ -120,8 +122,9 @@ def build_argparser() -> argparse.ArgumentParser:
                         "run refuses to start without one) or the CPU "
                         "(plain PyTorch versions of every kernel)")
     p.add_argument("--devices", type=int, default=0, metavar="N",
-                   help="the sharded multi-device engine (not ported yet: "
-                        "any N > 0 is refused)")
+                   help="run the SHARDED engine over an N-shard X-slab mesh: "
+                        "N cards with --platform cuda, a virtual mesh of N "
+                        "shards on the CPU with --platform cpu")
     return p
 
 
@@ -192,18 +195,66 @@ PRESET_TOPICS = {
 
 
 def _device(args) -> torch.device:
-    """The run's device; refuses (SystemExit) what the port cannot run:
-    the multi-device engine, and CUDA without a card."""
-    if args.devices:
-        raise SystemExit(
-            f"--devices {args.devices}: the sharded multi-device engine is "
-            "not ported to fiesta_tpu_torch yet; run on one device")
+    """The run's device; refuses (SystemExit) CUDA without a card."""
     if args.platform == "cuda" and not torch.cuda.is_available():
         raise SystemExit(
             "no CUDA device available: fiesta_tpu_torch.run runs on the "
             "card by default; pass --platform cpu to run the plain PyTorch "
             "versions on the CPU")
     return torch.device(args.platform)
+
+
+def _sharded_pipeline(args, cfg, dev, load_archive):
+    """The sharded engine of ``--devices N`` (``fiesta_tpu/run.py:305-349``)
+    with JAX's refusals: a virtual mesh of N shards on the CPU with
+    ``--platform cpu``, N cards with ``--platform cuda``."""
+    if args.esdf_mode == "incremental":
+        raise SystemExit("--devices runs the sharded rebuild tick; "
+                         "incremental mode is single-device")
+    if args.method != "scanline":
+        raise SystemExit("--devices uses the scanline integrator "
+                         f"(got --method {args.method})")
+    if args.mpc or args.fly:
+        from .planning.mpc import MPCConfig
+
+        if MPCConfig().n_rollouts % args.devices:
+            raise SystemExit(
+                f"--mpc/--fly with --devices {args.devices}: the "
+                f"{MPCConfig().n_rollouts} MPPI rollouts must divide "
+                "by the mesh size")
+    from .parallel.engine import (ShardedFiestaPipeline,
+                                  ShardedScrollingFiestaPipeline)
+    from .parallel.sharding import make_mesh
+
+    if dev.type == "cpu":
+        devices = [dev] * args.devices
+    else:
+        n_avail = torch.cuda.device_count()
+        if n_avail < args.devices:
+            raise SystemExit(
+                f"--devices {args.devices} but only {n_avail} devices "
+                "visible (use --platform cpu for a virtual mesh)")
+        devices = None
+    if cfg.grid_shape[0] % args.devices:
+        raise SystemExit(
+            f"grid X={cfg.grid_shape[0]} must divide by --devices "
+            f"{args.devices} (X-slab sharding)")
+    mesh = make_mesh(args.devices, devices)
+    if args.scrolling:
+        archive = load_archive()
+        pipe = ShardedScrollingFiestaPipeline(
+            cfg, mesh=mesh, scans_per_tick=args.update_every,
+            archive=None if args.resume else archive)
+        if args.resume:
+            pipe.archive = archive
+        print(f"sharded scrolling engine: {args.devices}-device "
+              "X-slab mesh, unbounded world", file=sys.stderr)
+    else:
+        pipe = ShardedFiestaPipeline(cfg, mesh=mesh,
+                                     scans_per_tick=args.update_every)
+        print(f"sharded engine: {args.devices}-device X-slab mesh",
+              file=sys.stderr)
+    return pipe
 
 
 def main(argv=None) -> int:
@@ -299,7 +350,9 @@ def main(argv=None) -> int:
             return a
         return TileArchive()
 
-    if args.scrolling:
+    if args.devices:
+        pipe = _sharded_pipeline(args, cfg, dev, load_archive)
+    elif args.scrolling:
         from .scrolling import ScrollingFiestaPipeline
 
         archive = load_archive()
@@ -327,6 +380,8 @@ def main(argv=None) -> int:
         if ck_cfg.grid_shape != cfg.grid_shape:
             raise SystemExit("checkpoint grid does not match preset")
         pipe.state = state
+        if hasattr(pipe, "_reshard_state"):
+            pipe._reshard_state()   # sharded engines cut it into slabs
         if args.scrolling:
             anchor = checkpoint.load_anchor(args.resume)
             if anchor is not None:
@@ -588,15 +643,22 @@ def main(argv=None) -> int:
                           device=dev)
         goal = torch.tensor(center + [0.0, 1.0, 0.0], dtype=torch.float32,
                             device=dev)
-        dist = pipe.sdf_grid() if args.sdf else pipe.distance_grid()
+        # the sharded plan() replicates its own grid; materialise `dist`
+        # only where this process reads it
+        dist = ((pipe.sdf_grid() if args.sdf else pipe.distance_grid())
+                if (not args.devices or args.fly) else None)
         v_zero = torch.zeros(3, device=dev)
         nominal_zero = torch.zeros((mpc_cfg.horizon, 3), device=dev)
 
     if args.mpc:
         with Timer("mpc_plan"):
-            res = mpc_mod.plan_step(
-                cfg, mpc_cfg, dist, p0, v_zero, goal, nominal_zero,
-                torch.Generator(device=dev).manual_seed(0))
+            gen = torch.Generator(device=dev).manual_seed(0)
+            if args.devices:
+                # the rollouts split over the map's mesh
+                res = pipe.plan(goal, mpc_cfg, p0=p0, generator=gen)
+            else:
+                res = mpc_mod.plan_step(cfg, mpc_cfg, dist, p0, v_zero,
+                                        goal, nominal_zero, gen)
             pipe.sync_device()
         print(f"MPC: {mpc_cfg.n_rollouts} rollouts, cost "
               f"{float(res.cost.cpu().numpy()):.2f}, plan ends at "
@@ -618,8 +680,12 @@ def main(argv=None) -> int:
         reached = False
         for _ in range(args.fly_steps):
             with Timer("fly_step"):
-                res = mpc_mod.plan_step(cfg, mpc_cfg, dist, p, v, goal,
-                                        nominal, gen)
+                if args.devices:
+                    res = pipe.plan(goal, mpc_cfg, p0=p, v0=v,
+                                    nominal=nominal, generator=gen)
+                else:
+                    res = mpc_mod.plan_step(cfg, mpc_cfg, dist, p, v, goal,
+                                            nominal, gen)
                 a = res.controls[0]
                 v = torch.minimum(torch.maximum(v + a * mpc_cfg.dt, v_lo),
                                   v_hi)

@@ -88,8 +88,11 @@ class ScrollingMixin:
     """The scrolling-grid and persistent-archive machinery
     (``scrolling.py:97-405``), mixed into an engine ahead of it in the
     MRO; the engine provides ``state``, ``cfg``, ``process`` and the
-    queries, and ``_drain_counters`` flushes pending counters through one
-    update."""
+    queries.  Two hooks let an engine specialise the device work:
+    ``_drain_counters`` flushes pending counters through one update, and
+    ``_reshard_state`` re-cuts the state into the engine's slabs after
+    the host-side strip writes (a no-op on one device; the sharded
+    engine's ``parallel.engine``)."""
 
     def _init_scrolling(self, recenter_fraction: float, archive) -> None:
         self.origin_vox = np.zeros(3, np.int64)
@@ -108,6 +111,9 @@ class ScrollingMixin:
             self.cfg, self.state,
             self._upload(np.asarray(self.cur_pos, np.float32)),
             use_window=not self.cfg.global_update)
+
+    def _reshard_state(self) -> None:
+        pass
 
     # -- frame bookkeeping -------------------------------------------------
 
@@ -133,6 +139,7 @@ class ScrollingMixin:
         shift_vox = np.round(off / cfg.resolution).astype(np.int64)
         lims = np.asarray(cfg.grid_shape, np.int64) - 1
         self._apply_scroll(np.clip(shift_vox, -lims, lims))
+        self._reshard_state()
         return True
 
     def _apply_scroll(self, shift_vox: np.ndarray) -> None:
@@ -165,6 +172,7 @@ class ScrollingMixin:
             self.state, logodds=self._upload(lo_np),
             seen=self._upload(seen_np.astype(np.uint8)))
         self._rederive_distances()
+        self._reshard_state()
 
     def _recenter_persistent(self, robot_pos) -> bool:
         """Recenter in fixed steps of grid/4 per axis (the JAX package's
@@ -204,6 +212,8 @@ class ScrollingMixin:
             scrolled = True
         if restored:
             self._rederive_distances()
+        if scrolled:
+            self._reshard_state()
         return scrolled
 
     def _axis_strip(self, shift_vox, axis: int, entering: bool):

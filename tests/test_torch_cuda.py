@@ -56,18 +56,23 @@ def _eq(a, b):
     assert torch.equal(a, b), int((a != b).sum())
 
 
-def _cuda_kernels(fn, attempts=3):
+def _cuda_kernels(fn, attempts=3, inplace=()):
     """(fn(), the names of the CUDA kernels it launched, in order), read
     from ``torch.profiler``.  The trace drops the first kernels launched
     in it (one, on some cards two), so device sleeps go first and are
     left out.  A trace in which no sleep is left, or no kernel at all,
     may have dropped some of ``fn``'s: it is taken again, up to
-    ``attempts`` times, and ``kernels.LAUNCHES`` counts one call."""
+    ``attempts`` times, and ``kernels.LAUNCHES`` counts one call.  The
+    tensors ``inplace``, which ``fn`` updates in place, are put back as
+    they were before each attempt."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     before = dict(kernels.LAUNCHES)
+    saved = [x.clone() for x in inplace]
     for attempt in range(attempts):
         kernels.LAUNCHES.update(before)
+        for x, x0 in zip(inplace, saved):
+            x.copy_(x0)
         torch.cuda.synchronize()
         with torch.profiler.profile(activities=acts) as prof:
             for _ in range(8):
@@ -332,7 +337,8 @@ def test_boxadd_kernel_at_tick_boxes(dev, preset):
             ref = raycast._apply_box_counts_plain(h.clone(), m.clone(),
                                                   starts, bh, bm)
             got, names = _cuda_kernels(
-                lambda: raycast.apply_box_counts(h, m, starts, bh, bm))
+                lambda: raycast.apply_box_counts(h, m, starts, bh, bm),
+                inplace=(h, m))
             assert names == ["boxadd_kernel"]
             assert got[0] is h and got[1] is m
             for a, b in zip(got, ref):
@@ -1188,3 +1194,114 @@ def test_app_prefetch_copies_on_the_loop_stream(dev, tmp_path, monkeypatch):
     _, b = checkpoint.load(str(tmp_path / "side.npz"), device=dev)
     for f in dataclasses.fields(a):
         _eq(getattr(a, f.name), getattr(b, f.name))
+
+
+# ---------------------------------------------------------------------------
+# the sharded engine's forms: the relax kernel's x origin, the box add's
+# out-of-slab corners, the tick on a virtual mesh of the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("x0", [0, 8, 37])
+@pytest.mark.parametrize("conn", [24, 62])
+def test_relax_kernel_x_origin(dev, conn, x0):
+    """One sweep on a halo-extended X-slab (8 own planes, a halo of the
+    stencil's reach a side) whose closest coordinates are global: the
+    kernel at ``max_iters`` 1 with ``x_offset`` (``esdf.relax_sweep``)
+    against ``relax_once(x_offset=...)``, the update mask on the own
+    planes, the halos read and never written, the change flag equal."""
+    from fiesta_tpu_torch.parallel import sharding
+
+    dirs = stencil_offsets(conn)
+    pad = sharding._stencil_reach(dirs)
+    shape = (8 + 2 * pad, 36, 24)
+    occ, d2, c = _relax_seeds(shape, 0.01, conn + x0, dev)
+    c = torch.where(c[:1] >= 0, c + torch.tensor(
+        [x0 - pad, 0, 0], dtype=torch.int16, device=dev)[:, None, None,
+                                                         None], c)
+    own = torch.zeros(shape, dtype=torch.bool, device=dev)
+    own[pad:pad + 8] = True
+    for state in range(3):
+        got = esdf.relax_sweep(d2, c, own, None, dirs, x_offset=x0 - pad)
+        ref = esdf.relax_once(d2, c, own, None, dirs, x_offset=x0 - pad)
+        for a, b in zip(got, ref):
+            _eq(a, b)
+        _eq(got[0][:pad], d2[:pad])
+        _eq(got[1][:, pad + 8:], c[:, pad + 8:])
+        d2, c = ref[0], ref[1]
+    assert bool(ref[2]) or state == 2
+    # a whole grid at x_offset 0 is the package's sweep
+    occ, d2, c = _relax_seeds(RELAX_SHAPE, 0.002, conn, dev)
+    got = kernels.relax_to_fixpoint(d2, c, None, None, dirs, max_iters=1,
+                                    x_offset=0)
+    ref = esdf._relax_to_fixpoint_plain(d2, c, None, None, dirs, 1)
+    for a, b in zip(got, ref):
+        _eq(a, b)
+
+
+def test_boxadd_kernel_out_of_slab_starts(dev):
+    """Corners shifted into a slab's frame (the sharded tick's box add):
+    boxes that straddle either face of a 10-plane slab, lie inside it or
+    miss it, against the plain version (which skips what lies outside)."""
+    lx, gy, gz = 10, 24, 16
+    box = (13, 8, 16)
+    starts = [[-5, 0, 0], [7, 8, 0], [-13, 8, 0], [10, 0, 0], [-20, 16, 0],
+              [2, 4, 0], [-3, 16, 0]]
+    rng = np.random.default_rng(7)
+    hit = rng.integers(240, 256, (lx, gy, gz)).astype(np.uint8)
+    miss = rng.integers(0, 256, (lx, gy, gz)).astype(np.uint8)
+    miss0 = miss.copy()
+    k = len(starts)
+    bh = rng.integers(0, 3, (k,) + box).astype(np.uint8)
+    bm = rng.integers(0, 4, (k,) + box).astype(np.uint8)
+    h, m, st, bh, bm = (torch.from_numpy(a).to(dev) for a in
+                        (hit, miss, np.asarray(starts, np.int32), bh, bm))
+    ref = raycast._apply_box_counts_plain(h.clone(), m.clone(), st, bh, bm)
+    got = raycast.apply_box_counts(h, m, st, bh, bm)
+    for a, b in zip(got, ref):
+        _eq(a, b)
+    assert not torch.equal(ref[1].cpu(), torch.from_numpy(miss0))
+
+
+@pytest.mark.parametrize("n", [2, 8])
+def test_sharded_tick_on_a_virtual_mesh(dev, n):
+    """The sharded tick on n shards of the card (slabs of 32 and 8
+    planes, t = 12: the raw binary passes, the compose, the halo'd
+    closest passes at slab shapes) bit-equal to the single-device tick on
+    the card, eager closest, two ticks; the lazy derive too."""
+    from fiesta_tpu_torch.parallel import sharding
+
+    base = ft.FiestaConfig(resolution=0.1, origin=(-3.2, -2.0, -1.2),
+                           map_size=(6.4, 4.0, 2.4), min_ray_length=0.2,
+                           max_ray_length=1.5, trunc_dist=1.2,
+                           edt_fine_dist=1.2, esdf_mode="rebuild")
+    rng = np.random.default_rng(7)
+    origins = rng.uniform(-1.0, 1.0, (3, 3)).astype(np.float32)
+    origins[:, 2] *= 0.3
+    pts = (origins[:, None, :]
+           + rng.uniform(-2.0, 2.0, (3, 300, 3))).astype(np.float32)
+    tfs = np.tile(np.eye(4, dtype=np.float32), (3, 1, 1))
+    tfs[:, :3, 3] = origins
+    args = [torch.from_numpy(a).to(dev) for a in (
+        pts - origins[:, None, :], rng.uniform(size=(3, 300)) < 0.9, tfs,
+        origins[-1])]
+    mesh = sharding.make_mesh(n, [dev] * n)
+    for cfg in (dataclasses.replace(base, closest_mode="eager"), base):
+        ref = ft.make_state(cfg, dev)
+        state = sharding.shard_state(ft.make_state(cfg, dev), mesh)
+        step = sharding.sharded_fused_tick(cfg, mesh)
+        kernels.reset_launch_counts()
+        for _ in range(2):
+            ref, rs = ft.fused_batch_step(cfg, ref, *args)
+            state, ss = step(state, *args)
+        got = sharding.gather_state(state, mesh)
+        for f in ft.grid.FIELDS:
+            _eq(getattr(got, f), getattr(ref, f))
+        for a, b in zip(ss, rs):
+            _eq(a, b)
+        assert int(rs.num_inserted) > 0
+        assert kernels.LAUNCHES["boxadd"] >= 2 * n
+        if cfg.lazy_closest:
+            cl = sharding.sharded_derive_closest(cfg, mesh)(state.logodds)
+            _eq(sharding._gather_axis(mesh, cl, 0),
+                pipeline.derive_closest(cfg, ref.logodds))

@@ -38,7 +38,9 @@ def test_package_import_leaves_jax_out():
             "fiesta_tpu_torch.scrolling, fiesta_tpu_torch.archive, "
             "fiesta_tpu_torch.checkpoint, fiesta_tpu_torch.viz, "
             "fiesta_tpu_torch.run, fiesta_tpu_torch.debug, "
-            "fiesta_tpu_torch.io.rosbag, fiesta_tpu_torch.io.lz4f; "
+            "fiesta_tpu_torch.io.rosbag, fiesta_tpu_torch.io.lz4f, "
+            "fiesta_tpu_torch.parallel, fiesta_tpu_torch.parallel.sharding, "
+            "fiesta_tpu_torch.parallel.engine; "
             "print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'fiesta_tpu')))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -86,6 +88,38 @@ def test_entry_points_default_to_cuda(tmp_path):
     assert ScrollingFiestaPipeline(cfg, device="cpu").state.d2.device.type \
         == "cpu"
     assert checkpoint.load(path, device="cpu")[1].d2.device.type == "cpu"
+
+
+def test_sharded_entry_points_default_to_cuda():
+    """The multi-device engine's meshes are cards unless given CPU
+    devices: without a card, the default mesh, a CUDA virtual mesh, the
+    sharded engine and ``distributed_mesh`` refuse (before any process
+    group starts); given CPU devices they run there."""
+    from fiesta_tpu_torch.parallel import engine, sharding
+
+    cfg = ft.FiestaConfig(resolution=0.5, origin=(0.0, 0.0, 0.0),
+                          map_size=(4.0, 4.0, 2.0))
+    if torch.cuda.is_available():
+        mesh = sharding.make_mesh(1)
+        assert mesh.devices[0].type == "cuda"
+        assert engine.ShardedFiestaPipeline(cfg, mesh=mesh).state.d2.is_cuda
+        return
+    with pytest.raises(ValueError, match="requested a 2-device mesh"):
+        sharding.make_mesh(2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        sharding.make_mesh(2, ["cuda"] * 2)
+    with pytest.raises(ValueError, match="at least one shard"):
+        engine.ShardedFiestaPipeline(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        sharding.distributed_mesh(init_method="file:///nonexistent",
+                                  world_size=1, rank=0)
+    import torch.distributed as dist
+
+    assert not dist.is_initialized()
+    mesh = sharding.make_mesh(2, ["cpu"] * 2)
+    pipe = engine.ShardedFiestaPipeline(cfg, mesh=mesh)
+    assert pipe.state.d2.device.type == "cpu"
+    assert all(s.device.type == "cpu" for s in pipe.sharded_state.d2)
 
 
 def test_app_refuses_to_run_on_the_cpu_unasked():

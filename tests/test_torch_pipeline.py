@@ -217,7 +217,9 @@ def test_tick_gives_up_its_input_state():
 
 
 def test_tick_raises_for_paths_not_ported():
-    """The drain's shard offset (multi-GPU) is not ported: it raises.  The
+    """Paths that once raised until they were ported.  The drain's shard
+    offset (the sharded engine's): a slab's drain with ``x_offset`` equals
+    the whole grid's windowed drain on the slab's planes.  The
     hierarchical EDT (edt_fine_dist < trunc_dist) is: ``rebuild_d2``,
     ``rebuild_esdf`` and the eager tick's rebuild equal the JAX package's
     on the same occupancy.  So is the incremental engine (it raised until
@@ -243,14 +245,20 @@ def test_tick_raises_for_paths_not_ported():
             assert g.dtype == torch.int32
             np.testing.assert_array_equal(g.numpy(), np.asarray(r))
     state = ft.make_state(cfg, device="cpu")
-    with pytest.raises(NotImplementedError):
-        tfusion.fuse_drain(
-            state.logodds, state.seen, state.hit_cnt, state.miss_cnt,
-            l_hit=0.8, l_miss=-0.4, clamp_min=-2.0, clamp_max=3.5,
-            occ_thresh=0.8, occ_is_eq=False,
-            window=(torch.zeros(3, dtype=torch.int32),
-                    torch.full((3,), 7, dtype=torch.int32)),
-            x_offset=torch.zeros((), dtype=torch.int32))
+    state.miss_cnt.fill_(2)
+    kw = dict(l_hit=0.8, l_miss=-0.4, clamp_min=-2.0, clamp_max=3.5,
+              occ_thresh=0.8, occ_is_eq=False,
+              window=(torch.zeros(3, dtype=torch.int32),
+                      torch.full((3,), 7, dtype=torch.int32)))
+    whole = tfusion.fuse_drain(state.logodds, state.seen, state.hit_cnt,
+                               state.miss_cnt, **kw)
+    slab = tfusion.fuse_drain(
+        *(getattr(state, f)[4:8].clone()
+          for f in ("logodds", "seen", "hit_cnt", "miss_cnt")),
+        x_offset=torch.full((), 4, dtype=torch.int32), **kw)
+    for a, b in zip(slab[:5], whole[:5]):
+        assert torch.equal(a, b[4:8])
+    assert 0 < int(slab[5]) < int(whole[5])
     j_incr = FiestaConfig(resolution=0.5, origin=(-3.0, -2.5, -1.0),
                           map_size=(6.0, 5.0, 4.0), esdf_mode="incremental")
     incr = ft.config_from_fields(dataclasses.asdict(j_incr))

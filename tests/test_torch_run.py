@@ -173,7 +173,7 @@ def test_app_matches_jax(tmp_path, inputs, jax_app, mode):
 
 
 @pytest.mark.parametrize("argv, match", [
-    (BASE + ["--devices", "2"], "multi-device engine is not ported"),
+    (BASE + ["--devices", "7"], "must divide by --devices 7"),
     (["--preset", "small", "--frames", "2"], "--platform cpu"),
 ], ids=["devices", "no_platform"])
 def test_app_refuses(argv, match):
