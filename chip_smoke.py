@@ -3,8 +3,8 @@
 
     python3 chip_smoke.py
 
-Twelve paths are driven, eleven at cow_and_lady size (400x400x80 voxels at
-0.05 m, exact EDT truncated at 100 voxels) on replayed scans made from
+Thirteen paths are driven, eleven at cow_and_lady size (400x400x80 voxels
+at 0.05 m, exact EDT truncated at 100 voxels) on replayed scans made from
 seed 0: the mapping tick stream (3 scans of 192x256 rays per tick, lazy
 closest), the closest-obstacle query path on the map it leaves, the same
 stream with the sorted splat, the app engine (``FiestaPipeline``), the
@@ -15,10 +15,12 @@ world (the scrolling grid with its tile archive), the app itself
 the soak drill (``soak_torch.py``) and the multi-device engine
 (``fiesta_tpu_torch.parallel``) on virtual meshes of the one card; and
 the demo preset's windowed depth tick (400x400x36 voxels at 0.1 m,
-120x160 depth images).
+120x160 depth images); and the closest path on cow_and_lady's scans at
+0.05 m on a 40 m floor (800x800x80 voxels), where the packed closest word
+misses int32 and the wide transform runs.
 Each path's kernel launch counts are zeroed just before it and read just
-after.  Phases, in order but for 14, which runs after 10; any failure
-raises and exits non-zero:
+after.  Phases, in order but for 15, which runs after 8, and 14, which
+runs after 10; any failure raises and exits non-zero:
 
 1. device and build: the card's name and power limit (nvidia-smi), then
    every kernel built with nvcc from the sources in this checkout, with
@@ -36,7 +38,9 @@ raises and exits non-zero:
    ``get_closest_obstacle``; then all of it through the plain versions.
    The closest grids, d2, the eager states and the query outputs must be
    bit-equal, and the eager closest equal to the lazy derivation on the
-   same occupancy.  ``derive_closest`` is timed both ways;
+   same occupancy.  ``derive_closest`` is timed both ways, and its busy
+   time and CUDA launches read from ``torch.profiler`` (the three packed
+   passes and the closest decode);
 4. the sorted splat: the phase-2 stream again with ``FIESTA_SPLAT=sorted``
    and ``FIESTA_SPLAT_SORT_IMPL=pallas`` (set on ``ops.raycast``); the sort
    kernel must launch and the final state and stats equal phase 2's;
@@ -77,7 +81,8 @@ raises and exits non-zero:
    of its two sides together (``window_taps``), each beside the
    brute-force window's, and both closest passes their time on the card
    alone with every value at cap (``far_device_ms``: load and store
-   alone);
+   alone); the closest decode on the split pass's words, as
+   ``derive_closest`` calls it (the packed grid out);
 8. the two-level tick: the phase-2 stream with ``edt_fine_dist`` 2.0 m
    (exact to t = 40 on the grid, the far field at t = 50 on its
    200x200x40 half): 5 ticks with lazy closest, ``derive_closest`` and 2
@@ -177,8 +182,19 @@ raises and exits non-zero:
    halo-extended slab, the box add with out-of-slab corners on a slab
    whose far face the boxes cross and on one whose low face they do),
    timed beside its flat-shape time;
-15. a JSON line of per-kernel numbers (with the launches, device times,
-   carve steps and window offsets above, phases 8 to 14, and for each
+15. (run after phase 8) the wide closest path: the cow config on a
+   40 m floor (``WIDE_MAP_SIZE``: 800x800x80 voxels at t = 100, where the
+   packed word needs 32 bits), phase 2's scans streamed into it, then
+   ``derive_closest``, two eager ticks and ``get_closest_obstacle`` on
+   2^19 positions, launch counts zeroed just before and read just after
+   (the three wide kernels and the decode launched, no packed pass);
+   then the same through the plain versions: every output bit-equal,
+   the derived d2 equal to the tick's.  ``derive_closest`` timed and
+   traced both ways, the path's peak memory both ways, and each wide
+   kernel and the decode of its i64 words against its plain version at
+   these shapes (bit-equal as 64-bit words), timed beside its bound;
+16. a JSON line of per-kernel numbers (with the launches, device times,
+   carve steps and window offsets above, phases 8 to 15, and for each
    row its launches on the sharded path and its time at the slab
    shapes), the nvidia-smi line, and last ``{"ok": true, "device":
    {...}}``.
@@ -223,7 +239,8 @@ EAGER_TICKS = 2          # ticks in eager closest mode on the final map
 QUERIES = 2 ** 19        # ~ the MPC's 491 k lookups per solve (query.py)
 STREAM_KERNELS = ("splat", "carve", "edt_binary", "edt_minplus", "fuse",
                   "boxadd")
-CLOSEST_KERNELS = ("closest_binary", "closest_window", "closest_split")
+CLOSEST_KERNELS = ("closest_binary", "closest_window", "closest_split",
+                   "closest_decode")
 MIN_OCCUPIED = 1000      # a representative scene (bench.py:184)
 ENGINE_FRAMES = 9        # FiestaPipeline frames, update() every third
 OTHER_FRAMES = 3         # frames each for the dda and projective engines
@@ -237,6 +254,19 @@ FLY_STEPS = 10           # receding-horizon steps (run.py --fly)
 PLAN_TOL = 1e-3          # card vs CPU solve: tests/test_torch_mpc.py's gate
 GRAD_TOL = 1e-5          # card vs CPU cost gradient, relative L2: same gate
 INCR_KERNELS = ("splat", "carve", "boxadd", "relax")   # the incremental tick
+# phase 15: the demo preset's 40 m floor at cow_and_lady's 0.05 m, 800x800x80
+# voxels at t = 100, where the packed closest word misses int32
+WIDE_MAP_SIZE = (40.0, 40.0, 4.0)
+WIDE_KERNELS = ("closest_binary_wide", "closest_window_wide",
+                "closest_split_wide", "closest_decode")
+# the JAX functions (XLA, no Pallas kernel) the wide kernels stand for
+WIDE_REPLACES = {"closest_binary_wide": 966, "closest_window_wide": 994,
+                 "closest_split_wide": 1020}
+# int32 operations a voxel of the closest decode takes: the coordinates from
+# the index (two multiply-highs and their products), the unpack, the
+# defined test, da, db and their squares, dc2 and its clamp, c*, the axis
+# selects and the packing
+DECODE_OPS = 30
 # int32 operations a relax candidate takes: three coordinate loads' bounds
 # checks folded, the neighbour index, the defined test, three differences,
 # three squares and two adds, the compare (the kernel's inner loop)
@@ -288,6 +318,9 @@ EARLIER_MS = {"splat": 0.0714, "sort": 0.1716, "carve": 1.3794,
               "closest_split": 0.6178, "boxadd": 0.0964,
               "closest_binary": 0.2824, "closest_window": 0.2614}
 EARLIER_MINPLUS_AXIS_MS = (0.6378, 0.3488)
+# derive_closest's device busy ms at cow with the decode in plain PyTorch,
+# on an H100 80GB HBM3 at 700 W (PERF.md, section 5)
+EARLIER_DERIVE_BUSY_MS = 1.679
 EARLIER_LAUNCHES = {"splat": "3", "sort": "28 at 2^18 pairs",
                     "carve": "217 at cow", "edt_minplus": "1",
                     "edt_binary": "1", "closest_split": "1", "boxadd": "1",
@@ -336,6 +369,10 @@ PLAIN = (
     (edt, "binary_packed", edt._binary_packed_plain),
     (edt, "window_packed", edt._window_packed_plain),
     (edt, "split_packed", edt._split_packed_plain),
+    (edt, "decode_split", edt._decode_split_plain),
+    (edt, "binary_wide", edt._binary_wide_plain),
+    (edt, "window_wide", edt._window_wide_plain),
+    (edt, "split_wide", edt._split_wide_plain),
     (sort, "sort_pairs", sort._sort_pairs_plain),
     (esdf, "relax_to_fixpoint", esdf._relax_to_fixpoint_plain),
 )
@@ -559,7 +596,190 @@ def closest_rows(cfg, occupied):
         by_name, counts, _ = profiled(lambda: kern(x, plan, axis), 10)
         row.update(cuda_launches=sum(counts.values()), by_kernel=by_name,
                    taps=taps(x, plan, axis))
+    rows.append(decode_row(kernels.closest_split(p2, plan, c), plan,
+                           ft.grid.closest_packed_state(cfg)))
     return rows
+
+
+def decode_row(vps, plan, packed_out):
+    """The closest decode of the split pass's words ``vps`` (i32 or i64)
+    against its plain version, as ``derive_closest`` calls it: times,
+    CUDA launches and the bytes bound (the word in, d2 and the packed grid
+    or three i16 planes out)."""
+    nvox = vps.numel()
+    kern = lambda: kernels.closest_decode(vps, plan, packed_out)  # noqa
+    plain = lambda: edt._decode_split_plain(vps, plan, packed_out)  # noqa
+    by_name, counts, _ = profiled(kern, 10)
+    nbytes = (vps.element_size() + 4 + (4 if packed_out else 6)) * nvox
+    return dict(
+        name="closest_decode", source="fiesta_tpu_torch/kernels/closest.cu",
+        replaces="fiesta_tpu/ops/pallas/edt.py:871 (_reconstruct_closest, "
+                 "with unpack_split :861; port-only: XLA in fiesta_tpu)",
+        err=max_abs_err(list(kern()), list(plain())), **kernel_times(kern),
+        plain_ms=time_ms(plain), library_ms=None,
+        bound=bound(nbytes, DECODE_OPS * nvox, I32_OPS_PER_S),
+        cuda_launches=sum(counts.values()), by_kernel=by_name)
+
+
+def wide_closest_path(wcfg, state, eager, pos):
+    """The closest path on a map whose closest transform takes the wide
+    plan (``state`` left as it is): the rebuild and the lazy derivation,
+    EAGER_TICKS eager ticks from the state and the lazy derivation on
+    their occupancy, and ``get_closest_obstacle`` at ``pos``."""
+    d2, closest = pipeline.rebuild_esdf(
+        wcfg, ft.occupied_grid(wcfg, state.logodds))
+    lazy = pipeline.derive_closest(wcfg, state.logodds)
+    cfg_e = dataclasses.replace(wcfg, closest_mode="eager")
+    e_state, _ = ft.fused_stream(cfg_e, ft.copy_state(state), *eager)
+    pts, dist = query.get_closest_obstacle(wcfg, lazy, state.d2, state.seen,
+                                           pos)
+    return dict(d2=d2, closest=closest, lazy=lazy,
+                eager_closest=e_state.closest, eager_d2=e_state.d2,
+                eager_lazy=pipeline.derive_closest(cfg_e, e_state.logodds),
+                obstacle=pts, dist=dist)
+
+
+def peak_above(fn):
+    """(fn(), the peak device memory in MiB that the call allocated above
+    what was allocated before it)."""
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (torch.cuda.max_memory_allocated() - held) / 2**20
+
+
+def wide_rows(occupied, plan):
+    """The three wide passes and the decode of their i64 words on the
+    wide map's final occupancy, each against its plain version (the pair
+    passes packed into 64-bit words), with their bounds; the wide passes'
+    rows, and the decode's at these shapes."""
+    a, b, c = plan["a"], plan["b"], plan["c"]
+    cap, nvox = plan["cap"], occupied.numel()
+    occ = occupied.view(torch.uint8)
+    rows, x = [], occ
+    for name, axis, kern, plain in (
+            ("closest_binary_wide", a, kernels.closest_binary_wide,
+             edt._binary_wide_plain),
+            ("closest_window_wide", b, kernels.closest_window_wide,
+             edt._window_wide_plain),
+            ("closest_split_wide", c, kernels.closest_split_wide,
+             edt._split_wide_plain)):
+        if name == "closest_binary_wide":
+            # u8 in, i64 out; a few operations a voxel (the binary pass's)
+            nbytes, ops = 9 * nvox, 4 * nvox
+        else:
+            # i64 in and out against the cheapest exact O(A) pass over the
+            # columns holding a value below cap
+            shift = plan["ba"] if name == "closest_window_wide" else plan["s"]
+            near_cols = int(((x >> shift) < cap).any(dim=axis).sum())
+            nbytes, ops = 16 * nvox, ENVELOPE_OPS * near_cols * x.shape[axis]
+        by_name, counts, _ = profiled(lambda: kern(x, plan, axis), 10)
+        rows.append(dict(
+            name=name, source="fiesta_tpu_torch/kernels/closest.cu",
+            replaces=f"fiesta_tpu/ops/pallas/edt.py:{WIDE_REPLACES[name]} "
+                     f"(port-only: XLA in fiesta_tpu)",
+            err=max_abs_err([kern(x, plan, axis)], [plain(x, plan, axis)]),
+            **kernel_times(lambda: kern(x, plan, axis)),
+            plain_ms=time_ms(lambda: plain(x, plan, axis), calls=1,
+                             windows=3),
+            library_ms=None, bound=bound(nbytes, ops, I32_OPS_PER_S),
+            cuda_launches=sum(counts.values()), by_kernel=by_name))
+        x = kern(x, plan, axis)
+    return rows, decode_row(x, plan, True)
+
+
+def wide_path(cfg, batches, eager, dev, card, rows, launches):
+    """Phase 15: the closest path where the packed word misses int32 (the
+    cow config on a 40 m floor, ``WIDE_MAP_SIZE``): phase 2's scans
+    streamed into it, then ``derive_closest``, EAGER_TICKS eager ticks
+    and ``get_closest_obstacle`` on QUERIES positions, launch counts
+    zeroed just before and read just after (each wide kernel and the
+    decode must have launched, no packed pass); then the same through
+    the plain versions: every output bit-equal, the derived d2 equal to
+    the tick's ``rebuild_d2``.  ``derive_closest`` timed and traced both
+    ways, peak memory both ways, and each wide kernel against its plain
+    version at these shapes (appended to ``rows``).  Returns a summary."""
+    wcfg = dataclasses.replace(cfg, map_size=WIDE_MAP_SIZE).validate()
+    shape = wcfg.grid_shape
+    t = edt.trunc_vox_for(wcfg.resolution, wcfg.trunc_dist)
+    plan = edt.closest_plan_wide(shape, t)
+    assert edt.closest_plan(shape, t) is None and plan is not None, shape
+    log(f"wide closest path: grid {shape} at t = {t}: "
+        f"{edt.closest_capability(shape, t)['detail']}; plan {plan}")
+    run_stream(wcfg, tuple(b[:1] for b in batches), dev)      # warm-up
+    w_state, _, w_ms = run_stream(wcfg, batches, dev)
+    pos = query_positions(wcfg, dev)
+    kernels.reset_launch_counts()
+    k_out, k_peak = peak_above(
+        lambda: wide_closest_path(wcfg, w_state, eager, pos))
+    got = read_launches(WIDE_KERNELS + CLOSEST_KERNELS)
+    log(f"wide closest path (kernels): launches {got}")
+    check_launched({k: got[k] for k in WIDE_KERNELS}, "the wide closest path")
+    assert all(got[k] == 0 for k in CLOSEST_KERNELS[:3]), got
+    launches.update({k: got[k] for k in WIDE_KERNELS})
+    with plain_versions():
+        p_out, p_peak = peak_above(
+            lambda: wide_closest_path(wcfg, w_state, eager, pos))
+    for name in k_out:
+        bit_equal(k_out[name], p_out[name], f"wide {name}")
+    assert torch.equal(k_out["d2"], w_state.d2), "wide derive d2 != tick d2"
+    assert torch.equal(k_out["lazy"], k_out["closest"])
+    assert torch.equal(k_out["eager_closest"], k_out["eager_lazy"]), \
+        "wide eager closest differs from the lazy derivation"
+    n_def = int((k_out["closest"] >= 0).sum())
+    n_near = int((k_out["dist"] < wcfg.infinity_distance).sum())
+    assert n_def > MIN_OCCUPIED and n_near > 0, (n_def, n_near)
+    derive = lambda: pipeline.derive_closest(wcfg, w_state.logodds)  # noqa
+    derive_ms = time_ms(derive)
+    by_name, counts, _ = profiled(derive, 3)
+    derive_peak = peak_above(derive)[1]
+    with plain_versions():
+        derive_plain_ms = time_ms(derive, calls=1, windows=3)
+        p_by_name, p_counts, _ = profiled(derive, 1)
+        derive_plain_peak = peak_above(derive)[1]
+    occupied = ft.occupied_grid(wcfg, w_state.logodds)
+    k_rows, decode = wide_rows(occupied, plan)
+    rows.extend(k_rows)
+    out = dict(grid=list(shape), t=t, plan=plan, ms_per_tick=w_ms,
+               launches=got, defined=n_def, queries_near=n_near,
+               derive_closest_ms=derive_ms,
+               derive_closest_busy_ms=sum(by_name.values()),
+               derive_closest_cuda_launches=sum(counts.values()),
+               derive_closest_by_kernel=by_name,
+               derive_closest_plain_ms=derive_plain_ms,
+               derive_closest_plain_busy_ms=sum(p_by_name.values()),
+               derive_closest_plain_cuda_launches=sum(p_counts.values()),
+               peak_mib=k_peak, plain_peak_mib=p_peak,
+               derive_peak_mib=derive_peak,
+               derive_plain_peak_mib=derive_plain_peak,
+               decode=decode,
+               kernels={r["name"]: {k: r[k] for k in (
+                   "ms", "device_ms", "host_ms", "plain_ms", "bound",
+                   "cuda_launches", "by_kernel")} for r in k_rows})
+    log(f"wide closest path bit-equal to plain: {n_def} voxels with a "
+        f"closest obstacle, {n_near} of {QUERIES} queries with one; "
+        f"{w_ms:.3f} ms/tick; derive_closest {derive_ms:.3f} ms host-paced,"
+        f" busy {out['derive_closest_busy_ms']:.3f} in "
+        f"{out['derive_closest_cuda_launches']:g} CUDA launches (plain "
+        f"{derive_plain_ms:.3f} ms, busy "
+        f"{out['derive_closest_plain_busy_ms']:.3f} in "
+        f"{out['derive_closest_plain_cuda_launches']:g} launches); peak "
+        f"memory above what was held before, of the path "
+        f"{k_peak:.0f} MiB on kernels, {p_peak:.0f} MiB plain, of a "
+        f"derive_closest {derive_peak:.0f} / {derive_plain_peak:.0f} MiB; "
+        f"on {card}")
+    for r in k_rows + [decode]:
+        log(f"{r['name']} at {tuple(shape)}: {r['ms']:.4f} ms host-paced, "
+            f"{r['device_ms']:.4f} on the card alone, {r['host_ms']:.4f} to "
+            f"enqueue (plain {r['plain_ms']:.4f}, bound {r['bound'][0]:.4f} "
+            f"ms by {r['bound'][1]}), {r['cuda_launches']:g} CUDA launches a "
+            f"call, device ms by kernel "
+            f"{ {k: round(v, 4) for k, v in r['by_kernel'].items()} }, "
+            f"bit-equal{' as 64-bit words' if r is not decode else ''}; "
+            f"on {card}")
+    return out
 
 
 def seed_tiles(occupied, plan, axis):
@@ -1961,6 +2181,10 @@ def slab_rows(cfg, mesh, batches, k_state, icfg, ext, rows, card):
     c2 = kernels.closest_window(c1, plan, plan["b"])
     row("closest_split", lambda: kernels.closest_split(c2, plan, plan["c"]),
         lambda: edt._split_packed_plain(c2, plan, plan["c"]))
+    c3 = kernels.closest_split(c2, plan, plan["c"])
+    row("closest_decode", lambda: kernels.closest_decode(c3, plan, x0=x0),
+        lambda: edt._decode_split_plain(c3, plan, x0=x0),
+        f"i16 planes, payloads of global x, x0 {x0}")
     d2e, ce, mask, xo = ext
     row("relax", lambda: esdf.relax_sweep(d2e, ce, mask, None, icfg.stencil,
                                           x_offset=xo),
@@ -2385,9 +2609,15 @@ def run(dev, cfg, h, w, ticks, dcfg, dh, dw, dticks):
         query.get_dist_grad_trilinear(cfg, dist, pos),
         query.get_closest_obstacle(cfg, k_out["closest"], k_state.d2,
                                    k_state.seen, pos)))
+    derive_kernels, derive_counts, _ = profiled(
+        lambda: pipeline.derive_closest(cfg, k_state.logodds), 5)
+    derive_busy = sum(derive_kernels.values())
     log(f"derive_closest: {derive_ms:.4f} ms (plain {derive_plain_ms:.3f} "
-        f"ms); three queries of {QUERIES} positions: {query_ms:.4f} ms; "
-        f"on {card}")
+        f"ms); busy {derive_busy:.4f} ms in "
+        f"{sum(derive_counts.values()):g} CUDA launches (with the plain "
+        f"decode: {EARLIER_DERIVE_BUSY_MS}), device ms by kernel "
+        f"{ {k: round(v, 4) for k, v in derive_kernels.items()} }; three "
+        f"queries of {QUERIES} positions: {query_ms:.4f} ms; on {card}")
 
     log(f"[{time.perf_counter() - t_run:.0f} s] phase 4")
     # -- phase 4: the sorted splat -----------------------------------------
@@ -2793,6 +3023,10 @@ def run(dev, cfg, h, w, ticks, dcfg, dh, dw, dticks):
             f"alone (plain {r['plain_ms']:.4f}, bound {r['bound_ms']:.4f} "
             f"ms by {r['bound_by']}), bit-equal; on {card}")
 
+    log(f"[{time.perf_counter() - t_run:.0f} s] phase 15")
+    # -- phase 15: the wide closest path (800x800x80) ------------------------
+    wide = wide_path(cfg, batches, eager, dev, card, rows, launches)
+
     log(f"[{time.perf_counter() - t_run:.0f} s] phase 9")
     # -- phase 9: the planner on phase 2's final map ----------------------
     planner = run_planner(cfg, k_state, dev)
@@ -2832,8 +3066,8 @@ def run(dev, cfg, h, w, ticks, dcfg, dh, dw, dticks):
     # -- phase 13: the soak drill at cow scale ------------------------------
     soak = soak_path(card)
 
-    log(f"[{time.perf_counter() - t_run:.0f} s] phase 15")
-    # -- phase 15: the per-kernel JSON line --------------------------------
+    log(f"[{time.perf_counter() - t_run:.0f} s] phase 16")
+    # -- phase 16: the per-kernel JSON line --------------------------------
 
     for r in rows:
         if r["name"] not in EARLIER_LAUNCHES:
@@ -2886,6 +3120,8 @@ def run(dev, cfg, h, w, ticks, dcfg, dh, dw, dticks):
                       "sorted_ms_per_tick": s_ms,
                       "derive_closest_ms": derive_ms,
                       "derive_closest_plain_ms": derive_plain_ms,
+                      "derive_closest_busy_ms": derive_busy,
+                      "derive_closest_by_kernel": derive_kernels,
                       "query_ms": query_ms,
                       "engine_frame_ms": frame_ms,
                       "engine_update_ms": update_ms,
@@ -2906,7 +3142,7 @@ def run(dev, cfg, h, w, ticks, dcfg, dh, dw, dticks):
                       "two_level": hier, "planner": planner,
                       "incremental": incr, "relax": relax,
                       "unbounded_world": world, "app": app, "soak": soak,
-                      "sharded": sharded}))
+                      "sharded": sharded, "wide_closest": wide}))
     log(f"[{time.perf_counter() - t_run:.0f} s] phases done")
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -13,8 +13,9 @@ add one to ``LAUNCHES[name]`` per call.  The ops modules call them for
 CUDA tensors only; CPU tensors take the plain PyTorch versions there.
 
 Flags: ``-fmad=false`` (no FMA contraction) and IEEE division / square
-root, so the f32 arithmetic of the splat decode, the carve's free test and
-the fusion step rounds exactly as the plain PyTorch versions do.
+root, so the f32 arithmetic of the splat decode, the carve's free test,
+the fusion step and the closest decode's root rounds exactly as the plain
+PyTorch versions do.
 """
 
 from __future__ import annotations
@@ -42,7 +43,9 @@ NVCC_FLAGS = (
 #: per-kernel wrapper calls that launched on the card
 LAUNCHES = {"splat": 0, "carve": 0, "edt_binary": 0, "edt_minplus": 0,
             "fuse": 0, "boxadd": 0, "closest_binary": 0,
-            "closest_window": 0, "closest_split": 0, "sort": 0, "relax": 0}
+            "closest_window": 0, "closest_split": 0, "closest_decode": 0,
+            "closest_binary_wide": 0, "closest_window_wide": 0,
+            "closest_split_wide": 0, "sort": 0, "relax": 0}
 
 #: compiler output (ptxas register/shared-memory report) per source
 BUILD_LOG: dict = {}
@@ -68,6 +71,14 @@ _SIGNATURES = {
                        [_P, _P, _L, _I, _L, _I, _I, _I, _I, _P]),
     "closest_split": ("closest.cu", "fiesta_closest_split",
                       [_P, _P, _L, _I, _L, _I, _I, _I, _P]),
+    "closest_decode": ("closest.cu", "fiesta_closest_decode",
+                       [_P, _I, _P, _P, _P] + [_I] * 12 + [_P]),
+    "closest_binary_wide": ("closest.cu", "fiesta_closest_binary_wide",
+                            [_P, _P, _L, _I, _L, _I, _I, _I, _I, _P]),
+    "closest_window_wide": ("closest.cu", "fiesta_closest_window_wide",
+                            [_P, _P, _L, _I, _L, _I, _I, _I, _I, _P]),
+    "closest_split_wide": ("closest.cu", "fiesta_closest_split_wide",
+                           [_P, _P, _L, _I, _L, _I, _I, _I, _P]),
     "sort": ("sort.cu", "fiesta_sort_pairs", [_P, _P, _L, _P, _P, _L, _P]),
     "relax": ("relax.cu", "fiesta_relax",
               [_P] * 10 + [_I] * 4 + [_P, _I, _I, _P, _I, _I, _I, _P, _P,
@@ -432,6 +443,99 @@ def closest_split(p2: torch.Tensor, plan, axis: int) -> torch.Tensor:
     _launch("closest_split", p2.device, p2.data_ptr(), out.data_ptr(),
             outer, a, inner, min(plan["t"], a - 1), plan["s"], plan["cap"])
     return out
+
+
+def _check_wide(plan, what: str) -> None:
+    """A wide plan whose 64-bit words the kernels take: values up to
+    2t^2 + 1 below 2^31 (so k^2, k <= t, fits an int) and a shift of at
+    most 31, so every word and candidate lies below 2^62."""
+    t, s = plan["t"], plan["s"]
+    if 2 * t * t + 1 >= 1 << 31 or s > 31:
+        raise ValueError(f"{what}: t = {t}, shift {s} do not fit the wide "
+                         "kernels' 64-bit words")
+
+
+def closest_binary_wide(occ: torch.Tensor, plan, axis: int) -> torch.Tensor:
+    """Wide binary closest pass along ``axis`` of an occupancy volume (u8
+    nonzero = occupied, or bool): i64 ``val << ba | a*``, the pair pass's
+    (val, a*) as one word.  Replaces ``edt._binary_pair_xla`` (XLA, no
+    Pallas kernel)."""
+    if occ.dtype == torch.bool:
+        occ = occ.view(torch.uint8)
+    _check(occ, torch.uint8, "closest_binary_wide occ")
+    _check_closest(occ, axis, plan["ba"], "closest_binary_wide")
+    _check_wide(plan, "closest_binary_wide")
+    outer, a, inner = _columns(occ.shape, axis)
+    tl = min(plan["t"], a - 1)
+    out = torch.empty(occ.shape, dtype=torch.int64, device=occ.device)
+    _launch("closest_binary_wide", occ.device, occ.data_ptr(),
+            out.data_ptr(), outer, a, inner, tl, plan["ba"], plan["cap"],
+            int(_binary_reach(tl) > tl))
+    return out
+
+
+def closest_window_wide(p1: torch.Tensor, plan, axis: int) -> torch.Tensor:
+    """Wide paired window closest pass along ``axis`` of an i64 volume
+    (values <= cap): ``val << s | b* << ba | a*``.  Replaces
+    ``edt._window_pair_xla`` (XLA, no Pallas kernel)."""
+    _check(p1, torch.int64, "closest_window_wide p1")
+    _check_closest(p1, axis, plan["bb"], "closest_window_wide")
+    _check_wide(plan, "closest_window_wide")
+    outer, a, inner = _columns(p1.shape, axis)
+    out = torch.empty_like(p1)
+    _launch("closest_window_wide", p1.device, p1.data_ptr(), out.data_ptr(),
+            outer, a, inner, min(plan["t"], a - 1), plan["ba"], plan["s"],
+            plan["cap"])
+    return out
+
+
+def closest_split_wide(p2: torch.Tensor, plan, axis: int) -> torch.Tensor:
+    """Wide split-sign final closest pass along ``axis`` of an i64 volume
+    (values <= cap): ``val << (s+1) | sign << s | pay``.  Replaces
+    ``edt._split_pair_xla`` (XLA, no Pallas kernel)."""
+    _check(p2, torch.int64, "closest_split_wide p2")
+    _check_closest(p2, axis, None, "closest_split_wide")
+    _check_wide(plan, "closest_split_wide")
+    outer, a, inner = _columns(p2.shape, axis)
+    out = torch.empty_like(p2)
+    _launch("closest_split_wide", p2.device, p2.data_ptr(), out.data_ptr(),
+            outer, a, inner, min(plan["t"], a - 1), plan["s"], plan["cap"])
+    return out
+
+
+def closest_decode(vps: torch.Tensor, plan, packed_out: bool = False,
+                   x0: int = 0):
+    """Decode the split pass's words ``vps`` [X,Y,Z] (i32 packed, or i64
+    from the wide split) into (d2 i32, closest): closest as one packed i32
+    grid (``grid.pack_closest`` layout) when ``packed_out``, else i16
+    [3,X,Y,Z] planes, -1 where d2 is INF_D2.  ``x0``: the global x of the
+    first plane of an X-slab whose payloads hold global x.  Replaces
+    ``edt._reconstruct_closest`` with ``unpack_split`` (XLA, no Pallas
+    kernel)."""
+    from ..grid import INF_D2
+
+    if vps.dtype not in (torch.int32, torch.int64):
+        raise ValueError(f"closest_decode vps: expected int32 or int64, got "
+                         f"{vps.dtype}")
+    _check(vps, vps.dtype, "closest_decode vps")
+    _check_closest(vps, 0, None, "closest_decode")
+    shape = tuple(vps.shape)
+    if packed_out and any(g > 1024 for g in shape):
+        raise ValueError(f"packed closest needs every grid extent <= 1024 "
+                         f"(10-bit fields); got {shape}")
+    dev = vps.device
+    d2 = torch.empty(shape, dtype=torch.int32, device=dev)
+    if packed_out:
+        closest = torch.empty(shape, dtype=torch.int32, device=dev)
+        packed, planes = closest.data_ptr(), None
+    else:
+        closest = torch.empty((3,) + shape, dtype=torch.int16, device=dev)
+        packed, planes = None, closest.data_ptr()
+    _launch("closest_decode", dev, vps.data_ptr(),
+            int(vps.dtype == torch.int64), d2.data_ptr(), packed, planes,
+            *shape, plan["a"], plan["b"], plan["c"], plan["ba"], plan["bb"],
+            plan["s"], plan["t"] * plan["t"], int(x0), int(INF_D2))
+    return d2, closest
 
 
 #: the sort's pad key; real keys must lie below it

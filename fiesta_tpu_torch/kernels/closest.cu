@@ -74,6 +74,32 @@
 // holds them above that: the window loops (the offsets per voxel follow
 // the distance to the nearest obstacle), the sweeps, and divergence within
 // a warp.
+//
+// Wide forms (closest_binary_wide, closest_window_wide,
+// closest_split_wide).  Where the packed word misses int32, the JAX
+// package runs the two-word transform of fiesta_tpu/ops/pallas/edt.py
+// (_binary_pair_xla :966, _window_pair_xla :994, _split_pair_xla :1020,
+// XLA, no Pallas kernel): value and payload in separate words, min'd
+// lexicographically.  That min is integer min on the 64-bit word
+// val << shift | payload (payload < 2^s, s = ba + bb <= 31, val <= 2t^2 + 1
+// < 2^31, so every word and sentinel lies below 2^62), so the wide passes
+// are the three kernels above instantiated on a long long word: the same
+// bodies, tiles of 8-byte words in shared memory, no transposes.  The wide
+// binary pass equals the doubling pair pass: its -s step's result feeding
+// its +s step adds only candidates at value + 2s, which never win.
+//
+// Closest decode (closest_decode; port-only: _reconstruct_closest,
+// fiesta_tpu/ops/pallas/edt.py:871, is XLA).  One pass over the split
+// pass's word (i32 packed, i64 wide): val, sign, b*, a* unpacked; c* =
+// c +- round(sqrt(val - da^2 - db^2)) with the f32 conversion and root
+// correctly rounded and the rounding half to even (rintf's, as torch.round
+// and jnp.round; roundf would differ at dc2 = k^2 + k, k >= 2048); d2 =
+// val where val <= t^2, else INF_D2; the closest as the packed i32 grid or
+// three i16 planes, -1 where undefined.  Voxel coordinates come from the
+// linear index by multiply-high division; each thread takes four voxels a
+// block-width apart, so every load and store is coalesced with four loads
+// in flight.  Bound: bytes (12 a voxel from an i32 word into d2 and the
+// packed grid: 154 MB at cow scale).
 
 #include "fiesta_kernels.cuh"
 
@@ -82,6 +108,8 @@ namespace {
 constexpr int kBinaryThreads = 512;
 bool g_binary_ready_u8[kFiestaMaxDevices];
 bool g_binary_ready_u16[kFiestaMaxDevices];
+bool g_binary_wide_ready_u8[kFiestaMaxDevices];
+bool g_binary_wide_ready_u16[kFiestaMaxDevices];
 
 // Shared memory of a binary block of tc columns with a tile of `tb`-byte
 // elements: base addresses, the segments' carries and the tile.
@@ -97,12 +125,13 @@ int binary_tile_cols(int A, int tb) {
 
 }  // namespace
 
-template <class T>
-__global__ void __launch_bounds__(kBinaryThreads)
-    closest_binary_kernel(const uint8_t* __restrict__ occ,
-                          int* __restrict__ out, long long outer, int A,
-                          long long inner, int tc, int tl, int ba,
-                          int far_value, int reach_ok, int square) {
+// The binary pass's body: T the tile's element, W the output word (int for
+// packed plans, long long for wide ones).
+template <class T, class W>
+__device__ __forceinline__ void closest_binary_body(
+    const uint8_t* __restrict__ occ, W* __restrict__ out, long long outer,
+    int A, long long inner, int tc, int tl, int ba, int far_value,
+    int reach_ok, int square) {
   extern __shared__ long long binary_sm[];
   const int segs = blockDim.x / tc;
   long long* base = binary_sm;            // [tc]: address of row 0
@@ -113,6 +142,7 @@ __global__ void __launch_bounds__(kBinaryThreads)
   const long long ncols = outer * inner;
   const long long col0 = (long long)blockIdx.x * tc;
   const int total = A * tc;
+  const W far = (W)far_value << ba;
 
   for (int c = threadIdx.x; c < tc; c += blockDim.x)
     base[c] = col0 + c < ncols ? fiesta_col_addr(col0 + c, 0, A, inner) : -1;
@@ -150,7 +180,7 @@ __global__ void __launch_bounds__(kBinaryThreads)
     for (int e = threadIdx.x; e < total; e += blockDim.x) {
       int i, c;
       fiesta_tile_pos(e, A, tc, inner, i, c);
-      if (base[c] >= 0) out[base[c] + i * inner] = (far_value << ba) | i;
+      if (base[c] >= 0) out[base[c] + i * inner] = far | i;
     }
     return;
   }
@@ -162,10 +192,31 @@ __global__ void __launch_bounds__(kBinaryThreads)
       [&](int i, int g, int d) {
         if (base[c] >= 0)
           out[base[c] + i * inner] =
-              d <= tl ? ((square ? d * d : d) << ba) |
+              d <= tl ? ((W)(square ? d * d : d) << ba) |
                             (g == d ? i - g : i + d)
-                      : (far_value << ba) | (reach_ok && g == L ? i - L : i);
+                      : far | (reach_ok && g == L ? i - L : i);
       });
+}
+
+template <class T>
+__global__ void __launch_bounds__(kBinaryThreads)
+    closest_binary_kernel(const uint8_t* __restrict__ occ,
+                          int* __restrict__ out, long long outer, int A,
+                          long long inner, int tc, int tl, int ba,
+                          int far_value, int reach_ok, int square) {
+  closest_binary_body<T, int>(occ, out, outer, A, inner, tc, tl, ba,
+                              far_value, reach_ok, square);
+}
+
+template <class T>
+__global__ void __launch_bounds__(kBinaryThreads)
+    closest_binary_wide_kernel(const uint8_t* __restrict__ occ,
+                               long long* __restrict__ out, long long outer,
+                               int A, long long inner, int tc, int tl,
+                               int ba, int far_value, int reach_ok,
+                               int square) {
+  closest_binary_body<T, long long>(occ, out, outer, A, inner, tc, tl, ba,
+                                    far_value, reach_ok, square);
 }
 
 namespace {
@@ -176,6 +227,8 @@ constexpr int kK0Far = 254;             // farther k0p is stored as this
 constexpr unsigned char kK0None = 255;  // no value below cap above the row
 bool g_window_ready[kFiestaMaxDevices];
 bool g_split_ready[kFiestaMaxDevices];
+bool g_window_wide_ready[kFiestaMaxDevices];
+bool g_split_wide_ready[kFiestaMaxDevices];
 
 // Row pitch of the tile: tc, so that lanes on different rows still use
 // different banks, or tc + 1 when the column is contiguous (inner == 1),
@@ -184,14 +237,15 @@ __host__ __device__ int bounded_pitch(int tc, bool staged) {
   return staged ? tc + 1 : tc;
 }
 
-// Shared memory of a bounded-pass block of tc columns: base addresses, the
-// tile (and the result tile when staged), the segments' rows, the u8 k0p.
-size_t bounded_smem(int A, int tc, bool staged) {
+// Shared memory of a bounded-pass block of tc columns of `wb`-byte words:
+// base addresses, the tile (and the result tile when staged), the
+// segments' rows, the u8 k0p.
+size_t bounded_smem(int A, int tc, bool staged, int wb) {
   const int segs = kBoundedThreads / tc;
   const size_t words =
       (size_t)A * bounded_pitch(tc, staged) * (staged ? 2 : 1);
-  return tc * sizeof(long long) + (words + 2 * (size_t)segs * tc) *
-         sizeof(int) + (size_t)A * tc;
+  return tc * sizeof(long long) + words * wb +
+         2 * (size_t)segs * tc * sizeof(int) + (size_t)A * tc;
 }
 
 }  // namespace
@@ -199,68 +253,72 @@ size_t bounded_smem(int A, int tc, bool staged) {
 // Window pass: the load repacks raw = v << ba | a* into
 // v << s | i << ba | a*; one accumulator for both sides, whose value the
 // output clamps at cap.
+template <class W>
 struct WindowPass {
   int s, cap, ba;
   static constexpr bool kShared = true;
-  __device__ int load(int raw, int i) const {
-    return ((raw >> ba) << s) | (i << ba) | (raw & ((1 << ba) - 1));
+  __device__ W load(W raw, int i) const {
+    return ((raw >> ba) << s) | ((W)i << ba) | (raw & (((W)1 << ba) - 1));
   }
-  __device__ int word(int, int acc) const {
-    return (min(acc >> s, cap) << s) | (acc & ((1 << s) - 1));
+  __device__ W word(W, W acc) const {
+    return (min(acc >> s, (W)cap) << s) | (acc & (((W)1 << s) - 1));
   }
 };
 
 // Split pass: the words as they come; two half-window accumulators, one
 // output word val << (s+1) | sign << s | pay.
+template <class W>
 struct SplitPass {
   int s, cap;
   static constexpr bool kShared = false;
-  __device__ int load(int w, int) const { return w; }
-  __device__ int word(int acc_n, int acc_p) const {
-    const int vn = acc_n >> s, vp = acc_p >> s;
-    const int use_p = vp < vn;  // strict: ties go to the negative side
-    const int val = min(min(vn, vp), cap);
-    return (val << (s + 1)) | (use_p << s) |
-           ((use_p ? acc_p : acc_n) & ((1 << s) - 1));
+  __device__ W load(W w, int) const { return w; }
+  __device__ W word(W acc_n, W acc_p) const {
+    const W vn = acc_n >> s, vp = acc_p >> s;
+    const bool use_p = vp < vn;  // strict: ties go to the negative side
+    const W val = min(min(vn, vp), (W)cap);
+    return (val << (s + 1)) | ((W)use_p << s) |
+           ((use_p ? acc_p : acc_n) & (((W)1 << s) - 1));
   }
 };
 
 // min(acc, col[i + dir * k] + (k^2 << s)) over k = k0, k0 + 1, ... while
 // k <= kmax and (k^2 << s) < acc, four offsets a turn with independent
 // loads (an offset past kmax re-reads kmax's).
-__device__ __forceinline__ int bounded_side(const int* col, int pitch, int i,
-                                            int dir, int k0, int kmax, int s,
-                                            int acc) {
-  for (int k = k0; k <= kmax && ((k * k) << s) < acc; k += kBoundedUnroll) {
+template <class W>
+__device__ __forceinline__ W bounded_side(const W* col, int pitch, int i,
+                                          int dir, int k0, int kmax, int s,
+                                          W acc) {
+  for (int k = k0; k <= kmax && ((W)(k * k) << s) < acc;
+       k += kBoundedUnroll) {
 #pragma unroll
     for (int u = 0; u < kBoundedUnroll; ++u) {
       const int kq = min(k + u, kmax);
-      acc = min(acc, col[(i + dir * kq) * pitch] + ((kq * kq) << s));
+      acc = min(acc, col[(i + dir * kq) * pitch] + ((W)(kq * kq) << s));
     }
   }
   return acc;
 }
 
-// The body of both bounded passes along A of an [outer, A, inner] volume:
-// `pass.load` forms the tile words, `pass.word` the output from the two
-// sides' accumulators (one shared accumulator when Pass::kShared).
-template <class Pass>
+// The body of both bounded passes along A of an [outer, A, inner] volume
+// of W words: `pass.load` forms the tile words, `pass.word` the output
+// from the two sides' accumulators (one shared accumulator when
+// Pass::kShared).
+template <class W, class Pass>
 __device__ __forceinline__ void closest_bounded_pass(
-    const Pass& pass, const int* __restrict__ f, int* __restrict__ out,
+    const Pass& pass, const W* __restrict__ f, W* __restrict__ out,
     long long outer, int A, long long inner, int tc, int tl) {
   extern __shared__ long long bounded_sm[];
   const bool staged = inner == 1;
   const int pitch = bounded_pitch(tc, staged);
   const int segs = blockDim.x / tc;
   long long* base = bounded_sm;                // [tc]: address of row 0
-  int* tile = (int*)(base + tc);               // [A][pitch]: the words
-  int* first = tile + A * pitch;               // [segs][tc]
+  W* tile = (W*)(base + tc);                   // [A][pitch]: the words
+  W* res = tile + A * pitch;                   // [A][pitch], inner == 1
+  int* first = (int*)(res + (staged ? A * pitch : 0));  // [segs][tc]
   int* last = first + segs * tc;               // [segs][tc]
-  int* res = last + segs * tc;                 // [A][pitch], inner == 1
-  unsigned char* k0p =                         // [A][tc]
-      (unsigned char*)(res + (staged ? A * pitch : 0));
+  unsigned char* k0p = (unsigned char*)(last + segs * tc);  // [A][tc]
   const int s = pass.s, cap = pass.cap;
-  const int fill = cap << s;
+  const W fill = (W)cap << s;
   const long long ncols = outer * inner;
   const long long col0 = (long long)blockIdx.x * tc;
   const int total = A * tc;
@@ -272,7 +330,7 @@ __device__ __forceinline__ void closest_bounded_pass(
   for (int e = threadIdx.x; e < total; e += blockDim.x) {
     int i, c;
     fiesta_tile_pos(e, A, tc, inner, i, c);
-    const int w = base[c] >= 0 ? pass.load(f[base[c] + i * inner], i) : fill;
+    const W w = base[c] >= 0 ? pass.load(f[base[c] + i * inner], i) : fill;
     near |= (w >> s) < cap;
     tile[i * pitch + c] = w;
   }
@@ -282,7 +340,7 @@ __device__ __forceinline__ void closest_bounded_pass(
   const int c = threadIdx.x % tc, seg = threadIdx.x / tc;
   const int len = (A + segs - 1) / segs;
   const int r0 = min(A, seg * len), r1 = min(A, r0 + len);
-  const int* col = tile + c;
+  const W* col = tile + c;
   int lp = -1;  // the nearest row below i with a value below cap (-1: none)
   if (any_near) {
     int fn = -1, ln = -1;
@@ -307,8 +365,8 @@ __device__ __forceinline__ void closest_bounded_pass(
   }
 
   for (int i = r0; i < r1; ++i) {
-    const int w = col[i * pitch];
-    int acc_n = w, acc_p = w;
+    const W w = col[i * pitch];
+    W acc_n = w, acc_p = w;
     if (any_near) {
       if (lp >= 0)
         acc_n = bounded_side(col, pitch, i, -1, i - lp, min(tl, i), s, acc_n);
@@ -323,7 +381,7 @@ __device__ __forceinline__ void closest_bounded_pass(
                              acc_p);
       if ((w >> s) < cap) lp = i;
     }
-    const int word = pass.word(acc_n, acc_p);
+    const W word = pass.word(acc_n, acc_p);
     if (staged)
       res[i * pitch + c] = word;
     else if (base[c] >= 0)
@@ -341,50 +399,68 @@ __device__ __forceinline__ void closest_bounded_pass(
 __global__ void __launch_bounds__(kBoundedThreads)
     closest_window_kernel(const int* __restrict__ f, int* __restrict__ out,
                           long long outer, int A, long long inner, int tc,
-                          int tl, WindowPass pass) {
+                          int tl, WindowPass<int> pass) {
   closest_bounded_pass(pass, f, out, outer, A, inner, tc, tl);
 }
 
 __global__ void __launch_bounds__(kBoundedThreads)
     closest_split_kernel(const int* __restrict__ f, int* __restrict__ out,
                          long long outer, int A, long long inner, int tc,
-                         int tl, SplitPass pass) {
+                         int tl, SplitPass<int> pass) {
+  closest_bounded_pass(pass, f, out, outer, A, inner, tc, tl);
+}
+
+__global__ void __launch_bounds__(kBoundedThreads)
+    closest_window_wide_kernel(const long long* __restrict__ f,
+                               long long* __restrict__ out, long long outer,
+                               int A, long long inner, int tc, int tl,
+                               WindowPass<long long> pass) {
+  closest_bounded_pass(pass, f, out, outer, A, inner, tc, tl);
+}
+
+__global__ void __launch_bounds__(kBoundedThreads)
+    closest_split_wide_kernel(const long long* __restrict__ f,
+                              long long* __restrict__ out, long long outer,
+                              int A, long long inner, int tc, int tl,
+                              SplitPass<long long> pass) {
   closest_bounded_pass(pass, f, out, outer, A, inner, tc, tl);
 }
 
 // One launch of a bounded pass's kernel along A of [outer, A, inner].
-template <class Pass>
-static int launch_bounded(void (*kernel)(const int*, int*, long long, int,
+template <class W, class Pass>
+static int launch_bounded(void (*kernel)(const W*, W*, long long, int,
                                          long long, int, int, Pass),
                           bool (&ready)[kFiestaMaxDevices], const Pass& pass,
-                          const int* f, int* out, long long outer, int A,
+                          const W* f, W* out, long long outer, int A,
                           long long inner, int tl, cudaStream_t stream) {
   const cudaError_t err = fiesta_allow_max_smem(kernel, ready);
   if (err != cudaSuccess) return (int)err;
   const bool staged = inner == 1;
+  const int wb = sizeof(W);
   const int tc = fiesta_fit_tile_cols(
-      [A, staged](int tc) { return bounded_smem(A, tc, staged); });
+      [A, staged, wb](int tc) { return bounded_smem(A, tc, staged, wb); });
   const long long blocks = (outer * inner + tc - 1) / tc;
-  kernel<<<(unsigned)blocks, kBoundedThreads, bounded_smem(A, tc, staged),
-           stream>>>(f, out, outer, A, inner, tc, tl, pass);
+  kernel<<<(unsigned)blocks, kBoundedThreads,
+           bounded_smem(A, tc, staged, wb), stream>>>(f, out, outer, A,
+                                                      inner, tc, tl, pass);
   FIESTA_LAUNCH_CHECK();
   return 0;
 }
 
-template <class T>
-static int launch_closest_binary(bool (&ready)[kFiestaMaxDevices],
-                                 const uint8_t* occ, int* out,
-                                 long long outer, int A, long long inner,
-                                 int tl, int ba, int far_value, int reach_ok,
-                                 int square, cudaStream_t stream) {
-  const cudaError_t err =
-      fiesta_allow_max_smem(closest_binary_kernel<T>, ready);
+template <class T, class W>
+static int launch_closest_binary(
+    void (*kernel)(const uint8_t*, W*, long long, int, long long, int, int,
+                   int, int, int, int),
+    bool (&ready)[kFiestaMaxDevices], const uint8_t* occ, W* out,
+    long long outer, int A, long long inner, int tl, int ba, int far_value,
+    int reach_ok, int square, cudaStream_t stream) {
+  const cudaError_t err = fiesta_allow_max_smem(kernel, ready);
   if (err != cudaSuccess) return (int)err;
   const int tc = binary_tile_cols(A, sizeof(T));
   const long long blocks = (outer * inner + tc - 1) / tc;
-  closest_binary_kernel<T><<<(unsigned)blocks, kBinaryThreads,
-                             binary_smem(A, tc, sizeof(T)), stream>>>(
-      occ, out, outer, A, inner, tc, tl, ba, far_value, reach_ok, square);
+  kernel<<<(unsigned)blocks, kBinaryThreads, binary_smem(A, tc, sizeof(T)),
+           stream>>>(occ, out, outer, A, inner, tc, tl, ba, far_value,
+                     reach_ok, square);
   FIESTA_LAUNCH_CHECK();
   return 0;
 }
@@ -395,14 +471,32 @@ FIESTA_EXPORT int fiesta_closest_binary(const uint8_t* occ, int* out,
                                         int far_value, int reach_ok,
                                         int square, cudaStream_t stream) {
   if (tl + 2 <= 0xff)
-    return launch_closest_binary<uint8_t>(g_binary_ready_u8, occ, out,
-                                          outer, A, inner, tl, ba, far_value,
-                                          reach_ok, square, stream);
+    return launch_closest_binary<uint8_t>(
+        closest_binary_kernel<uint8_t>, g_binary_ready_u8, occ, out, outer,
+        A, inner, tl, ba, far_value, reach_ok, square, stream);
   if (tl + 2 <= 0xffff)
-    return launch_closest_binary<uint16_t>(g_binary_ready_u16, occ, out,
-                                           outer, A, inner, tl, ba,
-                                           far_value, reach_ok, square,
-                                           stream);
+    return launch_closest_binary<uint16_t>(
+        closest_binary_kernel<uint16_t>, g_binary_ready_u16, occ, out, outer,
+        A, inner, tl, ba, far_value, reach_ok, square, stream);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The wide binary pass (square values only, as the wide transform takes
+// them): the same tiles, 64-bit words out.
+FIESTA_EXPORT int fiesta_closest_binary_wide(const uint8_t* occ,
+                                             long long* out, long long outer,
+                                             int A, long long inner, int tl,
+                                             int ba, int far_value,
+                                             int reach_ok,
+                                             cudaStream_t stream) {
+  if (tl + 2 <= 0xff)
+    return launch_closest_binary<uint8_t>(
+        closest_binary_wide_kernel<uint8_t>, g_binary_wide_ready_u8, occ,
+        out, outer, A, inner, tl, ba, far_value, reach_ok, 1, stream);
+  if (tl + 2 <= 0xffff)
+    return launch_closest_binary<uint16_t>(
+        closest_binary_wide_kernel<uint16_t>, g_binary_wide_ready_u16, occ,
+        out, outer, A, inner, tl, ba, far_value, reach_ok, 1, stream);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -418,8 +512,8 @@ FIESTA_EXPORT int fiesta_closest_window(const int* f, int* out,
                                         int s, int cap,
                                         cudaStream_t stream) {
   return launch_bounded(closest_window_kernel, g_window_ready,
-                        WindowPass{s, cap, ba}, f, out, outer, A, inner, tl,
-                        stream);
+                        WindowPass<int>{s, cap, ba}, f, out, outer, A, inner,
+                        tl, stream);
 }
 
 FIESTA_EXPORT int fiesta_closest_split(const int* f, int* out,
@@ -427,6 +521,188 @@ FIESTA_EXPORT int fiesta_closest_split(const int* f, int* out,
                                        long long inner, int tl, int s,
                                        int cap, cudaStream_t stream) {
   return launch_bounded(closest_split_kernel, g_split_ready,
-                        SplitPass{s, cap}, f, out, outer, A, inner, tl,
+                        SplitPass<int>{s, cap}, f, out, outer, A, inner, tl,
                         stream);
+}
+
+FIESTA_EXPORT int fiesta_closest_window_wide(const long long* f,
+                                             long long* out, long long outer,
+                                             int A, long long inner, int tl,
+                                             int ba, int s, int cap,
+                                             cudaStream_t stream) {
+  return launch_bounded(closest_window_wide_kernel, g_window_wide_ready,
+                        WindowPass<long long>{s, cap, ba}, f, out, outer, A,
+                        inner, tl, stream);
+}
+
+FIESTA_EXPORT int fiesta_closest_split_wide(const long long* f,
+                                            long long* out, long long outer,
+                                            int A, long long inner, int tl,
+                                            int s, int cap,
+                                            cudaStream_t stream) {
+  return launch_bounded(closest_split_wide_kernel, g_split_wide_ready,
+                        SplitPass<long long>{s, cap}, f, out, outer, A, inner,
+                        tl, stream);
+}
+
+// ---------------------------------------------------------------------------
+// The closest decode
+// ---------------------------------------------------------------------------
+
+namespace {
+
+constexpr int kDecodeThreads = 256;
+constexpr int kDecodeVoxels = 4;  // a thread's voxels, a block-width apart
+
+// n / d for n < 2^31 by a multiply-high (Granlund-Montgomery, as CUTLASS's
+// FastDivmod): m = ceil(2^(31 + l) / d) with l = ceil(log2 d), then
+// n / d = umulhi(n, m) >> (l - 1); d == 1 passes n through.
+struct FastDiv {
+  unsigned d, m;
+  int shift;
+  explicit FastDiv(unsigned divisor) : d(divisor), m(0), shift(0) {
+    if (d > 1) {
+      const int l = 32 - __builtin_clz(d - 1);
+      m = (unsigned)(((1ull << (31 + l)) + d - 1) / d);
+      shift = l - 1;
+    }
+  }
+  __device__ unsigned operator()(unsigned n) const {
+    return d == 1 ? n : __umulhi(n, m) >> shift;
+  }
+};
+
+// Plain division, for grids of 2^31 voxels or more.
+struct WideDiv {
+  unsigned long long d;
+  explicit WideDiv(unsigned long long divisor) : d(divisor) {}
+  __device__ unsigned long long operator()(unsigned long long n) const {
+    return n / d;
+  }
+};
+
+struct DecodeParams {
+  int gy, gz;           // grid extents along y and z
+  int a, b, c;          // the plan's axes
+  int ba, bb, s, t2;    // payload bits, shift, t^2
+  int x0, inf_d2;       // global x of plane 0; d2's "far"
+};
+
+__device__ __forceinline__ int on_axis(int axis, int x, int y, int z) {
+  return axis == 0 ? x : (axis == 1 ? y : z);
+}
+
+}  // namespace
+
+// Decode one split word at voxel (x, y, z) (x global) into d2 and the
+// closest coordinates, written at index v of the packed grid or planes.
+template <class W, class I>
+__device__ __forceinline__ void decode_voxel(W w, I v, I n, int x, int y,
+                                             int z, const DecodeParams& p,
+                                             int* __restrict__ d2,
+                                             int* __restrict__ packed,
+                                             short* __restrict__ planes) {
+  const int val = (int)(w >> (p.s + 1));
+  if (val > p.t2) {  // no obstacle within t: undefined
+    d2[v] = p.inf_d2;
+    if (packed) {
+      packed[v] = -1;
+    } else {
+      planes[v] = -1;
+      planes[(long long)n + v] = -1;
+      planes[2LL * n + v] = -1;
+    }
+    return;
+  }
+  d2[v] = val;
+  const int sign = (int)(w >> p.s) & 1;
+  const int bstar = (int)(w >> p.ba) & ((1 << p.bb) - 1);
+  const int astar = (int)w & ((1 << p.ba) - 1);
+  // val = da^2 + db^2 + dc^2 exactly where defined, so dc2 >= 0 and fits
+  const long long da = on_axis(p.a, x, y, z) - astar;
+  const long long db = on_axis(p.b, x, y, z) - bstar;
+  const long long dc2 = max(0LL, (long long)val - da * da - db * db);
+  const int dc = __float2int_rn(__fsqrt_rn(__int2float_rn((int)dc2)));
+  const int ic = on_axis(p.c, x, y, z);
+  const int cstar = sign ? ic + dc : ic - dc;
+  int cs[3];
+#pragma unroll
+  for (int k = 0; k < 3; ++k)
+    cs[k] = p.a == k ? astar : (p.b == k ? bstar : cstar);
+  if (packed) {
+    packed[v] = (cs[0] << 20) | (cs[1] << 10) | cs[2];
+  } else {
+    planes[v] = (short)cs[0];
+    planes[(long long)n + v] = (short)cs[1];
+    planes[2LL * n + v] = (short)cs[2];
+  }
+}
+
+template <class W, class I, class Div>
+__global__ void __launch_bounds__(kDecodeThreads)
+    closest_decode_kernel(const W* __restrict__ vps, int* __restrict__ d2,
+                          int* __restrict__ packed,
+                          short* __restrict__ planes, I n, Div div_z,
+                          Div div_y, DecodeParams p) {
+  const I step = (I)gridDim.x * blockDim.x * kDecodeVoxels;
+  for (I first = (I)blockIdx.x * blockDim.x * kDecodeVoxels + threadIdx.x;
+       first < n; first += step) {
+    W w[kDecodeVoxels];
+#pragma unroll
+    for (int u = 0; u < kDecodeVoxels; ++u) {
+      const I v = first + (I)u * blockDim.x;
+      if (v < n) w[u] = vps[v];
+    }
+#pragma unroll
+    for (int u = 0; u < kDecodeVoxels; ++u) {
+      const I v = first + (I)u * blockDim.x;
+      if (v >= n) break;
+      const I row = div_z(v), xq = div_y(row);
+      decode_voxel(w[u], v, n, (int)xq + p.x0, (int)(row - xq * p.gy),
+                   (int)(v - row * p.gz), p, d2, packed, planes);
+    }
+  }
+}
+
+template <class W, class I, class Div>
+static int launch_decode(const W* vps, int* d2, int* packed, short* planes,
+                         long long n, const DecodeParams& p,
+                         cudaStream_t stream) {
+  const unsigned blocks =
+      fiesta_blocks((n + kDecodeVoxels - 1) / kDecodeVoxels, kDecodeThreads);
+  closest_decode_kernel<W, I, Div><<<blocks, kDecodeThreads, 0, stream>>>(
+      vps, d2, packed, planes, (I)n, Div(p.gz), Div(p.gy), p);
+  FIESTA_LAUNCH_CHECK();
+  return 0;
+}
+
+template <class W>
+static int decode_any(const W* vps, int* d2, int* packed, short* planes,
+                      long long n, const DecodeParams& p,
+                      cudaStream_t stream) {
+  if (n < (1LL << 31))
+    return launch_decode<W, unsigned, FastDiv>(vps, d2, packed, planes, n, p,
+                                               stream);
+  return launch_decode<W, unsigned long long, WideDiv>(vps, d2, packed,
+                                                       planes, n, p, stream);
+}
+
+// Decode the split pass's words `vps` [gx, gy, gz] (i32, or i64 when
+// `wide`) into d2 and either the packed closest grid (`packed` non-null)
+// or the three i16 planes [3, gx, gy, gz].
+FIESTA_EXPORT int fiesta_closest_decode(const void* vps, int wide, int* d2,
+                                        int* packed, short* planes, int gx,
+                                        int gy, int gz, int a, int b, int c,
+                                        int ba, int bb, int s, int t2,
+                                        int x0, int inf_d2,
+                                        cudaStream_t stream) {
+  if (!packed == !planes || gy <= 0 || gz <= 0)
+    return (int)cudaErrorInvalidValue;
+  const long long n = (long long)gx * gy * gz;
+  if (n == 0) return 0;
+  const DecodeParams p{gy, gz, a, b, c, ba, bb, s, t2, x0, inf_d2};
+  if (wide)
+    return decode_any((const long long*)vps, d2, packed, planes, n, p,
+                      stream);
+  return decode_any((const int*)vps, d2, packed, planes, n, p, stream);
 }

@@ -17,8 +17,13 @@ the JAX package's transform.
 
 The closest transform (``truncated_edt_d2_closest``) runs three packed
 passes of the same shape, each with a CUDA kernel (``kernels/closest.cu``)
-and a plain version, dispatched the same way; the two-word wide fallback
-is plain PyTorch, as it is XLA in the JAX package.
+and a plain version, dispatched the same way, and decodes the last pass's
+word (``decode_split``: a kernel, or ``unpack_split`` and
+``_reconstruct_closest``).  The wide transform, for grids past the int32
+packing budget, runs the two-word passes of the JAX package (XLA there)
+as three passes over one 64-bit word ``val << shift | payload`` (kernels
+``closest_*_wide``; plain versions: the pair passes, packed into the
+word), then the same decode.
 
 The two-level EDT (``hierarchical_edt_d2`` and its closest form) runs the
 same passes on the grid and on its 2x2x2 any-pooled half, and joins them
@@ -487,10 +492,12 @@ def square_packed_l1(packed: torch.Tensor, plan) -> torch.Tensor:
 
 
 def unpack_split(vps: torch.Tensor, plan):
-    """Decode the final packed word -> (val, sign, b*, a*)."""
+    """Decode the final word (i32 packed, or i64 wide) -> (val, sign, b*,
+    a*), each i32."""
     s, ba, bb = plan["s"], plan["ba"], plan["bb"]
-    return (vps >> (s + 1), (vps >> s) & 1, (vps >> ba) & ((1 << bb) - 1),
-            vps & ((1 << ba) - 1))
+    parts = (vps >> (s + 1), (vps >> s) & 1, (vps >> ba) & ((1 << bb) - 1),
+             vps & ((1 << ba) - 1))
+    return tuple(p.to(torch.int32) for p in parts)
 
 
 def _axis_iota(shape, axis: int, device, start: int = 0) -> torch.Tensor:
@@ -532,6 +539,26 @@ def _reconstruct_closest(shape, plan, val, sign, bstar, astar,
     return d2, closest
 
 
+def _decode_split_plain(vps: torch.Tensor, plan, packed_out: bool = False,
+                        x0: int = 0):
+    """Plain version of the closest decode: ``unpack_split`` and
+    ``_reconstruct_closest`` on the split pass's words ``vps`` [X,Y,Z]
+    (i32, or i64 from the wide split)."""
+    return _reconstruct_closest(vps.shape, plan, *unpack_split(vps, plan),
+                                packed_out=packed_out, x0=x0)
+
+
+def decode_split(vps: torch.Tensor, plan, packed_out: bool = False,
+                 x0: int = 0):
+    """(d2, closest) from the split pass's words ``vps`` [X,Y,Z] (i32, or
+    i64 from the wide split), as ``_reconstruct_closest`` assembles them;
+    ``x0`` as there.  CUDA tensor: the ``closest_decode`` kernel; CPU:
+    the plain version."""
+    if vps.is_cuda:
+        return kernels.closest_decode(vps, plan, packed_out, x0)
+    return _decode_split_plain(vps, plan, packed_out, x0)
+
+
 def _as_u8(occupied: torch.Tensor) -> torch.Tensor:
     """Occupancy as a contiguous u8 tensor, nonzero = occupied (a bool
     tensor is viewed, not copied)."""
@@ -557,14 +584,19 @@ def truncated_edt_d2_closest(occupied: torch.Tensor, trunc_vox: int,
     p1 = binary_packed(_as_u8(occupied), plan, plan["a"])
     p2 = window_packed(p1, plan, plan["b"])
     vps = split_packed(p2, plan, plan["c"])
-    return _reconstruct_closest(occupied.shape, plan, *unpack_split(vps, plan),
-                                packed_out=packed_out)
+    return decode_split(vps, plan, packed_out)
 
 
 # ---------------------------------------------------------------------------
-# Wide (two-word) closest fallback (ops/pallas/edt.py:947-1075): value and
-# payload in separate int32 words, compared lexicographically.  XLA in the
-# JAX package, so plain PyTorch here.
+# Wide (two-word) closest transform (ops/pallas/edt.py:947-1075): value and
+# payload in separate int32 words, compared lexicographically; XLA in the
+# JAX package.  Lexicographic min is integer min on the 64-bit word
+# ``val << shift | payload`` (payload < 2^s, s <= 31, val <= 2t^2 + 1 <
+# 2^31), so each pass runs on that word: a CUDA kernel for a CUDA tensor
+# (``kernels.closest_*_wide``), else the pair pass below, packed into the
+# word.  Each pass takes the axis it runs along, so the transform needs no
+# transposes; per column the words are those of the pair passes on the
+# transposed volume.
 # ---------------------------------------------------------------------------
 
 
@@ -623,6 +655,65 @@ def _split_pair(hi, lo, plan):
     return val, use_p.to(torch.int32), torch.where(use_p, ap_l, an_l)
 
 
+def _word(hi: torch.Tensor, lo: torch.Tensor, shift: int) -> torch.Tensor:
+    """The 64-bit word ``hi << shift | lo`` of a (value, payload) pair."""
+    return (hi.to(torch.int64) << shift) | lo.to(torch.int64)
+
+
+def _unword(w: torch.Tensor, shift: int):
+    """(value, payload) i32 of the 64-bit word ``value << shift | payload``."""
+    return ((w >> shift).to(torch.int32),
+            (w & ((1 << shift) - 1)).to(torch.int32))
+
+
+def _binary_wide_plain(occ: torch.Tensor, plan, axis: int) -> torch.Tensor:
+    """Plain version of the wide binary pass along ``axis`` of an occupancy
+    volume (bool or u8 {0,1}): ``_binary_pair``'s (val, a*) as the i64
+    word ``val << ba | a*``."""
+    hi, lo = _binary_pair(occ.movedim(axis, 0), plan)
+    return _word(hi, lo, plan["ba"]).movedim(0, axis).contiguous()
+
+
+def _window_wide_plain(p1: torch.Tensor, plan, axis: int) -> torch.Tensor:
+    """Plain version of the wide window pass along ``axis`` of the binary
+    pass's i64 words: ``_window_pair`` as ``val << s | b* << ba | a*``."""
+    hi, lo = _window_pair(*_unword(p1.movedim(axis, 0), plan["ba"]), plan)
+    return _word(hi, lo, plan["s"]).movedim(0, axis).contiguous()
+
+
+def _split_wide_plain(p2: torch.Tensor, plan, axis: int) -> torch.Tensor:
+    """Plain version of the wide split pass along ``axis`` of the window
+    pass's i64 words: ``_split_pair``'s (val, sign, payload) as
+    ``val << (s+1) | sign << s | payload``."""
+    s = plan["s"]
+    val, sign, pay = _split_pair(*_unword(p2.movedim(axis, 0), s), plan)
+    return _word(_word(val, sign, 1), pay, s).movedim(0, axis).contiguous()
+
+
+def binary_wide(occ: torch.Tensor, plan, axis: int) -> torch.Tensor:
+    """Wide binary pass along ``axis``.  CUDA tensor (u8 {0,1}): the
+    ``closest_binary_wide`` kernel; CPU: the plain version."""
+    if occ.is_cuda:
+        return kernels.closest_binary_wide(occ, plan, axis)
+    return _binary_wide_plain(occ, plan, axis)
+
+
+def window_wide(p1: torch.Tensor, plan, axis: int) -> torch.Tensor:
+    """Wide window pass along ``axis``.  CUDA tensor: the
+    ``closest_window_wide`` kernel; CPU: the plain version."""
+    if p1.is_cuda:
+        return kernels.closest_window_wide(p1, plan, axis)
+    return _window_wide_plain(p1, plan, axis)
+
+
+def split_wide(p2: torch.Tensor, plan, axis: int) -> torch.Tensor:
+    """Wide split pass along ``axis``.  CUDA tensor: the
+    ``closest_split_wide`` kernel; CPU: the plain version."""
+    if p2.is_cuda:
+        return kernels.closest_split_wide(p2, plan, axis)
+    return _split_wide_plain(p2, plan, axis)
+
+
 def truncated_edt_d2_closest_wide(occupied: torch.Tensor, trunc_vox: int,
                                   packed_out: bool = False):
     """Exact truncated EDT + closest on grids past the int32 packing budget
@@ -633,16 +724,10 @@ def truncated_edt_d2_closest_wide(occupied: torch.Tensor, trunc_vox: int,
         raise ValueError(
             "closest tracking unsupported even in wide form: "
             + closest_capability(occupied.shape, trunc_vox)["detail"])
-    ba, a_ax, b_ax, c_ax = plan["ba"], plan["a"], plan["b"], plan["c"]
-    occ_t = _as_u8(occupied).permute(a_ax, b_ax, c_ax)
-    hi, lo = _binary_pair(occ_t, plan)                             # [A,B,C]
-    hi, lo = _window_pair(hi.transpose(0, 1), lo.transpose(0, 1), plan)
-    val, sign, pay = _split_pair(hi.permute(2, 1, 0), lo.permute(2, 1, 0),
-                                 plan)                             # [C,A,B]
-    inv = tuple(int(i) for i in np.argsort((c_ax, a_ax, b_ax)))
-    val, sign, pay = (x.permute(inv).contiguous() for x in (val, sign, pay))
-    return _reconstruct_closest(occupied.shape, plan, val, sign, pay >> ba,
-                                pay & ((1 << ba) - 1), packed_out=packed_out)
+    p1 = binary_wide(_as_u8(occupied), plan, plan["a"])
+    p2 = window_wide(p1, plan, plan["b"])
+    vps = split_wide(p2, plan, plan["c"])
+    return decode_split(vps, plan, packed_out)
 
 
 def edt_closest_auto(occupied: torch.Tensor, trunc_vox: int,

@@ -512,7 +512,7 @@ def _local_edt_closest(shape, mesh: Mesh, trunc_vox: int):
         grid), the halo rows cropped.
 
     Returns local_fn(occs, x0s) -> (d2 slabs, closest planes [3,lx,Y,Z]
-    i16), c* recovered by ``edt._reconstruct_closest`` with global x."""
+    i16), c* recovered by ``edt.decode_split`` with global x."""
     plan = edt.closest_plan(shape, trunc_vox)
     if plan is None or not (plan["a"] == 0 or plan["c"] == 0):
         raise ValueError(f"no sharded closest layout for {tuple(shape)} at "
@@ -536,8 +536,7 @@ def _local_edt_closest(shape, mesh: Mesh, trunc_vox: int):
                 p2 = edt.window_packed(edt.square_packed_l1(p, plan), plan,
                                        plan["b"])
                 vps = edt.split_packed(p2, plan, plan["c"])
-                out.append(edt._reconstruct_closest(
-                    vps.shape, plan, *edt.unpack_split(vps, plan), x0=x0))
+                out.append(edt.decode_split(vps, plan, x0=x0))
             return [o[0] for o in out], [o[1] for o in out]
 
         return local_fn
@@ -550,9 +549,7 @@ def _local_edt_closest(shape, mesh: Mesh, trunc_vox: int):
             plan["b"]) for o in occs]
         ext = _halo_planes_x(mesh, p2, t, cap_fill)
         vps = [edt.split_packed(e, plan, 0)[t:-t] for e in ext]
-        out = [edt._reconstruct_closest(v.shape, plan,
-                                        *edt.unpack_split(v, plan), x0=x0)
-               for v, x0 in zip(vps, x0s)]
+        out = [edt.decode_split(v, plan, x0=x0) for v, x0 in zip(vps, x0s)]
         return [o[0] for o in out], [o[1] for o in out]
 
     return local_fn

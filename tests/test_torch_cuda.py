@@ -19,8 +19,11 @@ lengths below, at and above one shared-memory tile (up to 2^20 + 5
 pairs, where the merge
 levels split, and the cow splat's 147 456) with duplicate and sentinel
 keys, equal, sorted and reverse-sorted keys, the splat at the cow box
-size, and windows of the drain that cut, cover or miss the grid.  The
-app's prefetch worker uploads on the stream its replay loop reads.
+size, windows of the drain that cut, cover or miss the grid, the three
+wide closest passes on 64-bit words (both layouts, columns of 400 rows at
+t = 2000) and the closest decode (packed and wide words, both formats, a
+slab's x origin, roots of k + 1/2 rounded half to even).  The app's
+prefetch worker uploads on the stream its replay loop reads.
 """
 
 import dataclasses
@@ -350,12 +353,12 @@ CLOSEST = {"x_lead": ((40, 33, 8), 9), "x_lead_long_t": ((37, 29, 20), 23),
            "long_c_450": ((8, 450, 6), 100)}
 
 
-def _split_edges(shape, plan, g):
+def _split_edges(shape, plan, g, dtype=torch.int32):
     """Split-pass input words ``v << s | payload`` (v <= cap) along the
-    plan's c axis: random values; values whose candidates tie (v + k^2,
-    within a side and across the two) with payloads 0-2; values at cap
-    and cap - 1; all-far columns; lone values at t_local and t_local + 1
-    from either column end."""
+    plan's c axis, of ``dtype``: random values; values whose candidates
+    tie (v + k^2, within a side and across the two) with payloads 0-2;
+    values at cap and cap - 1; all-far columns; lone values at t_local and
+    t_local + 1 from either column end."""
     s, cap, c_ax = plan["s"], plan["cap"], plan["c"]
     a = shape[c_ax]
     tl = min(plan["t"], a - 1)
@@ -376,7 +379,7 @@ def _split_edges(shape, plan, g):
     out = []
     for v, p in ((rand, pay), (ties, torch.randint(0, 3, lead, generator=g)),
                  (at_cap, pay), (lone.reshape(lead), pay)):
-        out.append(((v << s) | p).to(torch.int32).movedim(0, c_ax)
+        out.append(((v << s) | p).to(dtype).movedim(0, c_ax)
                    .contiguous())
     return out
 
@@ -406,8 +409,9 @@ def test_closest_kernels(dev, layout, square):
     assert names == ["closest_split_kernel"]
 
 
-def _window_edges(shape, plan, axis, g):
-    """Window-pass input words ``v << ba | a*`` (v <= cap) along ``axis``:
+def _window_edges(shape, plan, axis, g, dtype=torch.int32):
+    """Window-pass input words ``v << ba | a*`` (v <= cap) along ``axis``,
+    of ``dtype``:
     random values; values whose candidates tie (within a side and across
     the two) with a* 0-2; values at cap and cap - 1; a first tile of 32
     all-far columns, then lone values at t_local and t_local + 1 from
@@ -435,7 +439,7 @@ def _window_edges(shape, plan, axis, g):
     out = []
     for v, p in ((rand, pay), (ties, torch.randint(0, 3, lead, generator=g)),
                  (at_cap, pay), (lone.reshape(lead), pay)):
-        out.append(((v << ba) | p).to(torch.int32).movedim(0, axis)
+        out.append(((v << ba) | p).to(dtype).movedim(0, axis)
                    .contiguous())
     return out
 
@@ -532,14 +536,203 @@ def test_closest_transform_kernels_equal_plain(dev, monkeypatch, packed_out):
     kernels.reset_launch_counts()
     got = edt.truncated_edt_d2_closest(occ, 12, packed_out)
     assert [kernels.LAUNCHES[k] for k in
-            ("closest_binary", "closest_window", "closest_split")] == [1, 1, 1]
+            ("closest_binary", "closest_window", "closest_split",
+             "closest_decode")] == [1, 1, 1, 1]
     monkeypatch.setattr(edt, "binary_packed", edt._binary_packed_plain)
     monkeypatch.setattr(edt, "window_packed", edt._window_packed_plain)
     monkeypatch.setattr(edt, "split_packed", edt._split_packed_plain)
+    monkeypatch.setattr(edt, "decode_split", edt._decode_split_plain)
     ref = edt.truncated_edt_d2_closest(occ, 12, packed_out)
     for a, b in zip(got, ref):
         _eq(a, b)
     _eq(got[0], edt.truncated_edt_d2(occ, 12))
+
+
+# shapes past the int32 packing budget at t = 2000 (the wide plan's
+# x-lead layout, a = x, b = z, c = y; t_local 399 on a long c or a
+# column), and two wide plans built by hand: the widest-C axes, and a b
+# axis of 400 rows (the window's k0p past its u8 cap of 254)
+WIDE = {"x_lead": ((40, 40, 8), None), "long_c": ((40, 400, 8), None),
+        "long_a": ((400, 40, 8), None), "widest_c": ((40, 40, 8), (1, 2, 0)),
+        "long_b": ((40, 400, 8), (0, 1, 2))}
+WIDE_T = 2000
+
+
+def _wide_plan(layout):
+    shape, axes = WIDE[layout]
+    if axes is None:
+        assert edt.closest_plan(shape, WIDE_T) is None
+        return shape, edt.closest_plan_wide(shape, WIDE_T)
+    bits = [max(1, (n - 1).bit_length()) for n in shape]
+    a, b, c = axes
+    return shape, dict(a=a, b=b, c=c, ba=bits[a], bb=bits[b],
+                       s=bits[a] + bits[b], cap=WIDE_T * WIDE_T + 1, t=WIDE_T)
+
+
+@pytest.mark.parametrize("layout", sorted(WIDE))
+def test_closest_wide_kernels(dev, layout):
+    """The three wide passes (64-bit words) against their plain versions
+    (the pair passes packed into the word) on a sparse occupancy, the
+    binary pass at its edges along a, the window and split passes at
+    their bounds' edges along b and c; one CUDA launch a call, by name."""
+    shape, plan = _wide_plan(layout)
+    a, b, c = plan["a"], plan["b"], plan["c"]
+    g = torch.Generator().manual_seed(len(layout))
+    occ = (torch.rand(shape, generator=g) < 0.004).to(torch.uint8)
+    occ[:, :3] = 0                                 # all-far tiles
+    occ = occ.to(dev)
+    p1 = edt.binary_wide(occ, plan, a)
+    _eq(p1, edt._binary_wide_plain(occ, plan, a))
+    p2 = edt.window_wide(p1, plan, b)
+    _eq(p2, edt._window_wide_plain(p1, plan, b))
+    _eq(edt.split_wide(p2, plan, c), edt._split_wide_plain(p2, plan, c))
+    for o in _closest_binary_edges(shape, a, WIDE_T, g):
+        o = o.to(dev)
+        _eq(edt.binary_wide(o, plan, a), edt._binary_wide_plain(o, plan, a))
+    for x in _window_edges(shape, plan, b, g, torch.int64):
+        x = x.to(dev)
+        _eq(edt.window_wide(x, plan, b), edt._window_wide_plain(x, plan, b))
+    for x in _split_edges(shape, plan, g, torch.int64):
+        x = x.to(dev)
+        _eq(edt.split_wide(x, plan, c), edt._split_wide_plain(x, plan, c))
+    kernels.reset_launch_counts()
+    for fn, name in ((lambda: edt.binary_wide(occ, plan, a),
+                      "void closest_binary_wide_kernel"),
+                     (lambda: edt.window_wide(p1, plan, b),
+                      "closest_window_wide_kernel"),
+                     (lambda: edt.split_wide(p2, plan, c),
+                      "closest_split_wide_kernel")):
+        _, names = _cuda_kernels(fn)
+        assert [n.split("<")[0] for n in names] == [name]
+    assert [kernels.LAUNCHES[k] for k in ("closest_binary_wide",
+                                          "closest_window_wide",
+                                          "closest_split_wide")] == [1, 1, 1]
+
+
+def _decode_words(shape, plan, dtype, g, dev, x0=0, dc2=None):
+    """Split-pass words [X,Y,Z] of ``dtype`` on ``dev`` for the decode:
+    each voxel's witness a few voxels away (its x global: + ``x0``), a
+    fifth undefined (val = cap), sign 1 for a witness at higher c; or,
+    with ``dc2`` (a list), the witness on the voxel's own a and b and dc2
+    drawn from the list."""
+    a, b = plan["a"], plan["b"]
+    iota = [torch.arange(n).reshape([-1 if i == k else 1 for i in range(3)])
+            .expand(shape) + (x0 if k == 0 else 0)
+            for k, n in enumerate(shape)]
+
+    def near(k):
+        off = torch.randint(-3, 4, shape, generator=g)
+        lo = x0 if k == 0 else 0
+        return torch.clamp(iota[k] + off, lo, lo + shape[k] - 1)
+
+    if dc2 is None:
+        astar, bstar = near(a), near(b)
+        dc = torch.randint(-5, 6, shape, generator=g)
+        val = (iota[a] - astar) ** 2 + (iota[b] - bstar) ** 2 + dc * dc
+        val[torch.rand(shape, generator=g) < 0.2] = plan["cap"]
+        sign = (dc > 0) | ((dc == 0) & (torch.rand(shape, generator=g) < 0.5))
+    else:
+        astar, bstar = iota[a], iota[b]
+        val = torch.tensor(dc2)[torch.randint(0, len(dc2), shape,
+                                              generator=g)]
+        sign = torch.rand(shape, generator=g) < 0.5
+    s, ba = plan["s"], plan["ba"]
+    return ((val << (s + 1)) | (sign.long() << s) | (bstar << ba)
+            | astar).to(dtype).to(dev)
+
+
+# (shape, plan, word dtype, x0): the cow transform's words, the widest-C
+# packed plan, wide plans from i64 words, and an X-slab of the cow grid
+# whose payloads hold global x (x0 150, as the sharded engine's)
+DECODE = {"cow": ((400, 400, 80), 100, "packed", 0),
+          "widest_c": ((64, 16, 8), 1500, "packed", 0),
+          "wide_x_lead": ((40, 40, 8), WIDE_T, "wide", 0),
+          "wide_long_c": ((40, 400, 8), WIDE_T, "wide", 0),
+          "slab_x0": ((50, 400, 80), 100, "packed", 150)}
+
+
+@pytest.mark.parametrize("packed_out", [False, True])
+@pytest.mark.parametrize("layout", sorted(DECODE))
+def test_closest_decode_kernel(dev, layout, packed_out):
+    """The decode kernel against its plain version in both formats: on
+    the real transform's words (cow: kernels' passes; wide: the wide
+    passes) and on synthetic words with undefined voxels, a slab's x
+    origin; one CUDA launch a call, by name."""
+    shape, t, kind, x0 = DECODE[layout]
+    gshape = (400, 400, 80) if layout == "slab_x0" else shape
+    plan = (edt.closest_plan(gshape, t) if kind == "packed"
+            else edt.closest_plan_wide(shape, t))
+    dtype = torch.int32 if kind == "packed" else torch.int64
+    g = torch.Generator().manual_seed(len(layout) + packed_out)
+    words = [_decode_words(shape, plan, dtype, g, dev, x0)]
+    if x0 == 0:
+        occ = (torch.rand(shape, generator=g) < 0.005).to(dev)
+        if kind == "packed":
+            words.append(edt.split_packed(edt.window_packed(edt.binary_packed(
+                occ.view(torch.uint8), plan, plan["a"]), plan, plan["b"]),
+                plan, plan["c"]))
+        else:
+            words.append(edt.split_wide(edt.window_wide(edt.binary_wide(
+                occ, plan, plan["a"]), plan, plan["b"]), plan, plan["c"]))
+    for w in words:
+        assert w.dtype == dtype
+        got = edt.decode_split(w, plan, packed_out, x0)
+        ref = edt._decode_split_plain(w, plan, packed_out, x0)
+        for a, b in zip(got, ref):
+            _eq(a, b)
+        assert int((got[0] < ft.grid.INF_D2).sum()) > 0
+    kernels.reset_launch_counts()
+    _, names = _cuda_kernels(lambda: edt.decode_split(w, plan, packed_out,
+                                                      x0))
+    assert [n.split("<")[0] for n in names] == ["void closest_decode_kernel"]
+    assert kernels.LAUNCHES["closest_decode"] == 1
+
+
+@pytest.mark.parametrize("kind", ["packed", "wide"])
+def test_closest_decode_kernel_rounds_half_to_even(dev, kind):
+    """dc2 = k^2 + k for k in 2048, 2049, 3000: the f32 root is exactly
+    k + 0.5 and the kernel rounds it half to even (rintf), as the plain
+    version's torch.round does."""
+    shape = (8, 8, 8)
+    plan = (edt.closest_plan(shape, 3100) if kind == "packed"
+            else edt.closest_plan_wide(shape, 3100))
+    dtype = torch.int32 if kind == "packed" else torch.int64
+    g = torch.Generator().manual_seed(7)
+    dc2 = [k * k + k for k in (2048, 2049, 3000)] + [4, 0]
+    w = _decode_words(shape, plan, dtype, g, dev, dc2=dc2)
+    got = edt.decode_split(w, plan)
+    for a, b in zip(got, edt._decode_split_plain(w, plan)):
+        _eq(a, b)
+    c = plan["c"]
+    ic = torch.arange(shape[c], device=dev).reshape(
+        [-1 if i == c else 1 for i in range(3)])
+    dc = (got[1][c].long() - ic).abs()
+    for k in (2048, 2049, 3000):
+        assert set((dc[got[0] == k * k + k]).tolist()) == {k + k % 2}
+
+
+@pytest.mark.parametrize("packed_out", [False, True])
+def test_wide_transform_kernels_equal_plain(dev, monkeypatch, packed_out):
+    """The wide transform on the card: the three wide kernels and the
+    decode, once each, equal to the transform through the plain
+    versions; its d2 the d2-only transform's."""
+    occ = (torch.rand((40, 400, 8), generator=torch.Generator().manual_seed(
+        8)) < 0.004).to(dev)
+    kernels.reset_launch_counts()
+    got = edt.edt_closest_auto(occ, WIDE_T, packed_out)
+    assert [kernels.LAUNCHES[k] for k in
+            ("closest_binary_wide", "closest_window_wide",
+             "closest_split_wide", "closest_decode", "closest_binary",
+             "closest_window", "closest_split")] == [1, 1, 1, 1, 0, 0, 0]
+    for name, plain in (("binary_wide", edt._binary_wide_plain),
+                        ("window_wide", edt._window_wide_plain),
+                        ("split_wide", edt._split_wide_plain),
+                        ("decode_split", edt._decode_split_plain)):
+        monkeypatch.setattr(edt, name, plain)
+    ref = edt.truncated_edt_d2_closest_wide(occ, WIDE_T, packed_out)
+    for a, b in zip(got, ref):
+        _eq(a, b)
+    _eq(got[0], edt.truncated_edt_d2(occ, WIDE_T))
 
 
 def test_stream_kernels_equal_plain(dev, monkeypatch):
@@ -557,7 +750,9 @@ def test_stream_kernels_equal_plain(dev, monkeypatch):
     assert kernels.LAUNCHES == {
         "splat": 4, "carve": 4, "edt_binary": 4, "edt_minplus": 8,
         "fuse": 4, "boxadd": 4, "closest_binary": 0, "closest_window": 0,
-        "closest_split": 0, "sort": 0, "relax": 0}
+        "closest_split": 0, "closest_decode": 0, "closest_binary_wide": 0,
+        "closest_window_wide": 0, "closest_split_wide": 0, "sort": 0,
+        "relax": 0}
     monkeypatch.setattr(raycast, "splat_packed", raycast._splat_packed_plain)
     monkeypatch.setattr(raycast, "carve_free_mask_batch",
                         raycast._carve_free_plain)
@@ -814,10 +1009,12 @@ def test_hierarchical_transform_kernels_equal_plain(dev, monkeypatch,
     d2 = edt.hierarchical_edt_d2(occ, 5, 12)
     assert [kernels.LAUNCHES[k] for k in
             ("closest_binary", "closest_window", "closest_split",
-             "edt_binary", "edt_minplus")] == [2, 2, 2, 2, 4]
+             "closest_decode", "edt_binary", "edt_minplus")] \
+        == [2, 2, 2, 2, 2, 4]
     for name, plain in (("binary_packed", edt._binary_packed_plain),
                         ("window_packed", edt._window_packed_plain),
                         ("split_packed", edt._split_packed_plain),
+                        ("decode_split", edt._decode_split_plain),
                         ("binary_pass", edt._binary_pass_plain),
                         ("minplus_pass", edt._minplus_pass_plain)):
         monkeypatch.setattr(edt, name, plain)
