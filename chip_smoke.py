@@ -24,7 +24,7 @@ runs after 10; any failure raises and exits non-zero:
 
 1. device and build: the card's name and power limit (nvidia-smi), then
    every kernel built with nvcc from the sources in this checkout, with
-   relax.cu's measurement variants beside them (timed);
+   relax.cu's and closest.cu's measurement variants beside them (timed);
 2. the stream: ``fused_stream`` with the kernels, launch counts zeroed
    just before and read just after (each of its kernels must have
    launched); then the same ticks through the plain PyTorch versions on
@@ -192,7 +192,19 @@ runs after 10; any failure raises and exits non-zero:
    the derived d2 equal to the tick's.  ``derive_closest`` timed and
    traced both ways, the path's peak memory both ways, and each wide
    kernel and the decode of its i64 words against its plain version at
-   these shapes (bit-equal as 64-bit words), timed beside its bound;
+   these shapes (bit-equal as 64-bit words), timed beside its bound.
+   The wide split (on u32 tile words here) also beside its parent
+   kernel, the bounded body on 64-bit words (``SPLIT_VARIANTS``,
+   ``kernels/split_wide_parent.cu``), on the
+   card alone in turns, with both kernels' parts (load and store, plus
+   the carries) and the package's u64 form, its window offsets a side
+   (mean, p99, most) and their operations (``SPLIT_TAP_OPS``, a work
+   model), its bytes and operations bounds, each launch's resident
+   blocks and warps an SM,
+   registers and spills; then its 64-bit leg: the map tiled 2x2 along x
+   and y (1600x1600x80, s = 18, u64 tile words in chunks) through the
+   wide binary and window kernels, and the split alone on it the same
+   way, bit-equal to its plain version (timed once);
 16. a JSON line of per-kernel numbers (with the launches, device times,
    carve steps and window offsets above, phases 8 to 15, and for each
    row its launches on the sharded path and its time at the slab
@@ -284,6 +296,29 @@ RELAX_VARIANTS = {
     "min_blocks_3": ("relax.cu", ("FIESTA_RELAX_MIN_BLOCKS=3",)),
     "min_blocks_2": ("relax.cu", ("FIESTA_RELAX_MIN_BLOCKS=2",)),
 }
+# measurement variants (kernels.build_variants), timed beside the wide
+# split in phase 15: its parent kernel (split_wide_parent.cu: the bounded
+# body on 64-bit words, as before its redesign), and both kernels stopped
+# after the load and store and after the carries (the parent's k0p sweep;
+# the near masks and the lp/nn walk)
+SPLIT_VARIANTS = {
+    "parent": ("split_wide_parent.cu", ()),
+    "parent_load_store": ("split_wide_parent.cu", ("FIESTA_SPLIT_STOP=1",)),
+    "parent_carries": ("split_wide_parent.cu", ("FIESTA_SPLIT_STOP=2",)),
+    "load_store": ("closest.cu", ("FIESTA_SPLIT_STOP=1",)),
+    "carries": ("closest.cu", ("FIESTA_SPLIT_STOP=2",)),
+}
+# the wide split's work model, logged beside its bounds and not one of
+# them: int32 operations a tap of its bounded windows takes, by tile word
+# bits (the offset clamped at kmax (add, min), its square and shift, the
+# row and its address, the shared load, the add and the min (9), and a
+# quarter of the turn's test (square, shift, compare, branch, step); on
+# 64-bit words the shifts and the add take two, the min four).  Its
+# operations bound is the function's cheapest exact pass (ENVELOPE_OPS)
+SPLIT_TAP_OPS = {32: 10, 64: 16}
+# phase 15's 64-bit leg: the wide map tiled 2x2 along x and y, 1600x1600x80
+# (an 80 m floor at 0.05 m; s = 18)
+WIDE_LONG_TILES = (2, 2, 1)
 WORLD_FRAMES = 24        # phase 11: one orbit of WORLD_RADIUS in 0.8 s
 WORLD_PERIOD = 0.8
 WORLD_RADIUS = 8.0       # m: past the cow grid's central box (2.5 m)
@@ -432,6 +467,14 @@ def kernel_times(fn, calls=5, windows=5):
     and ``host_ms``, the host clock's median time to enqueue a call in
     those windows."""
     ms = time_ms(fn, calls, windows)
+    device_ms, host_ms = queued_ms(fn, calls, windows)
+    return dict(ms=ms, device_ms=device_ms, host_ms=host_ms)
+
+
+def queued_ms(fn, calls=5, windows=5):
+    """(the card's time alone a call, the host's time to enqueue one):
+    medians over ``windows`` of ``calls`` calls queued behind a 20 ms
+    device sleep."""
     device, host = [], []
     for _ in range(windows):
         torch.cuda._sleep(SLEEP_CYCLES)
@@ -445,8 +488,7 @@ def kernel_times(fn, calls=5, windows=5):
         b.record()
         b.synchronize()
         device.append(a.elapsed_time(b) / calls)
-    return dict(ms=ms, device_ms=statistics.median(device),
-                host_ms=statistics.median(host))
+    return statistics.median(device), statistics.median(host)
 
 
 def profiled(fn, calls, attempts=3):
@@ -650,11 +692,13 @@ def peak_above(fn):
     return out, (torch.cuda.max_memory_allocated() - held) / 2**20
 
 
-def wide_rows(occupied, plan):
+def wide_rows(occupied, plan, variants):
     """The three wide passes and the decode of their i64 words on the
     wide map's final occupancy, each against its plain version (the pair
-    passes packed into 64-bit words), with their bounds; the wide passes'
-    rows, and the decode's at these shapes."""
+    passes packed into 64-bit words), with their bounds; the split also
+    beside its parent kernel (``split_wide_detail``, with ``variants``,
+    SPLIT_VARIANTS' libraries).  Returns the wide passes' rows and the
+    decode's at these shapes."""
     a, b, c = plan["a"], plan["b"], plan["c"]
     cap, nvox = plan["cap"], occupied.numel()
     occ = occupied.view(torch.uint8)
@@ -666,6 +710,7 @@ def wide_rows(occupied, plan):
              edt._window_wide_plain),
             ("closest_split_wide", c, kernels.closest_split_wide,
              edt._split_wide_plain)):
+        extra = {}
         if name == "closest_binary_wide":
             # u8 in, i64 out; a few operations a voxel (the binary pass's)
             nbytes, ops = 9 * nvox, 4 * nvox
@@ -675,6 +720,9 @@ def wide_rows(occupied, plan):
             shift = plan["ba"] if name == "closest_window_wide" else plan["s"]
             near_cols = int(((x >> shift) < cap).any(dim=axis).sum())
             nbytes, ops = 16 * nvox, ENVELOPE_OPS * near_cols * x.shape[axis]
+            if name == "closest_split_wide":
+                extra = split_wide_detail(x, plan, axis, variants,
+                                          plain(x, plan, axis))
         by_name, counts, _ = profiled(lambda: kern(x, plan, axis), 10)
         rows.append(dict(
             name=name, source="fiesta_tpu_torch/kernels/closest.cu",
@@ -685,12 +733,159 @@ def wide_rows(occupied, plan):
             plain_ms=time_ms(lambda: plain(x, plan, axis), calls=1,
                              windows=3),
             library_ms=None, bound=bound(nbytes, ops, I32_OPS_PER_S),
-            cuda_launches=sum(counts.values()), by_kernel=by_name))
+            cuda_launches=sum(counts.values()), by_kernel=by_name,
+            **({"split": extra} if extra else {})))
         x = kern(x, plan, axis)
     return rows, decode_row(x, plan, True)
 
 
-def wide_path(cfg, batches, eager, dev, card, rows, launches):
+def ptxas_entries(text, part):
+    """{entry function: registers, spill stores and loads in bytes} of the
+    kernels whose mangled name holds ``part``, from nvcc's ``-Xptxas -v``
+    report ``text``."""
+    out, name = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = m.group(1)
+        elif name and part in name:
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+            if m:
+                out.setdefault(name, {}).update(spill_stores=int(m[1]),
+                                                spill_loads=int(m[2]))
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                out.setdefault(name, {})["registers"] = int(m[1])
+    return out
+
+
+def split_wide_detail(x, plan, axis, variants, ref):
+    """The wide split on its input ``x`` along ``axis`` (``ref``: the
+    plain pass's words) beside its parent kernel: the bytes bound and the
+    operations bound (the cheapest exact pass, ENVELOPE_OPS a row of each
+    column holding a value below cap), the work model (window offsets a
+    side: mean, p99 and most, beside the brute-force window's; the int32
+    operations those taps take on u32 and on u64 tile words,
+    SPLIT_TAP_OPS, and their time at the int32 rate), the card's
+    time alone of both kernels' parts in turns (load and store, plus the
+    carries, the whole pass; the package's u64 form too where it takes
+    u32), each launch's residency and the split kernels' ptxas registers
+    and spills.  The parent and the u64 form must equal ``ref``."""
+    nvox = x.numel()
+    bits = kernels.split_wide_word_bits(plan, x.shape[axis])
+    near_cols = int(((x >> plan["s"]) < plan["cap"]).any(dim=axis).sum())
+    ops = ENVELOPE_OPS * near_cols * x.shape[axis]
+    taps = split_taps(x, plan, axis)
+    n_taps = (taps["n"]["mean_taps"] + taps["p"]["mean_taps"]) * nvox
+    tap_ops = {w: n_taps * SPLIT_TAP_OPS[w] for w in (32, 64)}
+
+    def split(**kw):
+        return lambda: kernels._closest_split_wide(x, plan, axis, **kw)
+
+    fns = {"parent": split(lib=variants["parent"]),
+           "parent_load_store": split(lib=variants["parent_load_store"]),
+           "parent_carries": split(lib=variants["parent_carries"]),
+           "package": split(), "load_store": split(lib=variants["load_store"]),
+           "carries": split(lib=variants["carries"])}
+    residency = {
+        "package": kernels.closest_split_wide_residency(x.shape, plan, axis),
+        "parent": kernels.closest_split_wide_residency(
+            x.shape, plan, axis, lib=variants["parent"])}
+    if bits == 32:
+        fns["package_u64"] = split(bits=64)
+        residency["package_u64"] = kernels.closest_split_wide_residency(
+            x.shape, plan, axis, bits=64)
+    err = max(max_abs_err([fns[k]()], [ref])
+              for k in ("parent", "package", "package_u64") if k in fns)
+    turns = {k: [] for k in fns}
+    for order in (list(fns), list(fns)[::-1]):
+        for k in order:
+            turns[k].append(queued_ms(fns[k], calls=5, windows=3)[0])
+    ptxas = {}
+    for src in ("closest.cu", "parent"):
+        for fn, v in ptxas_entries(kernels.BUILD_LOG.get(src, ""),
+                                   "closest_split_wide").items():
+            ptxas[f"{src}: {fn}"] = v
+    return dict(word_bits=bits, ops=ops, taps=taps, taps_total=n_taps,
+                tap_ops=tap_ops,
+                ops_bound_ms=ops / I32_OPS_PER_S * 1e3,
+                tap_ops_ms={w: v / I32_OPS_PER_S * 1e3
+                            for w, v in tap_ops.items()},
+                bytes_bound_ms=16 * nvox / HBM_BYTES_PER_S * 1e3, err=err,
+                device_ms=turns, residency=residency, ptxas=ptxas)
+
+
+def wide_long_split(occupied, t, variants):
+    """Phase 15's 64-bit leg: the wide map's occupancy tiled
+    WIDE_LONG_TILES (1600x1600x80 at t = 100: s = 18, u64 tile words)
+    through the wide binary and window kernels, then the wide split on its
+    own: bit-equal to the plain pass (timed once), timed beside its bounds
+    and CUDA launches, and ``split_wide_detail`` beside the parent."""
+    occ = occupied.repeat(*WIDE_LONG_TILES).view(torch.uint8)
+    shape = tuple(occ.shape)
+    plan = edt.closest_plan_wide(shape, t)
+    assert edt.closest_plan(shape, t) is None and plan is not None, shape
+    a, b, c = plan["a"], plan["b"], plan["c"]
+    assert kernels.split_wide_word_bits(plan, shape[c]) == 64, plan
+    x = kernels.closest_window_wide(
+        kernels.closest_binary_wide(occ, plan, a), plan, b)
+    del occ
+    split = lambda: kernels.closest_split_wide(x, plan, c)  # noqa: E731
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    ref = edt._split_wide_plain(x, plan, c)
+    end.record()
+    end.synchronize()
+    err = max_abs_err([split()], [ref])
+    detail = split_wide_detail(x, plan, c, variants, ref)
+    del ref
+    by_name, counts, _ = profiled(split, 3)
+    out = dict(grid=list(shape), plan=plan, err=err,
+               plain_ms=start.elapsed_time(end),
+               **kernel_times(split, calls=3, windows=3),
+               bound=bound(16 * x.numel(), detail["ops"], I32_OPS_PER_S),
+               cuda_launches=sum(counts.values()), by_kernel=by_name,
+               split=detail)
+    del x
+    torch.cuda.empty_cache()
+    return out
+
+
+def split_line(what, r, card):
+    """The log line of a wide split row: times beside the parent's in
+    turns, both bounds, taps, residency and ptxas."""
+    d = r["split"]
+    med = {k: statistics.median(v) for k, v in d["device_ms"].items()}
+    return (
+        f"closest_split_wide at {what} ({d['word_bits']}-bit tile words): "
+        f"on the card alone in turns (forward, then backward) "
+        f"{ {k: [round(x, 4) for x in v] for k, v in d['device_ms'].items()} }"
+        f"; medians package {med['package']:.4f} ms, parent "
+        f"{med['parent']:.4f} ({med['parent'] / med['package']:.2f}x); "
+        f"parts: load and store {med['load_store']:.4f}, with the carries "
+        f"{med['carries']:.4f} (parent {med['parent_load_store']:.4f}, "
+        f"{med['parent_carries']:.4f}); bounds: bytes "
+        f"{d['bytes_bound_ms']:.4f} ms, operations "
+        f"{d['ops_bound_ms']:.4f} ({ENVELOPE_OPS} int32 a row of each "
+        f"column with a value below cap); work model: "
+        f"{d['taps_total']:.4g} taps at {SPLIT_TAP_OPS} int32 a tap by "
+        f"tile word bits, "
+        f"{ {w: round(v, 4) for w, v in d['tap_ops_ms'].items()} } ms at "
+        f"the int32 rate; window offsets a voxel: side n "
+        f"mean {d['taps']['n']['mean_taps']:.3f} p99 "
+        f"{d['taps']['n']['p99_taps']} max {d['taps']['n']['max_taps']}, "
+        f"side p mean {d['taps']['p']['mean_taps']:.3f} p99 "
+        f"{d['taps']['p']['p99_taps']} max {d['taps']['p']['max_taps']}, "
+        f"brute-force {d['taps']['brute_mean_taps']:.2f} a side; residency "
+        f"{d['residency']}; ptxas {d['ptxas']}; "
+        f"{', '.join(k for k in ('parent', 'package_u64') if k in med)} "
+        f"bit-equal to plain; on {card}")
+
+
+def wide_path(cfg, batches, eager, dev, card, rows, launches,
+              split_variants):
     """Phase 15: the closest path where the packed word misses int32 (the
     cow config on a 40 m floor, ``WIDE_MAP_SIZE``): phase 2's scans
     streamed into it, then ``derive_closest``, EAGER_TICKS eager ticks
@@ -700,7 +895,9 @@ def wide_path(cfg, batches, eager, dev, card, rows, launches):
     the plain versions: every output bit-equal, the derived d2 equal to
     the tick's ``rebuild_d2``.  ``derive_closest`` timed and traced both
     ways, peak memory both ways, and each wide kernel against its plain
-    version at these shapes (appended to ``rows``).  Returns a summary."""
+    version at these shapes (appended to ``rows``), the split beside its
+    parent kernel (``split_variants``: SPLIT_VARIANTS' libraries), then
+    the split's 64-bit leg (``wide_long_split``).  Returns a summary."""
     wcfg = dataclasses.replace(cfg, map_size=WIDE_MAP_SIZE).validate()
     shape = wcfg.grid_shape
     t = edt.trunc_vox_for(wcfg.resolution, wcfg.trunc_dist)
@@ -740,8 +937,9 @@ def wide_path(cfg, batches, eager, dev, card, rows, launches):
         p_by_name, p_counts, _ = profiled(derive, 1)
         derive_plain_peak = peak_above(derive)[1]
     occupied = ft.occupied_grid(wcfg, w_state.logodds)
-    k_rows, decode = wide_rows(occupied, plan)
+    k_rows, decode = wide_rows(occupied, plan, split_variants)
     rows.extend(k_rows)
+    long_split = wide_long_split(occupied, t, split_variants)
     out = dict(grid=list(shape), t=t, plan=plan, ms_per_tick=w_ms,
                launches=got, defined=n_def, queries_near=n_near,
                derive_closest_ms=derive_ms,
@@ -754,10 +952,11 @@ def wide_path(cfg, batches, eager, dev, card, rows, launches):
                peak_mib=k_peak, plain_peak_mib=p_peak,
                derive_peak_mib=derive_peak,
                derive_plain_peak_mib=derive_plain_peak,
-               decode=decode,
+               decode=decode, long_split=long_split,
                kernels={r["name"]: {k: r[k] for k in (
                    "ms", "device_ms", "host_ms", "plain_ms", "bound",
-                   "cuda_launches", "by_kernel")} for r in k_rows})
+                   "cuda_launches", "by_kernel", "split") if k in r}
+                   for r in k_rows})
     log(f"wide closest path bit-equal to plain: {n_def} voxels with a "
         f"closest obstacle, {n_near} of {QUERIES} queries with one; "
         f"{w_ms:.3f} ms/tick; derive_closest {derive_ms:.3f} ms host-paced,"
@@ -779,6 +978,16 @@ def wide_path(cfg, batches, eager, dev, card, rows, launches):
             f"{ {k: round(v, 4) for k, v in r['by_kernel'].items()} }, "
             f"bit-equal{' as 64-bit words' if r is not decode else ''}; "
             f"on {card}")
+    log(split_line(tuple(shape), k_rows[-1], card))
+    r = long_split
+    log(f"closest_split_wide at {tuple(r['grid'])} (plan {r['plan']}): "
+        f"{r['ms']:.4f} ms host-paced, {r['device_ms']:.4f} on the card "
+        f"alone (plain {r['plain_ms']:.1f}, timed once; bound "
+        f"{r['bound'][0]:.4f} ms by {r['bound'][1]}), "
+        f"{r['cuda_launches']:g} CUDA launches a call, device ms by kernel "
+        f"{ {k: round(v, 4) for k, v in r['by_kernel'].items()} }, "
+        f"bit-equal as 64-bit words; on {card}")
+    log(split_line(tuple(r["grid"]), r, card))
     return out
 
 
@@ -829,8 +1038,10 @@ def taps_summary(taps):
     tf = taps.reshape(-1)
     hist = {f"{lo}-{hi - 1}": int(((tf >= lo) & (tf < hi)).sum())
             for lo, hi in zip(edges[:-1], edges[1:])}
-    return dict(mean_taps=float(tf.double().mean()), max_taps=int(tf.max()),
-                hist=hist)
+    cum = torch.bincount(tf.long()).cumsum(0)
+    p99 = int((cum < 0.99 * tf.numel()).sum())
+    return dict(mean_taps=float(tf.double().mean()), p99_taps=p99,
+                max_taps=int(tf.max()), hist=hist)
 
 
 def brute_mean_taps(near, axis, tl):
@@ -2529,13 +2740,21 @@ def run(dev, cfg, h, w, ticks, dcfg, dh, dw, dticks):
         f"torch {torch.__version__}, cuda {torch.version.cuda})")
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(1) as pool:
-        variants = pool.submit(kernels.build_variants, RELAX_VARIANTS)
+        variants = pool.submit(kernels.build_variants,
+                               {**RELAX_VARIANTS, **SPLIT_VARIANTS})
         kernels.build()
-        relax_variants = variants.result()
+        variants = variants.result()
+    relax_variants = {k: variants[k] for k in RELAX_VARIANTS}
+    split_variants = {k: variants[k] for k in SPLIT_VARIANTS}
     log(f"kernels built in {time.perf_counter() - t0:.1f} s "
         f"({', '.join(kernels.SOURCES)}; relax.cu's measurement variants "
-        f"{', '.join(RELAX_VARIANTS)})")
+        f"{', '.join(RELAX_VARIANTS)}; closest.cu's "
+        f"{', '.join(SPLIT_VARIANTS)})")
     for src, text in sorted(kernels.BUILD_LOG.items()):
+        if src in SPLIT_VARIANTS:    # the other kernels are the package's
+            for fn, v in ptxas_entries(text, "closest_split_wide").items():
+                log(f"  ptxas {src}: {fn}: {v}")
+            continue
         for line in text.splitlines():
             if "registers" in line or "smem" in line:
                 log(f"  ptxas {src}: {line.strip()}")
@@ -3025,7 +3244,8 @@ def run(dev, cfg, h, w, ticks, dcfg, dh, dw, dticks):
 
     log(f"[{time.perf_counter() - t_run:.0f} s] phase 15")
     # -- phase 15: the wide closest path (800x800x80) ------------------------
-    wide = wide_path(cfg, batches, eager, dev, card, rows, launches)
+    wide = wide_path(cfg, batches, eager, dev, card, rows, launches,
+                     split_variants)
 
     log(f"[{time.perf_counter() - t_run:.0f} s] phase 9")
     # -- phase 9: the planner on phase 2's final map ----------------------

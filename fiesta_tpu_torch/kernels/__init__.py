@@ -78,7 +78,7 @@ _SIGNATURES = {
     "closest_window_wide": ("closest.cu", "fiesta_closest_window_wide",
                             [_P, _P, _L, _I, _L, _I, _I, _I, _I, _P]),
     "closest_split_wide": ("closest.cu", "fiesta_closest_split_wide",
-                           [_P, _P, _L, _I, _L, _I, _I, _I, _P]),
+                           [_P, _P, _L, _I, _L] + [_I] * 5 + [_P]),
     "sort": ("sort.cu", "fiesta_sort_pairs", [_P, _P, _L, _P, _P, _L, _P]),
     "relax": ("relax.cu", "fiesta_relax",
               [_P] * 10 + [_I] * 4 + [_P, _I, _I, _P, _I, _I, _I, _P, _P,
@@ -119,6 +119,9 @@ def _compile(jobs: dict) -> dict:
                                 " ".join(flags).encode()).hexdigest()[:16]
         so = BUILD_DIR / f"{Path(src).stem}-{digest}.so"
         targets[key] = so
+        log = so.with_name(f"{so.name}.log")
+        if so.exists() and log.exists():  # built earlier: its report
+            BUILD_LOG[key] = log.read_text()
         if not so.exists():
             tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
             procs[key] = (tmp, subprocess.Popen(
@@ -132,6 +135,8 @@ def _compile(jobs: dict) -> dict:
             errors.append(f"{key}: nvcc exited {proc.returncode}\n{err}")
         else:
             os.replace(tmp, targets[key])
+            targets[key].with_name(f"{targets[key].name}.log").write_text(
+                BUILD_LOG[key])
     if errors:
         raise RuntimeError("kernel build failed:\n" + "\n".join(errors))
     libs = {}
@@ -145,8 +150,14 @@ def _compile(jobs: dict) -> dict:
         if src == "closest.cu":
             lib.fiesta_closest_binary_tile_cols.argtypes = [_I, _I]
             lib.fiesta_closest_binary_tile_cols.restype = _I
+        if hasattr(lib, "fiesta_closest_split_wide_residency"):
+            lib.fiesta_closest_split_wide_residency.argtypes = \
+                [_I, _L] + [_I] * 3 + [_P]
+            lib.fiesta_closest_split_wide_residency.restype = _I
         for s, sym, argtypes in _SIGNATURES.values():
-            if s == src:
+            # a measurement source (not in SOURCES) may export a package
+            # source's symbols: split_wide_parent.cu's wide split
+            if s == src or (src not in SOURCES and hasattr(lib, sym)):
                 getattr(lib, sym).argtypes = argtypes
                 getattr(lib, sym).restype = _I
         libs[key] = lib
@@ -489,17 +500,70 @@ def closest_window_wide(p1: torch.Tensor, plan, axis: int) -> torch.Tensor:
     return out
 
 
-def closest_split_wide(p2: torch.Tensor, plan, axis: int) -> torch.Tensor:
-    """Wide split-sign final closest pass along ``axis`` of an i64 volume
-    (values <= cap): ``val << (s+1) | sign << s | pay``.  Replaces
-    ``edt._split_pair_xla`` (XLA, no Pallas kernel)."""
+def split_wide_word_bits(plan, a: int) -> int:
+    """Tile word bits of the wide split along a column of ``a`` rows: 32
+    where every word it compares fits u32, else 64.  Its inputs are <= cap
+    with payloads below 2^s, and a side adds k^2 << s for k <= tl =
+    min(t, a - 1), so the largest is ((cap + tl^2 + 1) << s) - 1: 32 bits
+    iff (cap + tl^2 + 1) << s <= 2^32."""
+    tl = min(plan["t"], a - 1)
+    return 32 if (plan["cap"] + tl * tl + 1) << plan["s"] <= 1 << 32 else 64
+
+
+def _closest_split_wide(p2: torch.Tensor, plan, axis: int, bits=None,
+                        rows=0, lib=None) -> torch.Tensor:
+    """``closest_split_wide`` with measurement and test overrides: ``bits``
+    64 takes u64 tile words where u32 would do, ``rows`` > 0 sets the
+    chunk rows (0: the launcher's own), ``lib`` launches a variant's
+    library (``build_variants``)."""
     _check(p2, torch.int64, "closest_split_wide p2")
     _check_closest(p2, axis, None, "closest_split_wide")
     _check_wide(plan, "closest_split_wide")
     outer, a, inner = _columns(p2.shape, axis)
+    fit = split_wide_word_bits(plan, a)
+    bits = bits or fit
+    if bits < fit:
+        raise ValueError(f"closest_split_wide: the plan's words need {fit} "
+                         f"bits; got {bits}")
     out = torch.empty_like(p2)
     _launch("closest_split_wide", p2.device, p2.data_ptr(), out.data_ptr(),
-            outer, a, inner, min(plan["t"], a - 1), plan["s"], plan["cap"])
+            outer, a, inner, min(plan["t"], a - 1), plan["s"], plan["cap"],
+            bits // 8, rows, lib=lib)
+    return out
+
+
+def closest_split_wide(p2: torch.Tensor, plan, axis: int) -> torch.Tensor:
+    """Wide split-sign final closest pass along ``axis`` of an i64 volume
+    (values <= cap): ``val << (s+1) | sign << s | pay``, on u32 tile words
+    where ``split_wide_word_bits`` allows, in row chunks the launcher sizes
+    for residency (``closest.cu``'s ``split_tiles``).  Replaces
+    ``edt._split_pair_xla`` (XLA, no Pallas kernel)."""
+    return _closest_split_wide(p2, plan, axis)
+
+
+def closest_split_wide_residency(shape, plan, axis: int, bits=None,
+                                 rows=0, lib=None) -> dict:
+    """The wide split's launch along ``axis`` of a volume of ``shape`` as
+    the card runs it (``bits``, ``rows`` and ``lib`` as
+    ``_closest_split_wide`` takes them; the parent kernel's library,
+    ``split_wide_parent.cu``, reports its own): threads, shared
+    bytes, resident blocks and warps an SM
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), registers and
+    local (spill) bytes a thread, tile word bytes, columns, chunk rows."""
+    lib = lib or _libs.get("closest.cu") or build()["closest.cu"]
+    _, a, inner = _columns(shape, axis)
+    tl = min(plan["t"], a - 1)
+    bits = bits or split_wide_word_bits(plan, a)
+    vals = (ctypes.c_int * 8)()
+    rc = lib.fiesta_closest_split_wide_residency(a, inner, tl, bits // 8,
+                                                 rows, vals)
+    if rc:
+        msg = lib.fiesta_cuda_error_string(rc).decode()
+        raise RuntimeError(f"closest_split_wide residency: {msg} ({rc})")
+    out = dict(zip(("threads", "smem_bytes", "blocks_per_sm", "registers",
+                    "local_bytes", "word_bytes", "tile_cols", "chunk_rows"),
+                   vals))
+    out["warps_per_sm"] = out["blocks_per_sm"] * out["threads"] // 32
     return out
 
 

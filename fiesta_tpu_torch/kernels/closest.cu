@@ -83,10 +83,45 @@
 // lexicographically.  That min is integer min on the 64-bit word
 // val << shift | payload (payload < 2^s, s = ba + bb <= 31, val <= 2t^2 + 1
 // < 2^31, so every word and sentinel lies below 2^62), so the wide passes
-// are the three kernels above instantiated on a long long word: the same
-// bodies, tiles of 8-byte words in shared memory, no transposes.  The wide
-// binary pass equals the doubling pair pass: its -s step's result feeding
-// its +s step adds only candidates at value + 2s, which never win.
+// are the binary and window kernels above instantiated on a long long
+// word: the same bodies, tiles of 8-byte words in shared memory, no
+// transposes.  The wide binary pass equals the doubling pair pass: its -s
+// step's result feeding its +s step adds only candidates at value + 2s,
+// which never win.
+//
+// The wide split (closest_split_wide_kernel<T>) has a body of its own,
+// sized for residency rather than width: the bounded body's whole column
+// of 8-byte words (119 KB at 800 rows of 16 columns) left one 512-thread
+// block an SM, with nothing to hide its load -> sweep -> window -> store
+// sequence behind.  Here:
+//   * tile words of T = u32 where the plan allows, else u64.  Inputs are
+//     <= cap, so a tile word is <= cap << s | (2^s - 1), and a side only
+//     adds k^2 << s with k <= kmax <= tl: every word it compares is at
+//     most ((cap + tl^2 + 1) << s) - 1.  The wrapper narrows when
+//     (cap + tl^2 + 1) << s <= 2^32 (kernels.split_wide_word_bits); the
+//     words are then the i64 words' values, so their order is the same,
+//     and the output word, val << (s+1) | sign << s | pay, is formed in
+//     64 bits at the store.  800x800x80 at t = 100 (s = 17): 2.62e9, u32;
+//     1600x1600x80 (s = 18): 5.24e9, u64;
+//   * 256 threads of 16 columns (128-byte rows of i64 in and out), each
+//     thread one column's rows c0 + g, c0 + g + 16, ... so a warp reads
+//     two neighbouring rows of the tile per step, free of bank conflicts;
+//   * the column in chunks of `rows` output rows, each loaded with tl
+//     rows of halo either side (a side reaches at most tl rows): shared
+//     memory no longer grows with the column.  The launcher picks the
+//     chunk (split_tiles) for four resident blocks an SM in
+//     u32 (54 KB a block) and three in u64 (72 KB); a column that fits
+//     is one chunk without halo (800 rows in u32: 53 KB, four blocks,
+//     32 warps an SM);
+//   * the carries that cross rows, lp (the nearest row below with a value
+//     below cap) and k0p's nn (the nearest above), come from a bit mask
+//     of the chunk's near rows a column (set as the chunk loads): a
+//     thread finds lp and nn at its first row by scanning the mask, then
+//     moves lp over the 16 rows since its last and nn past each near row
+//     it reaches.  A near row beyond the halo is beyond tl and would add
+//     nothing, so the chunk's own rows decide.
+// The tie rule, the two accumulators, the kmax clamp of the unrolled
+// taps, k0p's 254/255 codes and the all-far skip are the bounded body's.
 //
 // Closest decode (closest_decode; port-only: _reconstruct_closest,
 // fiesta_tpu/ops/pallas/edt.py:871, is XLA).  One pass over the split
@@ -102,6 +137,15 @@
 // packed grid: 154 MB at cow scale).
 
 #include "fiesta_kernels.cuh"
+
+// Measurement variants of the wide split (kernels.build_variants; no
+// package path builds them): FIESTA_SPLIT_STOP 1 stops it after the load,
+// storing the all-far word, and 2 after the carries (the near masks and
+// the lp/nn walk).  Its parent kernel, the bounded body on 64-bit words,
+// is split_wide_parent.cu.
+#ifndef FIESTA_SPLIT_STOP
+#define FIESTA_SPLIT_STOP 0
+#endif
 
 namespace {
 
@@ -228,7 +272,6 @@ constexpr unsigned char kK0None = 255;  // no value below cap above the row
 bool g_window_ready[kFiestaMaxDevices];
 bool g_split_ready[kFiestaMaxDevices];
 bool g_window_wide_ready[kFiestaMaxDevices];
-bool g_split_wide_ready[kFiestaMaxDevices];
 
 // Row pitch of the tile: tc, so that lanes on different rows still use
 // different banks, or tc + 1 when the column is contiguous (inner == 1),
@@ -418,12 +461,239 @@ __global__ void __launch_bounds__(kBoundedThreads)
   closest_bounded_pass(pass, f, out, outer, A, inner, tc, tl);
 }
 
-__global__ void __launch_bounds__(kBoundedThreads)
+namespace {
+
+constexpr int kSplitThreads = 256;
+constexpr int kSplitCols = 16;     // 128-byte rows of i64 in and out
+constexpr int kSplitMinRows = 64;  // fewest output rows of a chunk
+bool g_split_wide_ready_u32[kFiestaMaxDevices];
+bool g_split_wide_ready_u64[kFiestaMaxDevices];
+
+// Resident blocks an SM each tile word's kernel is built for, and the
+// shared memory a block may take for them of an H100's 228 KB (1 KB a
+// block reserved): four blocks of 256 threads (64 registers a thread) and
+// 54 KB in u32, three (80 registers) and 72 KB in u64.
+template <class T>
+struct SplitWide {
+  static constexpr int kMinBlocks = sizeof(T) == 4 ? 4 : 3;
+  static constexpr size_t kSmem = sizeof(T) == 4 ? 54 * 1024 : 72 * 1024;
+};
+
+// Buffer rows of a chunk of `rows` output rows: tl rows of halo either
+// side, within the column; a column of one chunk has no halo.
+__host__ __device__ int split_span(int A, int rows, int tl) {
+  return rows >= A || rows + 2 * tl >= A ? A : rows + 2 * tl;
+}
+
+// Shared memory of a wide-split block: base addresses, the [span][tc]
+// tile of `wb`-byte words and the [tc][span / 32] near masks.
+size_t split_smem(int span, int tc, int wb) {
+  return tc * sizeof(long long) + (size_t)span * tc * wb +
+         (size_t)tc * ((span + 31) / 32) * sizeof(unsigned);
+}
+
+// Columns `tc` and chunk rows `rows` of a wide-split block along a column
+// of A rows at reach tl on `wb`-byte tile words: kSplitCols columns and
+// the column in one chunk where the block fits its SplitWide budget; else
+// chunks of equal rows with tl rows of halo either side, as few as the
+// budget allows; where a chunk would hold fewer than kSplitMinRows rows,
+// the whole column with fewer columns while it needs more than 200 KB
+// (the bounded body's rule).
+void split_tiles(int A, int tl, int wb, int& tc, int& rows) {
+  const size_t budget = wb == 4 ? SplitWide<unsigned>::kSmem
+                                : SplitWide<unsigned long long>::kSmem;
+  tc = kSplitCols;
+  rows = A;
+  if (split_smem(A, tc, wb) <= budget) return;
+  // the most buffer rows within the budget: 8 + span * (wb + 1/8) bytes a
+  // column, less a mask word's rounding
+  int span = (int)((budget - 12 * tc) * 8 / (tc * (8 * wb + 1)));
+  while (split_smem(span + 1, tc, wb) <= budget) ++span;
+  while (split_smem(span, tc, wb) > budget) --span;
+  if (span - 2 * tl >= kSplitMinRows) {
+    const int chunks = (A + span - 2 * tl - 1) / (span - 2 * tl);
+    rows = (A + chunks - 1) / chunks;
+    return;
+  }
+  while (tc > 1 && split_smem(A, tc, wb) > 200 * 1024) tc /= 2;
+}
+
+}  // namespace
+
+// The highest row in [from, to) whose bit is set in the mask `m`, or -1.
+__device__ __forceinline__ int last_near(const unsigned* m, int from,
+                                         int to) {
+  while (to > from) {
+    const int w = (to - 1) >> 5, w0 = w << 5;
+    unsigned bits = m[w] & (0xffffffffu >> (31 - ((to - 1) & 31)));
+    if (from > w0) bits &= 0xffffffffu << (from - w0);
+    if (bits) return w0 + 31 - __clz(bits);
+    to = w0;
+  }
+  return -1;
+}
+
+// The lowest row in [from, to) whose bit is set in the mask `m`, or `to`.
+__device__ __forceinline__ int first_near(const unsigned* m, int from,
+                                          int to) {
+  while (from < to) {
+    const int w = from >> 5, w0 = w << 5;
+    const unsigned bits = m[w] & (0xffffffffu << (from - w0));
+    if (bits) return min(w0 + __ffs(bits) - 1, to);
+    from = w0 + 32;
+  }
+  return to;
+}
+
+// SplitPass's output word from tile-word accumulators, formed in 64 bits.
+template <class T>
+__device__ __forceinline__ long long split_word(T acc_n, T acc_p, int s,
+                                                int cap) {
+  const T vn = acc_n >> s, vp = acc_p >> s;
+  const bool use_p = vp < vn;  // strict: ties go to the negative side
+  const long long val = (long long)min(min(vn, vp), (T)cap);
+  return (val << (s + 1)) | ((long long)use_p << s) |
+         (long long)((use_p ? acc_p : acc_n) & (((T)1 << s) - 1));
+}
+
+// Puts the tile words w0, w1 of columns cc, cc + 1 (cc even) at row r in
+// one store, and their near bits in the masks; returns whether either is
+// near.
+template <class T>
+__device__ __forceinline__ int split_put_pair(T* tile, unsigned* mask,
+                                              int tc, int mw, int r, int cc,
+                                              T w0, T w1, int s, int cap) {
+  if constexpr (sizeof(T) == 4)
+    *(uint2*)(tile + r * tc + cc) = make_uint2(w0, w1);
+  else
+    *(ulonglong2*)(tile + r * tc + cc) = make_ulonglong2(w0, w1);
+  int near = 0;
+  if (FIESTA_SPLIT_STOP != 1) {
+    const unsigned bit = 1u << (r & 31);
+    if ((w0 >> s) < (T)cap) {
+      near = 1;
+      atomicOr(&mask[cc * mw + (r >> 5)], bit);
+    }
+    if ((w1 >> s) < (T)cap) {
+      near = 1;
+      atomicOr(&mask[(cc + 1) * mw + (r >> 5)], bit);
+    }
+  }
+  return near;
+}
+
+// The wide split along A of an [outer, A, inner] volume of i64 words
+// (values <= cap) on tile words T, in chunks of `rows` output rows.
+template <class T>
+__device__ __forceinline__ void split_wide_body(
+    const long long* __restrict__ f, long long* __restrict__ out,
+    long long outer, int A, long long inner, int tc, int tl, int s, int cap,
+    int rows) {
+  extern __shared__ long long split_sm[];
+  const int span = split_span(A, rows, tl), mw = (span + 31) / 32;
+  long long* base = split_sm;                             // [tc]: row 0
+  T* tile = (T*)(base + tc);                              // [span][tc]
+  unsigned* mask = (unsigned*)(tile + (size_t)span * tc);  // [tc][mw]
+  const int groups = blockDim.x / tc;
+  const int c = threadIdx.x % tc, g = threadIdx.x / tc;
+  const T fill = (T)cap << s;
+  const long long ncols = outer * inner;
+  const long long col0 = (long long)blockIdx.x * tc;
+  const T* col = tile + c;
+  const unsigned* near_rows = mask + c * mw;
+
+  for (int j = threadIdx.x; j < tc; j += blockDim.x)
+    base[j] = col0 + j < ncols ? fiesta_col_addr(col0 + j, 0, A, inner) : -1;
+  for (int c0 = 0; c0 < A; c0 += rows) {
+    // output rows [c0, c1), buffer rows [lo, lo + n): the halo within tl
+    const int c1 = min(A, c0 + rows);
+    const int lo = max(0, c0 - tl), n = min(A, c1 + tl) - lo;
+    __syncthreads();  // the base addresses, or the last chunk's reads
+    for (int e = threadIdx.x; e < tc * mw; e += blockDim.x) mask[e] = 0;
+    __syncthreads();
+    int near = 0;
+    if (inner % 2 == 0 && tc % 2 == 0 && ((uintptr_t)f & 15) == 0) {
+      // two neighbouring columns a thread, in one slice since inner is
+      // even: 16-byte loads, four in flight, and one tile store a pair
+      const int pairs = tc / 2, cc = 2 * (threadIdx.x % pairs);
+      const int step = blockDim.x / pairs;
+      const long long src = base[cc], far = (long long)cap << s;
+      for (int r0 = threadIdx.x / pairs; r0 < n; r0 += 4 * step) {
+        longlong2 v[4];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int r = r0 + u * step;
+          v[u] = r < n && src >= 0
+                     ? *(const longlong2*)(f + src + (lo + r) * inner)
+                     : make_longlong2(far, far);
+        }
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int r = r0 + u * step;
+          if (r < n)
+            near |= split_put_pair(tile, mask, tc, mw, r, cc, (T)v[u].x,
+                                   (T)v[u].y, s, cap);
+        }
+      }
+    } else {
+#pragma unroll 4
+      for (int e = threadIdx.x; e < n * tc; e += blockDim.x) {
+        int r, cc;
+        fiesta_tile_pos(e, n, tc, inner, r, cc);
+        const T w =
+            base[cc] >= 0 ? (T)f[base[cc] + (lo + r) * inner] : fill;
+        tile[r * tc + cc] = w;
+        if (FIESTA_SPLIT_STOP != 1 && (w >> s) < (T)cap) {
+          near = 1;
+          atomicOr(&mask[cc * mw + (r >> 5)], 1u << (r & 31));
+        }
+      }
+    }
+    const bool any_near = __syncthreads_or(near);
+
+    // thread (g, c): rows c0 + g, c0 + g + groups, ... of tile column c;
+    // lp and nn are buffer rows (-1 and n: none)
+    const int i0 = c0 + g;
+    int lp = -1, nn = n;
+    if (any_near && i0 < c1) {
+      lp = last_near(near_rows, max(0, i0 - lo - tl), i0 - lo);
+      nn = first_near(near_rows, i0 - lo + 1, n);
+    }
+    for (int i = i0; i < c1; i += groups) {
+      const int b = i - lo;
+      const T w = col[b * tc];
+      T acc_n = w, acc_p = w;
+      if (any_near) {
+        if (i != i0) {  // the rows since this thread's last one
+          const int q = last_near(near_rows, b - groups, b);
+          if (q >= 0) lp = q;
+          if (nn <= b) nn = first_near(near_rows, b + 1, n);
+        }
+        const int kp = nn < n ? min(nn - b, kK0Far) : kK0None;
+        if (FIESTA_SPLIT_STOP == 2) {
+          if (lp + kp == -7) acc_n = 0;  // keeps the carries live
+        } else {
+          if (lp >= 0)
+            acc_n = bounded_side(col, tc, b, -1, b - lp, min(tl, i), s,
+                                 acc_n);
+          if (kp != kK0None)
+            acc_p = bounded_side(col, tc, b, 1, kp, min(tl, A - 1 - i), s,
+                                 acc_p);
+        }
+      }
+      if (base[c] >= 0)
+        out[base[c] + i * inner] = split_word(acc_n, acc_p, s, cap);
+    }
+  }
+}
+
+template <class T>
+__global__ void __launch_bounds__(kSplitThreads, SplitWide<T>::kMinBlocks)
     closest_split_wide_kernel(const long long* __restrict__ f,
                               long long* __restrict__ out, long long outer,
-                              int A, long long inner, int tc, int tl,
-                              SplitPass<long long> pass) {
-  closest_bounded_pass(pass, f, out, outer, A, inner, tc, tl);
+                              int A, long long inner, int tc, int tl, int s,
+                              int cap, int rows) {
+  split_wide_body<T>(f, out, outer, A, inner, tc, tl, s, cap, rows);
 }
 
 // One launch of a bounded pass's kernel along A of [outer, A, inner].
@@ -535,14 +805,83 @@ FIESTA_EXPORT int fiesta_closest_window_wide(const long long* f,
                         inner, tl, stream);
 }
 
+template <class T>
+static int launch_split_wide(bool (&ready)[kFiestaMaxDevices],
+                             const long long* f, long long* out,
+                             long long outer, int A, long long inner, int tl,
+                             int s, int cap, int rows, cudaStream_t stream) {
+  const cudaError_t err =
+      fiesta_allow_max_smem(closest_split_wide_kernel<T>, ready);
+  if (err != cudaSuccess) return (int)err;
+  int tc, auto_rows;
+  split_tiles(A, tl, sizeof(T), tc, auto_rows);
+  rows = rows ? rows : auto_rows;
+  const long long blocks = (outer * inner + tc - 1) / tc;
+  closest_split_wide_kernel<T>
+      <<<(unsigned)blocks, kSplitThreads,
+         split_smem(split_span(A, rows, tl), tc, sizeof(T)), stream>>>(
+          f, out, outer, A, inner, tc, tl, s, cap, rows);
+  FIESTA_LAUNCH_CHECK();
+  return 0;
+}
+
+// Whether every word the wide split compares fits u32: ((cap + tl^2 + 1)
+// << s) - 1, the largest tile word plus the largest k^2 << s, < 2^32.
+static bool split_wide_fits_u32(int tl, int s, int cap) {
+  return (((unsigned long long)cap + (unsigned long long)tl * tl + 1) << s) <=
+         (1ull << 32);
+}
+
+// The wide split with tile words of `wb` bytes (the wrapper's
+// kernels.split_wide_word_bits; 4 is refused past split_wide_fits_u32),
+// in split_tiles' chunks, or chunks of `rows` output rows where rows > 0.
 FIESTA_EXPORT int fiesta_closest_split_wide(const long long* f,
                                             long long* out, long long outer,
                                             int A, long long inner, int tl,
-                                            int s, int cap,
+                                            int s, int cap, int wb, int rows,
                                             cudaStream_t stream) {
-  return launch_bounded(closest_split_wide_kernel, g_split_wide_ready,
-                        SplitPass<long long>{s, cap}, f, out, outer, A, inner,
-                        tl, stream);
+  if (rows < 0) return (int)cudaErrorInvalidValue;
+  if (wb == 4 && split_wide_fits_u32(tl, s, cap))
+    return launch_split_wide<unsigned>(g_split_wide_ready_u32, f, out, outer,
+                                       A, inner, tl, s, cap, rows, stream);
+  if (wb == 8)
+    return launch_split_wide<unsigned long long>(g_split_wide_ready_u64, f,
+                                                 out, outer, A, inner, tl, s,
+                                                 cap, rows, stream);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The wide split's launch for these arguments, as the card runs it: out =
+// {threads, shared bytes, resident blocks an SM, registers a thread,
+// local (spill) bytes a thread, tile word bytes, columns, chunk rows}.
+FIESTA_EXPORT int fiesta_closest_split_wide_residency(int A, long long inner,
+                                                      int tl, int wb,
+                                                      int rows, int* out) {
+  (void)inner;
+  int tc, auto_rows;
+  split_tiles(A, tl, wb, tc, auto_rows);
+  rows = rows ? rows : auto_rows;
+  const size_t smem = split_smem(split_span(A, rows, tl), tc, wb);
+  const void* fn =
+      wb == 4 ? (const void*)closest_split_wide_kernel<unsigned>
+              : (const void*)closest_split_wide_kernel<unsigned long long>;
+  cudaError_t err =
+      wb == 4 ? fiesta_allow_max_smem(closest_split_wide_kernel<unsigned>,
+                                      g_split_wide_ready_u32)
+              : fiesta_allow_max_smem(
+                    closest_split_wide_kernel<unsigned long long>,
+                    g_split_wide_ready_u64);
+  int blocks = 0;
+  cudaFuncAttributes attr;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks, fn, kSplitThreads, smem);
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, fn);
+  if (err != cudaSuccess) return (int)err;
+  const int vals[8] = {kSplitThreads, (int)smem, blocks, attr.numRegs,
+                       (int)attr.localSizeBytes, wb, tc, rows};
+  for (int k = 0; k < 8; ++k) out[k] = vals[k];
+  return 0;
 }
 
 // ---------------------------------------------------------------------------

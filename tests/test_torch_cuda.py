@@ -21,8 +21,12 @@ levels split, and the cow splat's 147 456) with duplicate and sentinel
 keys, equal, sorted and reverse-sorted keys, the splat at the cow box
 size, windows of the drain that cut, cover or miss the grid, the three
 wide closest passes on 64-bit words (both layouts, columns of 400 rows at
-t = 2000) and the closest decode (packed and wide words, both formats, a
-slab's x origin, roots of k + 1/2 rounded half to even).  The app's
+t = 2000), the wide split's own tiles (either side of its 32-bit tile
+words' edge, ragged column counts, several chunks with lone values at
+their edges, 1600-row columns in both word forms, its tiles and residency
+at the wide path's maps and the CPU model's table) and the closest decode
+(packed and wide words, both formats, a slab's x origin, roots of k + 1/2
+rounded half to even).  The app's
 prefetch worker uploads on the stream its replay loop reads.
 """
 
@@ -601,12 +605,100 @@ def test_closest_wide_kernels(dev, layout):
                      (lambda: edt.window_wide(p1, plan, b),
                       "closest_window_wide_kernel"),
                      (lambda: edt.split_wide(p2, plan, c),
-                      "closest_split_wide_kernel")):
+                      "void closest_split_wide_kernel")):
         _, names = _cuda_kernels(fn)
         assert [n.split("<")[0] for n in names] == [name]
     assert [kernels.LAUNCHES[k] for k in ("closest_binary_wide",
                                           "closest_window_wide",
                                           "closest_split_wide")] == [1, 1, 1]
+
+
+# the wide split's tiles (closest_split_wide_kernel<T>): plans either side
+# of the edge of its 32-bit tile words, a column count that is no multiple
+# of its 16-column tiles, columns of several chunks, and long columns (1600
+# rows, chunked in either word form); {case: ([outer, A, inner], t, s,
+# chunk rows, or None for the kernel's own)}
+SPLIT_TILES = {"u32_below_edge": ((3, 100, 7), 45, 20, None),
+               "u64_above_edge": ((3, 100, 7), 46, 20, None),
+               "chunks_u32": ((2, 200, 16), 10, 16, 24),
+               "chunks_u64": ((2, 200, 16), 10, 29, 24),
+               "long_u32": ((2, 1600, 8), 100, 17, None),
+               "long_u64": ((2, 1600, 8), 100, 18, None)}
+
+
+def _split_plan(t, s):
+    return dict(a=0, b=2, c=1, ba=s // 2, bb=s - s // 2, s=s, cap=t * t + 1,
+                t=t)
+
+
+@pytest.mark.parametrize("case", sorted(SPLIT_TILES))
+def test_closest_split_wide_tiles(dev, case):
+    """The wide split against its plain version on words at its bounds'
+    edges (``_split_edges``) and on lone values t_local and t_local + 1
+    rows from each chunk edge, on the tile word
+    ``kernels.split_wide_word_bits`` picks; one CUDA launch a call, of
+    closest_split_wide_kernel on that word, by name."""
+    shape, t, s, rows = SPLIT_TILES[case]
+    plan = _split_plan(t, s)
+    a, cap = shape[1], plan["cap"]
+    tl = min(t, a - 1)
+    bits = kernels.split_wide_word_bits(plan, a)
+    assert bits == (64 if "u64" in case else 32)
+    rows = rows or kernels.closest_split_wide_residency(
+        shape, plan, 1)["chunk_rows"]
+    assert (rows < a) == (not case.endswith("edge"))
+    g = torch.Generator().manual_seed(len(case))
+    xs = _split_edges(shape, plan, g, torch.int64)
+    lone = torch.full((a, shape[0] * shape[2]), cap, dtype=torch.int64)
+    at = [r for e in range(rows, a, rows)
+          for r in (e - tl, e - tl - 1, e - 1 + tl, e + tl)] or [0]
+    for j in range(lone.shape[1]):
+        lone[at[j % len(at)] % a, j] = j % 3
+    pay = torch.randint(0, 1 << s, lone.shape, generator=g)
+    xs.append(((lone << s) | pay).reshape(a, shape[0], shape[2])
+              .permute(1, 0, 2).contiguous())
+    for x in xs:
+        x = x.to(dev)
+        _eq(kernels._closest_split_wide(x, plan, 1, rows=rows),
+            edt._split_wide_plain(x, plan, 1))
+    x = xs[0].to(dev)
+    _eq(edt.split_wide(x, plan, 1), edt._split_wide_plain(x, plan, 1))
+    kernels.reset_launch_counts()
+    _, names = _cuda_kernels(
+        lambda: kernels._closest_split_wide(x, plan, 1, rows=rows))
+    word = {32: "unsigned int", 64: "unsigned long long"}[bits]
+    assert names == [f"void closest_split_wide_kernel<{word}>"]
+    assert kernels.LAUNCHES["closest_split_wide"] == 1
+
+
+# the launcher's tiles (closest.cu's split_tiles), as
+# tests/test_torch_split_wide_tiles.py's TILES holds them: {case: (shape,
+# t, s, tile word bits or None for the plan's own, (columns, chunk rows))}
+SPLIT_RESIDENCY = {
+    "map_800": ((800, 800, 80), 100, 17, None, (16, 800)),
+    "map_1600": ((1600, 1600, 80), 100, 18, None, (16, 320)),
+    "map_800_u64": ((800, 800, 80), 100, 17, 64, (16, 267)),
+    "long_1600_u32": ((8, 1600, 8), 100, 17, None, (16, 534)),
+    "t_2000_a_400": ((8, 400, 8), 2000, 12, None, (16, 400)),
+    "t_2000_a_3000": ((8, 3000, 8), 2000, 12, None, (8, 3000))}
+
+
+@pytest.mark.parametrize("case", sorted(SPLIT_RESIDENCY))
+def test_closest_split_wide_residency(dev, case):
+    """The launcher's columns and chunk rows are the CPU model's; at 16
+    columns a block four blocks (32 warps) reside an SM in u32 and three
+    in u64 (the wide path's two maps, the split along y: 800 rows in u32,
+    1600 in u64), with no spills."""
+    shape, t, s, bits, tiles = SPLIT_RESIDENCY[case]
+    plan = _split_plan(t, s)
+    r = kernels.closest_split_wide_residency(shape, plan, 1, bits=bits)
+    bits = bits or kernels.split_wide_word_bits(plan, shape[1])
+    assert r["word_bytes"] == bits // 8, r
+    assert (r["tile_cols"], r["chunk_rows"]) == tiles, r
+    if r["tile_cols"] == 16:
+        assert r["blocks_per_sm"] >= (4 if bits == 32 else 3), r
+        assert bits == 64 or r["warps_per_sm"] >= 32, r
+    assert r["blocks_per_sm"] >= 1 and r["local_bytes"] == 0, r
 
 
 def _decode_words(shape, plan, dtype, g, dev, x0=0, dc2=None):
