@@ -17,7 +17,8 @@ the soak drill (``soak_torch.py``) and the multi-device engine
 the demo preset's windowed depth tick (400x400x36 voxels at 0.1 m,
 120x160 depth images); and the closest path on cow_and_lady's scans at
 0.05 m on a 40 m floor (800x800x80 voxels), where the packed closest word
-misses int32 and the wide transform runs.
+misses int32 and the wide transform runs.  Then the seven benchmark twins
+(``bench*_torch.py``) run whole, each at its full size.
 Each path's kernel launch counts are zeroed just before it and read just
 after.  Phases, in order but for 15, which runs after 8, and 14, which
 runs after 10; any failure raises and exits non-zero:
@@ -205,7 +206,15 @@ runs after 10; any failure raises and exits non-zero:
    and y (1600x1600x80, s = 18, u64 tile words in chunks) through the
    wide binary and window kernels, and the split alone on it the same
    way, bit-equal to its plain version (timed once);
-16. a JSON line of per-kernel numbers (with the launches, device times,
+16. the benchmark twins (``bench*_torch.py``), each run whole at its
+   full widths in a subprocess with a time limit (the accuracy and C++
+   core twins on fewer frames, ``TWINS``): its last line must name
+   this card and hold its contract (times above 0, the accuracy
+   benchmark's four statements, the planner's same-schedule max |du|
+   under 0.05, the scaling benchmark's pad-term states bit-equal and its
+   counted collective bytes equal to the port's terms); each line is
+   logged;
+17. a JSON line of per-kernel numbers (with the launches, device times,
    carve steps and window offsets above, phases 8 to 15, and for each
    row its launches on the sharded path and its time at the slab
    shapes), the nvidia-smi line, and last ``{"ok": true, "device":
@@ -330,6 +339,18 @@ SOAK_CHECK_EVERY = 75    # C20 oracle interval (updates; one a frame)
 SOAK_CK_EVERY = 25       # checkpoint + archive interval (updates)
 SOAK_TIMEOUT_S = 480
 SHARDS = (2, 8)          # phase 14: virtual meshes of the one card
+# phase 16: the benchmark twins, each run whole as ``python3 <twin>
+# <args>``; the two that feed the C++ core (5-17 s a batch on an H100
+# machine's host CPU, PERF.md) on fewer frames than their defaults: 8
+# (two ticks) of 26 and 15 (five, the fewest the port's tick there takes)
+# of 49
+TWINS = {"bench_torch.py": [], "bench_demo_torch.py": [],
+         "bench_mpc_torch.py": [], "bench_e2e_torch.py": [],
+         "bench_accuracy_torch.py": ["--frames", "8"],
+         "bench_reference_cpu_torch.py": ["--frames", "15"],
+         "bench_scaling_torch.py": []}
+TWIN_TIMEOUT_S = 300
+MPC_DU_TOL = 0.05        # bench_mpc.py's same-schedule tolerance
 SHARD_APP_FRAMES = 9     # phase 14: run.py --devices 1
 # H100 SXM published peaks (NVIDIA data sheet and Hopper white paper)
 HBM_BYTES_PER_S = 3.35e12
@@ -2204,6 +2225,63 @@ def soak_path(card):
     return summary
 
 
+def twin_line(twin, card):
+    """Phase 16, one twin: ``python3 twin`` (with its ``TWINS``
+    arguments) from this checkout on the card, its last stdout line read
+    as its result and held to its contract: the card named as ``card``,
+    times above 0, accuracy's four statements, mpc's same-schedule max
+    |du| under ``MPC_DU_TOL``, scaling's pad-term states bit-equal and
+    its counted collective bytes equal to the port's terms.  A twin that
+    fails, times out or prints no line raises."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, str(pathlib.Path(__file__).with_name(twin)),
+         *TWINS[twin]],
+        cwd=pathlib.Path(__file__).parent, capture_output=True, text=True,
+        timeout=TWIN_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    assert proc.returncode == 0, (f"{twin} exited {proc.returncode}:\n"
+                                  + proc.stderr[-3000:])
+    lines = proc.stdout.strip().splitlines()
+    assert lines, f"{twin} printed no line:\n{proc.stderr[-3000:]}"
+    line = json.loads(lines[-1])
+    check_twin_line(twin, line, card)
+    return line, wall
+
+
+def check_twin_line(twin, line, card):
+    """``twin_line``'s contract on a twin's result ``line``."""
+    assert line["device"] == card, (twin, line["device"], card)
+    if twin == "bench_scaling_torch.py":
+        assert all(v > 0 for key in ("tick_ms", "mpc_ms", "weak_tick_ms")
+                   for v in line[key].values()), line
+        assert line["pad_skip_term"]["states_bit_equal"], line
+        assert line["collective_bytes_n8"] == line["port_model_bytes_n8"], \
+            line
+    elif twin == "bench_accuracy_torch.py":
+        # an error: 0 where the port's EDT is exact over the whole domain
+        c = line["checks"]
+        assert line["value"] >= 0 and c["fine_unreachable"] == 0, line
+        assert c["fine_max_err_m"] <= 1e-6, line
+        assert c["fine_min_err_m"] >= -1e-6, line
+        assert c["full_max_err_m"] <= c["coarse_bound_m"] + 1e-6, line
+        assert c["reference_min_err_m"] >= -1e-6, line
+    else:
+        assert line["value"] > 0, line
+    if twin == "bench_mpc_torch.py":
+        assert line["parity_max_du_same_schedule"] < MPC_DU_TOL, line
+
+
+def twins_path(card):
+    """Phase 16: every benchmark twin at its full widths, one after
+    another (each builds nothing: the kernels of this checkout are
+    built), each line logged."""
+    for twin in TWINS:
+        torch.cuda.empty_cache()
+        line, wall = twin_line(twin, card)
+        log(f"twin {twin} ({wall:.1f} s): {json.dumps(line)}")
+
+
 # ---------------------------------------------------------------------------
 # phase 14: the multi-device engine on virtual meshes of the card
 # ---------------------------------------------------------------------------
@@ -3287,7 +3365,11 @@ def run(dev, cfg, h, w, ticks, dcfg, dh, dw, dticks):
     soak = soak_path(card)
 
     log(f"[{time.perf_counter() - t_run:.0f} s] phase 16")
-    # -- phase 16: the per-kernel JSON line --------------------------------
+    # -- phase 16: the benchmark twins ---------------------------------------
+    twins_path(card)
+
+    log(f"[{time.perf_counter() - t_run:.0f} s] phase 17")
+    # -- phase 17: the per-kernel JSON line --------------------------------
 
     for r in rows:
         if r["name"] not in EARLIER_LAUNCHES:

@@ -150,6 +150,8 @@ def _compile(jobs: dict) -> dict:
         if src == "closest.cu":
             lib.fiesta_closest_binary_tile_cols.argtypes = [_I, _I]
             lib.fiesta_closest_binary_tile_cols.restype = _I
+            lib.fiesta_closest_split_wide_fits_u32.argtypes = [_I] * 3
+            lib.fiesta_closest_split_wide_fits_u32.restype = _I
         if hasattr(lib, "fiesta_closest_split_wide_residency"):
             lib.fiesta_closest_split_wide_residency.argtypes = \
                 [_I, _L] + [_I] * 3 + [_P]
@@ -508,6 +510,16 @@ def split_wide_word_bits(plan, a: int) -> int:
     iff (cap + tl^2 + 1) << s <= 2^32."""
     tl = min(plan["t"], a - 1)
     return 32 if (plan["cap"] + tl * tl + 1) << plan["s"] <= 1 << 32 else 64
+
+
+def split_wide_fits_u32(plan, a: int) -> bool:
+    """The C launcher's own rule for u32 tile words along a column of
+    ``a`` rows (``split_wide_fits_u32`` in ``closest.cu``), which refuses
+    u32 words past it; ``split_wide_word_bits`` is the wrapper's, and the
+    two must agree."""
+    lib = _libs.get("closest.cu") or build()["closest.cu"]
+    return bool(lib.fiesta_closest_split_wide_fits_u32(
+        min(plan["t"], a - 1), plan["s"], plan["cap"]))
 
 
 def _closest_split_wide(p2: torch.Tensor, plan, axis: int, bits=None,

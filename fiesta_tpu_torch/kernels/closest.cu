@@ -832,6 +832,12 @@ static bool split_wide_fits_u32(int tl, int s, int cap) {
          (1ull << 32);
 }
 
+// The rule above as the launcher applies it, for the card test that holds
+// it equal to kernels.split_wide_word_bits.
+FIESTA_EXPORT int fiesta_closest_split_wide_fits_u32(int tl, int s, int cap) {
+  return split_wide_fits_u32(tl, s, cap) ? 1 : 0;
+}
+
 // The wide split with tile words of `wb` bytes (the wrapper's
 // kernels.split_wide_word_bits; 4 is refused past split_wide_fits_u32),
 // in split_tiles' chunks, or chunks of `rows` output rows where rows > 0.

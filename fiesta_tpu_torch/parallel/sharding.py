@@ -53,6 +53,12 @@ from ..ops import edt, esdf, fusion, query, raycast
 #: change flags); "nccl" / "gloo" count the calls that went through
 #: ``torch.distributed`` on that backend
 COLLECTIVES: collections.Counter = collections.Counter()
+#: bytes the collectives delivered, by the same kinds ("ppermute", "psum",
+#: "all_gather"): for each shard that receives a result, that result's
+#: bytes (a shift's fill, which no shard sends, counts nothing), summed
+#: over shards; under ``torch.distributed`` each process counts its own
+#: shard, and the processes' counts sum to the in-process mesh's
+COLLECTIVE_BYTES: collections.Counter = collections.Counter()
 
 Shards = List[torch.Tensor]
 
@@ -69,6 +75,10 @@ def _device(d: Device) -> torch.device:
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
     return dev
+
+
+def _nbytes(x: torch.Tensor) -> int:
+    return x.numel() * x.element_size()
 
 
 def _to(x: torch.Tensor, dev: torch.device) -> torch.Tensor:
@@ -142,6 +152,7 @@ class Mesh:
             for j, i in enumerate(self.local):
                 if 0 <= i - k < n:
                     out.append(_to(xs[i - k], self.devices[j]))
+                    COLLECTIVE_BYTES["ppermute"] += _nbytes(xs[i - k])
                 else:
                     out.append(None if fill is None
                                else torch.full_like(xs[j], fill))
@@ -159,6 +170,8 @@ class Mesh:
             COLLECTIVES[dist.get_backend()] += 1
             for req in dist.batch_isend_irecv(ops):
                 req.wait()
+        if recv is not None:
+            COLLECTIVE_BYTES["ppermute"] += _nbytes(recv)
         if recv is None and fill is not None:
             recv = torch.full_like(x, fill)
         return [recv]
@@ -173,6 +186,7 @@ class Mesh:
                 acc = (acc + x if kind == "sum" else
                        torch.minimum(acc, x) if kind == "min" else
                        torch.maximum(acc, x))
+            COLLECTIVE_BYTES["psum"] += len(self.devices) * _nbytes(acc)
             return [_to(acc, d) for d in self.devices]
         import torch.distributed as dist
 
@@ -181,6 +195,7 @@ class Mesh:
         y = xs[0].clone()
         COLLECTIVES[dist.get_backend()] += 1
         dist.all_reduce(y, op=op)
+        COLLECTIVE_BYTES["psum"] += _nbytes(y)
         return [y]
 
     def psum(self, xs: Shards) -> Shards:
@@ -203,6 +218,8 @@ class Mesh:
             for d in self.devices:
                 if d not in full:
                     full[d] = _to(full[self.devices[0]], d)
+            COLLECTIVE_BYTES["all_gather"] += \
+                len(self.devices) * _nbytes(full[self.devices[0]])
             return [full[d] for d in self.devices]
         import torch.distributed as dist
 
@@ -214,6 +231,7 @@ class Mesh:
                           dtype=x.dtype, device=x.device)
         COLLECTIVES[dist.get_backend()] += 1
         dist.all_gather_into_tensor(out, x)
+        COLLECTIVE_BYTES["all_gather"] += _nbytes(out)
         return [out.view(torch.bool) if as_u8 else out]
 
 

@@ -8,18 +8,16 @@ and decodes the last word as the packed transform does.  Here, on such
 shapes (the x-lead layout the wide plan takes, a widest-C plan built by
 hand, columns longer than 254 rows at t = 2000):
 
-  * each pass's 64-bit word equals ``fiesta_tpu``'s pair pass
-    (``_binary_pair_xla``, ``_window_pair_xla``, ``_split_pair_xla``)
-    packed into the word;
-  * the CUDA kernels' algorithms on that word (the binary pass's closed
-    form with its far-voxel payload, the window and split passes'
-    bounded windows with k0p capped at 254, four offsets a turn),
-    emulated in numpy, give the same words;
   * the plain decode of the 64-bit words equals ``fiesta_tpu``'s
     ``truncated_edt_d2_closest_wide`` (run op by op: jitted, it cannot
-    branch on ``packed_out``, ROADMAP C) and ``_reconstruct_closest`` in
+    branch on ``packed_out``, ROADMAP C; its passes are computed once a
+    layout and decoded in both formats) and ``_reconstruct_closest`` in
     both output formats, half-even rounding included;
   * a small wide config's ``pipeline.derive_closest`` equals JAX's.
+
+``test_torch_closest_wide_words.py`` holds each pass's 64-bit word to
+``fiesta_tpu``'s pair passes and the CUDA kernels' algorithms on it, on
+these shapes.
 """
 
 import dataclasses
@@ -29,6 +27,12 @@ import pytest
 
 jax = pytest.importorskip("jax")
 torch = pytest.importorskip("torch")
+# One intra-op thread: with six pytest-xdist workers on eight Xeon cores,
+# each worker's OpenMP pool spins while small ops wait, and the plain wide
+# transform at long_c took 543 s instead of 0.7 (six processes at once).
+# Every worker imports this module when it collects, so the setting holds
+# for the run.
+torch.set_num_threads(1)
 
 import jax.numpy as jnp  # noqa: E402
 
@@ -38,7 +42,6 @@ from fiesta_tpu.io import replay as jreplay  # noqa: E402
 from fiesta_tpu.ops.pallas import edt as jedt  # noqa: E402
 
 import fiesta_tpu_torch as ft  # noqa: E402
-from fiesta_tpu_torch import kernels as tkernels  # noqa: E402
 from fiesta_tpu_torch import pipeline as tpipe  # noqa: E402
 from fiesta_tpu_torch.io import replay as treplay  # noqa: E402
 from fiesta_tpu_torch.ops import edt as tedt  # noqa: E402
@@ -67,8 +70,6 @@ def _plan(layout):
     return shape, plan
 
 
-LAYOUTS = sorted(SHAPES) + ["widest_c"]
-
 
 def _occ(shape, plan, seed):
     """Sparse random occupancy, plus lone seeds at t_local and t_local + 1
@@ -86,144 +87,6 @@ def _occ(shape, plan, seed):
     return occ
 
 
-def _jax_pairs(occ, plan):
-    """fiesta_tpu's three pair passes on the transposed volume, each packed
-    into the 64-bit word: ([A,B,C], [B,A,C], [C,A,B])."""
-    a, b, c, ba, s = plan["a"], plan["b"], plan["c"], plan["ba"], plan["s"]
-    occ_t = jnp.asarray(occ.transpose(a, b, c).astype(np.uint8))
-    h1, l1 = jedt._binary_pair_xla(occ_t, plan)
-    h2, l2 = jedt._window_pair_xla(h1.transpose(1, 0, 2),
-                                   l1.transpose(1, 0, 2), plan)
-    val, sign, pay = jedt._split_pair_xla(h2.transpose(2, 1, 0),
-                                          l2.transpose(2, 1, 0), plan)
-    w = [np.asarray(x).astype(np.int64) for x in (h1, l1, h2, l2, val, sign,
-                                                  pay)]
-    return ((w[0] << ba) | w[1], (w[2] << s) | w[3],
-            (w[4] << (s + 1)) | (w[5] << s) | w[6])
-
-
-@pytest.mark.parametrize("layout", LAYOUTS)
-def test_wide_words_equal_jax_pair_passes(layout):
-    shape, plan = _plan(layout)
-    a, b, c = plan["a"], plan["b"], plan["c"]
-    occ = _occ(shape, plan, len(layout))
-    j1, j2, j3 = _jax_pairs(occ, plan)
-    p1 = tedt.binary_wide(torch.from_numpy(occ), plan, a)
-    p2 = tedt.window_wide(p1, plan, b)
-    p3 = tedt.split_wide(p2, plan, c)
-    for got, ref, perm in ((p1, j1, (a, b, c)), (p2, j2, (b, a, c)),
-                           (p3, j3, (c, a, b))):
-        assert got.dtype == torch.int64 and got.shape == shape
-        np.testing.assert_array_equal(got.permute(perm).numpy(), ref)
-    # some voxels have their obstacle within t, some beyond the column
-    val = p3 >> (plan["s"] + 1)
-    assert bool((val <= plan["t"] ** 2).any())
-
-
-def _closed_form_binary(occ, plan):
-    """closest.cu's binary pass in closed form on [A, cols] (u8): g and h,
-    the distances to the nearest seed at or before / at or after row i
-    clamped at L + 1 (L = t_local + 1), D = min(g, h); value D^2 with the
-    lower seed's index where D <= t_local, else cap with i - L (a seed
-    exactly L below, when the doubling steps reach past t_local) or i."""
-    a, ncols = occ.shape
-    tl = min(plan["t"], a - 1)
-    big = tl + 1
-    cap_t = tl + 2
-    reach_ok = tkernels._binary_reach(tl) > tl
-    g = np.empty((a, ncols), np.int64)
-    h = np.empty((a, ncols), np.int64)
-    run = np.full(ncols, cap_t)
-    for i in range(a):
-        run = np.where(occ[i] != 0, 0, np.minimum(run + 1, cap_t))
-        g[i] = run
-    run = np.full(ncols, cap_t)
-    for i in range(a - 1, -1, -1):
-        run = np.where(occ[i] != 0, 0, np.minimum(run + 1, cap_t))
-        h[i] = run
-    d = np.minimum(g, h)
-    i = np.arange(a)[:, None]
-    near = ((d * d) << plan["ba"]) | np.where(g == d, i - g, i + d)
-    far = (plan["cap"] << plan["ba"]) | np.where(reach_ok & (g == big),
-                                                 i - big, i)
-    return np.where(d <= tl, near, far)
-
-
-def _bounded_model(x, tl, s, cap, shared):
-    """closest.cu's bounded-window body on 64-bit words [A, cols] (the
-    load's words): side n from k0n (the nearest row below holding a value
-    below cap), side p from k0p (the nearest above, stored capped at 254:
-    a lower bound), each while k <= its reach and (k^2 << s) < acc, four
-    offsets a turn (an offset past the reach re-reads its last one); side
-    p starts from side n's accumulator when ``shared``.  Returns (acc_n,
-    acc_p)."""
-    a = x.shape[0]
-    i = np.arange(a)[:, None] + np.zeros_like(x)
-    near = (x >> s) < cap
-    below = np.maximum.accumulate(np.where(near, i, -1), axis=0)
-    above = np.minimum.accumulate(np.where(near, i, a)[::-1], axis=0)[::-1]
-    lp = np.concatenate([np.full_like(x[:1], -1), below[:-1]])
-    nn = np.concatenate([above[1:], np.full_like(x[:1], a)])
-    sides = []
-    acc = x.copy()
-    for step, k, kmax, live in (
-            (-1, i - lp, np.minimum(tl, i), lp >= 0),
-            (1, np.minimum(nn - i, 254), np.minimum(tl, a - 1 - i), nn < a)):
-        if not shared:
-            acc = x.copy()
-        k = np.where(live, k, 0)
-        live = live & (k <= kmax) & (((k * k) << s) < acc)
-        while live.any():
-            for u in range(4):
-                kq = np.minimum(k + u, kmax)
-                rows = np.clip(i + step * kq, 0, a - 1)
-                cand = np.take_along_axis(x, rows, 0) + ((kq * kq) << s)
-                assert cand.max() < 2 ** 63 - 1
-                acc = np.where(live, np.minimum(acc, cand), acc)
-            k = k + 4
-            live = live & (k <= kmax) & (((k * k) << s) < acc)
-        sides.append(acc)
-    return sides
-
-
-@pytest.mark.parametrize("layout", LAYOUTS)
-def test_kernel_models_give_the_wide_words(layout):
-    """The wide kernels' algorithms (the packed kernels' bodies on 64-bit
-    words) on each pass's input: the binary pass's closed form along a,
-    the window's repack and shared bounded window along b, the split's two
-    bounded windows along c, each equal to the plain word pass."""
-    shape, plan = _plan(layout)
-    a, b, c = plan["a"], plan["b"], plan["c"]
-    ba, s, cap = plan["ba"], plan["s"], plan["cap"]
-    occ = torch.from_numpy(_occ(shape, plan, 3 + len(layout)))
-    p1 = tedt.binary_wide(occ, plan, a)
-    x = occ.to(torch.uint8).movedim(a, 0).reshape(shape[a], -1).numpy()
-    np.testing.assert_array_equal(
-        _closed_form_binary(x, plan),
-        p1.movedim(a, 0).reshape(shape[a], -1).numpy())
-
-    p2 = tedt.window_wide(p1, plan, b)
-    x = p1.movedim(b, 0).reshape(shape[b], -1).numpy()
-    rows = np.arange(x.shape[0])[:, None]
-    w = ((x >> ba) << s) | (rows << ba) | (x & ((1 << ba) - 1))
-    _, acc = _bounded_model(w, min(plan["t"], shape[b] - 1), s, cap, True)
-    word = (np.minimum(acc >> s, cap) << s) | (acc & ((1 << s) - 1))
-    np.testing.assert_array_equal(
-        word, p2.movedim(b, 0).reshape(shape[b], -1).numpy())
-
-    p3 = tedt.split_wide(p2, plan, c)
-    x = p2.movedim(c, 0).reshape(shape[c], -1).numpy()
-    acc_n, acc_p = _bounded_model(x, min(plan["t"], shape[c] - 1), s, cap,
-                                  False)
-    vn, vp = acc_n >> s, acc_p >> s
-    use_p = vp < vn
-    word = (np.minimum(np.minimum(vn, vp), cap) << (s + 1)) \
-        | (use_p.astype(np.int64) << s) \
-        | (np.where(use_p, acc_p, acc_n) & ((1 << s) - 1))
-    np.testing.assert_array_equal(
-        word, p3.movedim(c, 0).reshape(shape[c], -1).numpy())
-
-
 def _check(got, ref):
     for g, r in zip(got, ref):
         r = np.asarray(r)
@@ -231,17 +94,51 @@ def _check(got, ref):
         np.testing.assert_array_equal(g.numpy(), r)
 
 
+#: layout -> (occupancy, plan, fiesta_tpu's (val, sign, b*, a*) in [X,Y,Z])
+_FIELDS = {}
+
+
+def _jax_fields(layout):
+    """``fiesta_tpu``'s wide transform up to its decode (the pair passes,
+    transposes and unpack of ``truncated_edt_d2_closest_wide``), op by op,
+    once per layout: both output formats decode the same fields."""
+    if layout not in _FIELDS:
+        shape, plan = _plan(layout)
+        occ = _occ(shape, plan, 11)
+        a, b, c, ba = plan["a"], plan["b"], plan["c"], plan["ba"]
+        with jax.disable_jit():
+            occ_t = jnp.asarray(occ).transpose(a, b, c).astype(jnp.uint8)
+            hi, lo = jedt._binary_pair_xla(occ_t, plan)
+            hi, lo = jedt._window_pair_xla(hi.transpose(1, 0, 2),
+                                           lo.transpose(1, 0, 2), plan)
+            val, sign, pay = jedt._split_pair_xla(
+                hi.transpose(2, 1, 0), lo.transpose(2, 1, 0), plan)
+            inv = tuple(int(i) for i in np.argsort((c, a, b)))
+            val, sign, pay = (x.transpose(inv) for x in (val, sign, pay))
+            _FIELDS[layout] = (occ, plan,
+                               (val, sign, pay >> ba, pay & ((1 << ba) - 1)))
+    return _FIELDS[layout]
+
+
 @pytest.mark.parametrize("packed_out", [False, True])
 @pytest.mark.parametrize("layout", ["x_lead", "long_c"])
 def test_wide_transform_matches_jax(layout, packed_out):
     """The wide transform (the word passes, then the decode of the i64
     words) equals ``fiesta_tpu``'s, op by op, and its d2 the d2-only
-    transform's."""
-    shape, plan = _plan(layout)
-    occ = _occ(shape, plan, 11)
+    transform's.  The reference is ``_reconstruct_closest`` on the cached
+    fields; at x_lead the whole ``truncated_edt_d2_closest_wide`` equals
+    that composition too."""
+    occ, plan, fields = _jax_fields(layout)
     with jax.disable_jit():
-        ref = jedt.truncated_edt_d2_closest_wide(jnp.asarray(occ), T,
-                                                 packed_out=packed_out)
+        ref = jedt._reconstruct_closest(occ.shape, plan, *fields,
+                                        packed_out=packed_out)
+        if layout == "x_lead":
+            whole = jedt.truncated_edt_d2_closest_wide(
+                jnp.asarray(occ), T, packed_out=packed_out)
+            for w, r in zip(whole, ref):
+                w, r = np.asarray(w), np.asarray(r)
+                assert w.dtype == r.dtype
+                np.testing.assert_array_equal(w, r)
     o = torch.from_numpy(occ)
     got = tedt.truncated_edt_d2_closest_wide(o, T, packed_out)
     _check(got, ref)

@@ -31,6 +31,7 @@ prefetch worker uploads on the stream its replay loop reads.
 """
 
 import dataclasses
+import math
 
 import numpy as np
 import pytest
@@ -699,6 +700,37 @@ def test_closest_split_wide_residency(dev, case):
         assert r["blocks_per_sm"] >= (4 if bits == 32 else 3), r
         assert bits == 64 or r["warps_per_sm"] >= 32, r
     assert r["blocks_per_sm"] >= 1 and r["local_bytes"] == 0, r
+
+
+# (t, s, a) of tests/test_torch_split_wide_tiles.py's test_word_bits_edge
+WORD_BITS_EDGE = [(45, 20, 100), (46, 20, 100), (1, 30, 9), (1, 31, 9),
+                  (2, 30, 9), (50, 12, 30), (100, 17, 800), (100, 18, 1600),
+                  (2000, 12, 400), (2000, 9, 40)]
+
+
+def test_split_wide_u32_edge_agrees(dev):
+    """The launcher's u32 rule (``split_wide_fits_u32`` in closest.cu,
+    which refuses u32 tile words past it) and the wrapper's
+    ``kernels.split_wide_word_bits`` agree: on the edge table of the CPU
+    tests, and over t, s and a on both sides of the edge for every s
+    (t_local one below, at and one above the largest that fits, through
+    columns shorter and longer than t)."""
+    cases = list(WORD_BITS_EDGE)
+    for s in range(1, 32):
+        # the largest t whose full-column words fit: 2 t^2 + 2 <= 2^(32-s)
+        edge = math.isqrt(((1 << (32 - s)) - 2) // 2)
+        for t in {1, 2, 45, 46, 100, 2000, max(edge - 1, 1), max(edge, 1),
+                  edge + 1}:
+            for a in (2, t, t + 1, t + 2, 2 * t + 3):
+                cases.append((t, s, a))
+    both = set()
+    for t, s, a in cases:
+        plan = _split_plan(t, s)
+        fits = kernels.split_wide_fits_u32(plan, a)
+        assert fits == (kernels.split_wide_word_bits(plan, a) == 32), \
+            (t, s, a)
+        both.add(fits)
+    assert both == {True, False}
 
 
 def _decode_words(shape, plan, dtype, g, dev, x0=0, dc2=None):

@@ -1,8 +1,9 @@
 """fiesta_tpu_torch import and device guards.
 
-The port imports neither JAX nor the JAX package, ``chip_smoke.py`` and
-``soak_torch.py`` do not either, and the entry points (the app among
-them) run on CUDA unless asked for the CPU.
+The port imports neither JAX nor the JAX package, ``chip_smoke.py``,
+``soak_torch.py`` and the benchmark twins (``bench*_torch.py``) do not
+either, and the entry points (the app and the twins among them) run on
+CUDA unless asked for the CPU.
 """
 
 import ast
@@ -40,7 +41,9 @@ def test_package_import_leaves_jax_out():
             "fiesta_tpu_torch.run, fiesta_tpu_torch.debug, "
             "fiesta_tpu_torch.io.rosbag, fiesta_tpu_torch.io.lz4f, "
             "fiesta_tpu_torch.parallel, fiesta_tpu_torch.parallel.sharding, "
-            "fiesta_tpu_torch.parallel.engine; "
+            "fiesta_tpu_torch.parallel.engine, fiesta_tpu_torch.native, "
+            "fiesta_tpu_torch.planning.reference_planner, "
+            "fiesta_tpu_torch.benchtools; "
             "print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'fiesta_tpu')))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -49,8 +52,13 @@ def test_package_import_leaves_jax_out():
     assert out.stdout.strip() == "[]"
 
 
+TWINS = ["bench_torch.py", "bench_demo_torch.py", "bench_mpc_torch.py",
+         "bench_e2e_torch.py", "bench_accuracy_torch.py",
+         "bench_reference_cpu_torch.py", "bench_scaling_torch.py"]
+
+
 @pytest.mark.parametrize("path", ["chip_smoke.py", "soak_torch.py",
-                                  "fiesta_tpu_torch"])
+                                  "fiesta_tpu_torch"] + TWINS)
 def test_sources_import_no_jax(path):
     files = ([ROOT / path] if path.endswith(".py")
              else sorted((ROOT / path).rglob("*.py")))
@@ -129,3 +137,18 @@ def test_app_refuses_to_run_on_the_cpu_unasked():
         pytest.skip("a CUDA card is present: the default run uses it")
     with pytest.raises(SystemExit, match="--platform cpu"):
         run.main(["--preset", "small", "--frames", "2"])
+
+
+@pytest.mark.parametrize("twin", TWINS)
+def test_benchmarks_refuse_to_run_on_the_cpu_unasked(twin, capsys):
+    """Without a card, each benchmark twin stops unless given
+    ``--platform cpu``, before it renders or stages anything, and prints
+    no result."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default run uses it")
+    import importlib
+
+    mod = importlib.import_module(twin[:-3])
+    with pytest.raises(SystemExit, match="--platform cpu"):
+        mod.main([])
+    assert capsys.readouterr().out == ""
