@@ -2104,7 +2104,8 @@ def app_path(card, launches):
         app_launches = read_launches(STREAM_KERNELS)
         check_launched(app_launches, "the app")
         launches.update(app_launches)
-        update_ms = Timing.get_mean_seconds("UpdateESDF") * 1e3
+        # the update's device time (CUDA events), not its enqueue
+        update_ms = Timing.get_mean_device_seconds("UpdateESDF") * 1e3
         steady = re.search(r"steady-state: (\S+) ms/frame", err)
         report = json.loads(re.search(r"^\{\n.*?^\}$", err,
                                       re.S | re.M).group(0))

@@ -37,6 +37,7 @@ from .. import kernels
 from ..config import FiestaConfig
 from ..grid import (const_vec, f32_scalar, pos_to_vox, sqrt_f32,
                     vox_in_grid, vox_in_window, vox_to_idx, window_mask)
+from ..timing import span
 from . import sort
 
 
@@ -277,13 +278,15 @@ def _scanline_seeds_batch(cfg: FiestaConfig, points, valid, origins=None,
     order; the scatter-max commutes, so both give the same seeds.  Returns
     (starts [K,3] i32, po_box [K,3] f32, seeds [K,BX,BY,BZ] f32, hit_b u8,
     epfree_b u8, rvalid [K,P] bool)."""
-    starts, po_box, lin_flat, val_flat, rvalid = _scanline_splat_prep(
-        cfg, points, valid, origins, transforms)
+    with span("fiesta.integrate.prep"):
+        starts, po_box, lin_flat, val_flat, rvalid = _scanline_splat_prep(
+            cfg, points, valid, origins, transforms)
     if _SPLAT_ORDER == "sorted":
         lin_flat, val_flat = _sort_splat(lin_flat, val_flat)
     box = (starts.shape[0],) + _carve_box_shape(cfg)
-    seeds, hit_b, epfree_b = splat_packed(
-        lin_flat, val_flat, math.prod(box), _epfree_threshold(cfg))
+    with span("fiesta.integrate.splat"):
+        seeds, hit_b, epfree_b = splat_packed(
+            lin_flat, val_flat, math.prod(box), _epfree_threshold(cfg))
     return (starts, po_box, seeds.reshape(box), hit_b.reshape(box),
             epfree_b.reshape(box), rvalid)
 
@@ -509,14 +512,16 @@ def scanline_batch_boxes(cfg: FiestaConfig, points, valid, transforms=None,
     counters change; the carve geometry ignores it."""
     starts, po_box, seeds, hit_b, epfree_b, rvalid = _scanline_seeds_batch(
         cfg, points, valid, origins, transforms)
-    if window is not None:
-        wmask_b = _box_window_mask(cfg, starts, window, _carve_box_shape(cfg))
-        zero = torch.zeros((), dtype=torch.uint8, device=hit_b.device)
-        hit_b = torch.where(wmask_b, hit_b, zero)
-        epfree_b = torch.where(wmask_b, epfree_b, zero)
-    free = carve_free_mask_batch(cfg, seeds, po_box)
-    if window is not None:
-        free = free & wmask_b
+    with span("fiesta.integrate.carve"):
+        if window is not None:
+            wmask_b = _box_window_mask(cfg, starts, window,
+                                       _carve_box_shape(cfg))
+            zero = torch.zeros((), dtype=torch.uint8, device=hit_b.device)
+            hit_b = torch.where(wmask_b, hit_b, zero)
+            epfree_b = torch.where(wmask_b, epfree_b, zero)
+        free = carve_free_mask_batch(cfg, seeds, po_box)
+        if window is not None:
+            free = free & wmask_b
     missc = torch.maximum(hit_b, epfree_b) + free.to(torch.uint8)
     return (starts, hit_b, missc, rvalid.sum(dtype=torch.int32),
             hit_b.sum(dtype=torch.int32) + epfree_b.sum(dtype=torch.int32))
@@ -530,8 +535,9 @@ def integrate_scan_scanline_batch(cfg: FiestaConfig, hit_cnt, miss_cnt,
     ``scanline_batch_boxes``."""
     starts, hitc, missc, n_rays, n_endpoints = scanline_batch_boxes(
         cfg, points, valid, transforms, window=window)
-    hit_cnt, miss_cnt = apply_box_counts(hit_cnt, miss_cnt, starts,
-                                         hitc, missc)
+    with span("fiesta.integrate.boxadd"):
+        hit_cnt, miss_cnt = apply_box_counts(hit_cnt, miss_cnt, starts,
+                                             hitc, missc)
     return ScanResult(hit_cnt, miss_cnt, n_rays, n_endpoints)
 
 

@@ -42,7 +42,7 @@ from .io.replay import pad_cloud_np, pose_to_matrix
 from .ops import edt, esdf, fusion, query, raycast
 from .ops.depth import depth_to_cloud, depth_to_cloud_components, \
     sensor_to_world
-from .timing import Timer
+from .timing import TICK, Timer, span
 
 #: integrator registry shared by the single-scan and batched paths
 _INTEGRATORS = {
@@ -137,7 +137,8 @@ def derive_closest(cfg: FiestaConfig, logodds: torch.Tensor) -> torch.Tensor:
     path, ``pipeline.py:216-229``): in rebuild mode closest is a pure
     function of the occupancy, so this is bit for bit the grid an eager
     tick writes.  Callers gate on ``rebuild_tracks_closest``."""
-    _, closest = rebuild_esdf(cfg, occupied_grid(cfg, logodds))
+    with span("fiesta.closest"):
+        _, closest = rebuild_esdf(cfg, occupied_grid(cfg, logodds))
     if closest is None:
         raise ValueError("derive_closest on a config without a closest "
                          "engine; gate on rebuild_tracks_closest")
@@ -176,18 +177,28 @@ def esdf_update(cfg: FiestaConfig, state: MapState,
     and ``esdf.update_esdf`` (in the window when ``use_window``), whose
     relaxation stops after ``max_iters`` sweeps when it is > 0; the stats
     come from the masks."""
-    if cfg.esdf_mode != "rebuild":
-        return _incremental_update(cfg, state, cur_pos, use_window,
-                                   max_iters)
+    with span("fiesta.update"):
+        if cfg.esdf_mode != "rebuild":
+            return _incremental_update(cfg, state, cur_pos, use_window,
+                                       max_iters)
+        return _rebuild_update(cfg, state, cur_pos, use_window)
+
+
+def _rebuild_update(cfg: FiestaConfig, state: MapState, cur_pos,
+                    use_window: bool):
+    """The rebuild engine's update: the one-pass drain, then the EDT."""
     window = local_window(cfg, cur_pos) if use_window else None
     on, off_eq = ((cfg.min_occupancy_log, False) if cfg.probabilistic
                   else (1.0, True))
-    new_lo, seen, occ, hit0, miss0, n_obs, n_ins, n_del = fusion.fuse_drain(
-        state.logodds, state.seen, state.hit_cnt, state.miss_cnt,
-        l_hit=cfg.prob_hit_log, l_miss=cfg.prob_miss_log,
-        clamp_min=cfg.clamp_min_log, clamp_max=cfg.clamp_max_log,
-        occ_thresh=on, occ_is_eq=off_eq, window=window)
-    d2, closest = tick_rebuild_esdf(cfg, occ)
+    with span("fiesta.update.drain"):
+        new_lo, seen, occ, hit0, miss0, n_obs, n_ins, n_del = \
+            fusion.fuse_drain(
+                state.logodds, state.seen, state.hit_cnt, state.miss_cnt,
+                l_hit=cfg.prob_hit_log, l_miss=cfg.prob_miss_log,
+                clamp_min=cfg.clamp_min_log, clamp_max=cfg.clamp_max_log,
+                occ_thresh=on, occ_is_eq=off_eq, window=window)
+    with span("fiesta.update.edt"):
+        d2, closest = tick_rebuild_esdf(cfg, occ)
     if closest is None:
         closest = state.closest
     new_state = MapState(logodds=new_lo, d2=d2, closest=closest, seen=seen,
@@ -204,11 +215,14 @@ def _incremental_update(cfg: FiestaConfig, state: MapState, cur_pos,
     wmask = None
     if use_window:
         wmask = window_mask(cfg, *local_window(cfg, cur_pos))
-    fr = fusion.fuse_counts(cfg, state.logodds, state.seen, state.hit_cnt,
-                            state.miss_cnt, window_mask=wmask)
-    d2, closest, sweeps = esdf.update_esdf(
-        state.d2, state.closest, fr.occupied, fr.insert_mask,
-        fr.delete_mask, wmask, cfg.relax_dirs, max_iters=max_iters)
+    with span("fiesta.update.drain"):
+        fr = fusion.fuse_counts(cfg, state.logodds, state.seen,
+                                state.hit_cnt, state.miss_cnt,
+                                window_mask=wmask)
+    with span("fiesta.update.relax"):
+        d2, closest, sweeps = esdf.update_esdf(
+            state.d2, state.closest, fr.occupied, fr.insert_mask,
+            fr.delete_mask, wmask, cfg.relax_dirs, max_iters=max_iters)
     new_state = MapState(logodds=fr.logodds, d2=d2, closest=closest,
                          seen=fr.seen, hit_cnt=torch.zeros_like(state.hit_cnt),
                          miss_cnt=torch.zeros_like(state.miss_cnt))
@@ -235,23 +249,25 @@ def integrate_scan_batch(cfg: FiestaConfig, state: MapState, points, valids,
     card (``copy_state`` keeps a state to reuse)."""
     pts = tuple(points) if isinstance(points, (tuple, list)) else (points,)
     check_same_device(state, *pts, valids, transforms, cur_pos)
-    win = local_window(cfg, cur_pos) if use_window else None
-    if method == "scanline":
-        res = raycast.integrate_scan_scanline_batch(
-            cfg, state.hit_cnt, state.miss_cnt, points, valids, transforms,
-            win)
-        return dataclasses.replace(state, hit_cnt=res.hit_cnt,
-                                   miss_cnt=res.miss_cnt)
-    if len(pts) != 1:
-        raise ValueError("component-form points go to the scanline "
-                         "integrator only")
-    fn = _INTEGRATORS[method]
-    hit, miss = state.hit_cnt, state.miss_cnt
-    for i in range(points.shape[0]):
-        pw = sensor_to_world(points[i], transforms[i])
-        res = fn(cfg, hit, miss, pw, valids[i], transforms[i, :3, 3], win)
-        hit, miss = res.hit_cnt, res.miss_cnt
-    return dataclasses.replace(state, hit_cnt=hit, miss_cnt=miss)
+    with span("fiesta.integrate"):
+        win = local_window(cfg, cur_pos) if use_window else None
+        if method == "scanline":
+            res = raycast.integrate_scan_scanline_batch(
+                cfg, state.hit_cnt, state.miss_cnt, points, valids,
+                transforms, win)
+            return dataclasses.replace(state, hit_cnt=res.hit_cnt,
+                                       miss_cnt=res.miss_cnt)
+        if len(pts) != 1:
+            raise ValueError("component-form points go to the scanline "
+                             "integrator only")
+        fn = _INTEGRATORS[method]
+        hit, miss = state.hit_cnt, state.miss_cnt
+        for i in range(points.shape[0]):
+            pw = sensor_to_world(points[i], transforms[i])
+            res = fn(cfg, hit, miss, pw, valids[i], transforms[i, :3, 3],
+                     win)
+            hit, miss = res.hit_cnt, res.miss_cnt
+        return dataclasses.replace(state, hit_cnt=hit, miss_cnt=miss)
 
 
 def fused_batch_step(cfg: FiestaConfig, state: MapState, points, valids,
@@ -263,11 +279,12 @@ def fused_batch_step(cfg: FiestaConfig, state: MapState, points, valids,
     position, the window centre in local-update mode; ``max_iters`` caps
     the incremental engine's sweeps (see ``esdf_update``).  The caller
     gives up ``state`` (see ``integrate_scan_batch``)."""
-    state = integrate_scan_batch(cfg, state, points, valids, transforms,
-                                 cur_pos, use_window=use_window,
-                                 method=method)
-    return esdf_update(cfg, state, cur_pos, use_window=use_window,
-                       max_iters=max_iters)
+    with span(TICK):
+        state = integrate_scan_batch(cfg, state, points, valids, transforms,
+                                     cur_pos, use_window=use_window,
+                                     method=method)
+        return esdf_update(cfg, state, cur_pos, use_window=use_window,
+                           max_iters=max_iters)
 
 
 def _stack_stats(per_tick):
@@ -304,20 +321,24 @@ def fused_depth_batch_step(cfg: FiestaConfig, state: MapState,
     against ``prev_depth`` [H,W] / ``prev_transform`` [4,4]), then carved,
     fused and EDT'd like the cloud tick, in component form.  The caller
     gives up ``state``."""
-    xs, ys, zs, vals = [], [], [], []
-    ld, lt = prev_depth, prev_transform
-    for i in range(depths.shape[0]):
-        x, y, z, v = depth_to_cloud_components(
-            cfg, depths[i], transforms[i], lt, ld, use_filter=use_filter)
-        xs.append(x.reshape(-1))
-        ys.append(y.reshape(-1))
-        zs.append(z.reshape(-1))
-        vals.append(v.reshape(-1))
-        ld, lt = depths[i], transforms[i]
-    points = (torch.stack(xs), torch.stack(ys), torch.stack(zs))
-    return fused_batch_step(cfg, state, points, torch.stack(vals),
-                            transforms, cur_pos, use_window=use_window,
-                            method="scanline", max_iters=max_iters)
+    with span(TICK):
+        with span("fiesta.depth"):
+            xs, ys, zs, vals = [], [], [], []
+            ld, lt = prev_depth, prev_transform
+            for i in range(depths.shape[0]):
+                x, y, z, v = depth_to_cloud_components(
+                    cfg, depths[i], transforms[i], lt, ld,
+                    use_filter=use_filter)
+                xs.append(x.reshape(-1))
+                ys.append(y.reshape(-1))
+                zs.append(z.reshape(-1))
+                vals.append(v.reshape(-1))
+                ld, lt = depths[i], transforms[i]
+            points = (torch.stack(xs), torch.stack(ys), torch.stack(zs))
+            valids = torch.stack(vals)
+        return fused_batch_step(cfg, state, points, valids, transforms,
+                                cur_pos, use_window=use_window,
+                                method="scanline", max_iters=max_iters)
 
 
 def fused_depth_stream(cfg: FiestaConfig, state: MapState,
@@ -517,7 +538,7 @@ class FiestaPipeline:
                 f"depth image {np.shape(data)} exceeds "
                 f"max_points_per_scan={cfg.max_points_per_scan}; raise it "
                 "to H*W: subsampling depth pixels would drop observations")
-        with Timer("depth"):
+        with Timer("depth", self.device):
             use_filter = (cfg.use_depth_filter and self.image_cnt > 1
                           and self.last_depth is not None)
             depth = self._upload(np.asarray(data, np.float32))
@@ -554,7 +575,7 @@ class FiestaPipeline:
             else:
                 pts_np, valid_np = self._cloud_to_np(data)
                 pts, valid = self._upload(pts_np), self._upload(valid_np)
-            with Timer("raycasting"):
+            with Timer("raycasting", self.device):
                 vpos = self._to_virtual(pos)
                 win = None
                 if not cfg.global_update:
@@ -577,7 +598,7 @@ class FiestaPipeline:
             return None
         self.new_msg = False
         self.esdf_cnt += 1
-        with Timer("UpdateESDF"):
+        with Timer("UpdateESDF", self.device):
             self.state, stats = esdf_update(
                 self.cfg, self.state,
                 self._upload(np.asarray(self.cur_pos, np.float32)),
@@ -605,12 +626,14 @@ class FiestaPipeline:
         return query.distance_grid(self.cfg, self.state.d2, self.state.seen)
 
     def query_distance(self, positions) -> torch.Tensor:
-        return query.get_distance(self.cfg, self.distance_grid(),
-                                  self._positions(positions))
+        with span("fiesta.query"):
+            return query.get_distance(self.cfg, self.distance_grid(),
+                                      self._positions(positions))
 
     def query_dist_grad(self, positions):
-        return query.get_dist_grad_trilinear(
-            self.cfg, self.distance_grid(), self._positions(positions))
+        with span("fiesta.query"):
+            return query.get_dist_grad_trilinear(
+                self.cfg, self.distance_grid(), self._positions(positions))
 
     def _derive_closest(self) -> torch.Tensor:
         """Fresh closest grid from the current occupancy."""
@@ -635,9 +658,10 @@ class FiestaPipeline:
         """Nearest-obstacle world coordinates and distance per query
         position (``query.get_closest_obstacle``), read from
         ``closest_grid()``."""
-        return query.get_closest_obstacle(
-            self.cfg, self.closest_grid(), self.state.d2, self.state.seen,
-            self._positions(positions))
+        with span("fiesta.query"):
+            return query.get_closest_obstacle(
+                self.cfg, self.closest_grid(), self.state.d2,
+                self.state.seen, self._positions(positions))
 
     def occupied(self) -> torch.Tensor:
         return occupied_grid(self.cfg, self.state.logodds)

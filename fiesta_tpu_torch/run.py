@@ -89,8 +89,9 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--profile-dir",
                    help="capture a torch.profiler trace of the replay into "
                         "this directory (trace.json, Chrome trace format; "
-                        "the reference's timing registry covers wall clock "
-                        "only; this is the op-level view)")
+                        "the program's fiesta.* spans sit in it around the "
+                        "ops of each layer; the span table, host and device "
+                        "ms and kernel launches by span, prints at the end)")
     p.add_argument("--checkpoint", help="save the final map here")
     p.add_argument("--checkpoint-every", type=int, default=0, metavar="N",
                    help="also checkpoint after every N ESDF updates "
@@ -285,6 +286,7 @@ def main(argv=None) -> int:
 
     from .io import replay
     from .pipeline import FiestaPipeline
+    from . import timing
     from .timing import Timer, Timing
 
     cfg, h, w = _preset_cfg(args.preset)
@@ -445,6 +447,7 @@ def main(argv=None) -> int:
         if dev.type == "cuda":
             acts.append(torch.profiler.ProfilerActivity.CUDA)
         profiler = torch.profiler.profile(activities=acts)
+        timing.enable(True, device=dev.type == "cuda")
         profiler.__enter__()
 
     try:
@@ -559,6 +562,7 @@ def main(argv=None) -> int:
         # empty/corrupt with no indication why)
         if profiler is not None:
             profiler.__exit__(None, None, None)
+            timing.enable(False)
             profiler.export_chrome_trace(
                 os.path.join(args.profile_dir, "trace.json"))
             print(f"profiler trace in {args.profile_dir}", file=sys.stderr)
@@ -589,6 +593,8 @@ def main(argv=None) -> int:
                 pipe.archive.save(args.persist)
                 print(f"archive saved to {args.persist}", file=sys.stderr)
     print(Timing.print_table(), file=sys.stderr)
+    if profiler is not None:
+        print(timing.span_table(timing.drain()), file=sys.stderr)
 
     if args.ground_truth_check:
         from .debug import check_with_ground_truth
@@ -651,7 +657,7 @@ def main(argv=None) -> int:
         nominal_zero = torch.zeros((mpc_cfg.horizon, 3), device=dev)
 
     if args.mpc:
-        with Timer("mpc_plan"):
+        with Timer("mpc_plan", dev):
             gen = torch.Generator(device=dev).manual_seed(0)
             if args.devices:
                 # the rollouts split over the map's mesh
@@ -679,7 +685,7 @@ def main(argv=None) -> int:
         executed = [p.cpu().numpy()]
         reached = False
         for _ in range(args.fly_steps):
-            with Timer("fly_step"):
+            with Timer("fly_step", dev):
                 if args.devices:
                     res = pipe.plan(goal, mpc_cfg, p0=p, v0=v,
                                     nominal=nominal, generator=gen)

@@ -120,10 +120,15 @@ def performance_text(last_update_ms: Optional[float] = None,
                      tag: str = "UpdateESDF") -> str:
     """The reference's floating performance text marker (Fiesta.h:161-188
     renders it; Fiesta.h:524-529 composes this string: current and
-    average update time), from the port's timing registry."""
+    average update time), from the port's timing registry: the device
+    seconds of the work under ``tag`` where its timer recorded them, else
+    the host's."""
     from .timing import Timing
 
-    mean_ms = Timing.get_mean_seconds(tag) * 1e3
+    mean_s = Timing.get_mean_device_seconds(tag)
+    if mean_s is None:
+        mean_s = Timing.get_mean_seconds(tag)
+    mean_ms = mean_s * 1e3
     if last_update_ms is None:
         last_update_ms = mean_ms
     return (f"Fiesta\nCurrent update Time\n{last_update_ms:.3f} ms\n"
