@@ -76,10 +76,12 @@ runs after 10; any failure raises and exits non-zero:
    windowed drain's row takes the same timings.  The closest binary pass
    logs its column tiles and those holding a seed (the others only
    write).  The carve is also timed at the demo box (on the demo's first
-   tick) and prints its wavefronts' steps; the min-plus pass prints its
-   window offsets per voxel (``minplus_taps``), the closest split pass
-   those of each side (``split_taps``) and the closest window pass those
-   of its two sides together (``window_taps``), each beside the
+   tick) and prints its wavefronts' steps; the depth kernel is timed at
+   the demo cell's 3 frames of 480x640, filtered (``depth_row``); the
+   min-plus pass prints its window offsets per voxel (``minplus_taps``),
+   the closest split pass those of each side (``split_taps``) and the
+   closest window pass those of its two sides together
+   (``window_taps``), each beside the
    brute-force window's, and both closest passes their time on the card
    alone with every value at cap (``far_device_ms``: load and store
    alone); the closest decode on the split pass's words, as
@@ -247,6 +249,7 @@ from fiesta_tpu_torch import checkpoint, kernels, pipeline
 from fiesta_tpu_torch import run as fiesta_run
 from fiesta_tpu_torch.io import replay, rosbag
 from fiesta_tpu_torch.ops import edt, esdf, fusion, query, raycast, sort
+from fiesta_tpu_torch.ops import depth as depth_ops
 from fiesta_tpu_torch.parallel import sharding
 from fiesta_tpu_torch.parallel.engine import (ShardedFiestaPipeline,
                                               ShardedScrollingFiestaPipeline)
@@ -1112,19 +1115,41 @@ def demo_seeds(dcfg, dbatches):
     """The demo's first tick of three depth frames through the depth
     conversion and the splat: (seeds [3,BX,BY,BZ], po [3,3])."""
     depths, tfs = dbatches[0][0], dbatches[1][0]
-    comps, vals = [[], [], []], []
-    ld, lt = depths[0], tfs[0]
-    for i in range(depths.shape[0]):
-        *xyz, v = pipeline.depth_to_cloud_components(dcfg, depths[i], tfs[i],
-                                                     lt, ld)
-        for c, a in zip(comps, xyz):
-            c.append(a.reshape(-1))
-        vals.append(v.reshape(-1))
-        ld, lt = depths[i], tfs[i]
+    *xyz, vals = pipeline.depth_tick_components(
+        dcfg, depths, tfs, depths[0], tfs[0], use_filter=False)
     _, po, seeds, _, _, _ = raycast._scanline_seeds_batch(
-        dcfg, tuple(torch.stack(c) for c in comps), torch.stack(vals),
-        transforms=tfs)
+        dcfg, tuple(xyz), vals, transforms=tfs)
     return seeds, po
+
+
+def depth_row(dev, card):
+    """The depth kernel on the demo cell's tick, 3 frames of 480x640
+    filtered against their predecessors: bit-equal to the plain version,
+    then its times (``kernel_times``) beside the plain version's and its
+    bytes bound (a depth read, a previous depth gathered, x, y and valid
+    written: 17 bytes a pixel)."""
+    cfg = dataclasses.replace(ft.DEMO_ONBOARD, max_points_per_scan=480 * 640)
+    _, frames = replay.make_sequence(cfg, n_frames=4, n_boxes=20, seed=0,
+                                     kind="depth", height=480, width=640,
+                                     period=12.0, orbit_radius=5.0)
+    depths = torch.from_numpy(np.stack([f[2] for f in frames])).to(dev)
+    tfs = torch.from_numpy(np.stack(
+        [replay.pose_to_matrix(*f[1]) for f in frames]).astype(np.float32)
+    ).to(dev)
+    args = (cfg, depths[1:], tfs[1:], depths[0], tfs[0], True)
+    got = depth_ops.depth_tick_components(*args)
+    for a, b, what in zip(got, depth_ops._depth_tick_plain(*args),
+                          ("px", "py", "pz", "valid")):
+        bit_equal(a, b, f"depth {what}")
+    row = dict(frames=list(depths[1:].shape), valid=int(got[3].sum()),
+               **kernel_times(lambda: depth_ops.depth_tick_components(*args)),
+               plain_ms=time_ms(lambda: depth_ops._depth_tick_plain(*args)),
+               bound_ms=17 * depths[1:].numel() / HBM_BYTES_PER_S * 1e3)
+    log(f"depth {row['frames']}: {row['ms']:.4f} ms host-paced, "
+        f"{row['device_ms']:.4f} on the card alone (bound "
+        f"{row['bound_ms']:.4f} ms, bytes), plain {row['plain_ms']:.4f}; "
+        f"bit-equal, {row['valid']} valid; on {card}")
+    return row
 
 
 def bound(nbytes, ops, rate):
@@ -3094,6 +3119,7 @@ def run(dev, cfg, h, w, ticks, dcfg, dh, dw, dticks):
         f"{carve_demo['ms']:.4f} ms host-paced, {carve_demo['device_ms']:.4f}"
         f" on the card alone (bound {carve_demo['bound_ms']:.4f} ms), "
         f"bit-equal; wavefront steps {carve_demo['steps']}; on {card}")
+    depth_demo = depth_row(dev, card)
 
     # the drain and the box add on one more tick of counters
     ticked = pipeline.integrate_scan_batch(cfg, ft.copy_state(k_state),
@@ -3436,6 +3462,7 @@ def run(dev, cfg, h, w, ticks, dcfg, dh, dw, dticks):
                       "demo_occupied": n_demo,
                       "fuse_window_demo": fuse_window,
                       "carve_steps": steps, "carve_demo": carve_demo,
+                      "depth_demo": depth_demo,
                       "minplus_taps": taps, "split_taps": split["taps"],
                       "window_taps": window["taps"],
                       "far_device_ms": {r["name"]: r["far_device_ms"]

@@ -14,8 +14,8 @@ CUDA tensors only; CPU tensors take the plain PyTorch versions there.
 
 Flags: ``-fmad=false`` (no FMA contraction) and IEEE division / square
 root, so the f32 arithmetic of the splat decode, the carve's free test,
-the fusion step and the closest decode's root rounds exactly as the plain
-PyTorch versions do.
+the fusion step, the closest decode's root and the depth conversion
+rounds exactly as the plain PyTorch versions do.
 """
 
 from __future__ import annotations
@@ -45,7 +45,7 @@ LAUNCHES = {"splat": 0, "carve": 0, "edt_binary": 0, "edt_minplus": 0,
             "fuse": 0, "boxadd": 0, "closest_binary": 0,
             "closest_window": 0, "closest_split": 0, "closest_decode": 0,
             "closest_binary_wide": 0, "closest_window_wide": 0,
-            "closest_split_wide": 0, "sort": 0, "relax": 0}
+            "closest_split_wide": 0, "sort": 0, "relax": 0, "depth": 0}
 
 #: compiler output (ptxas register/shared-memory report) per source
 BUILD_LOG: dict = {}
@@ -83,6 +83,8 @@ _SIGNATURES = {
     "relax": ("relax.cu", "fiesta_relax",
               [_P] * 10 + [_I] * 4 + [_P, _I, _I, _P, _I, _I, _I, _P, _P,
                                        _P]),
+    "depth": ("depth.cu", "fiesta_depth",
+              [_P] * 4 + [_I] * 3 + [_F] * 7 + [_I, _I] + [_P] * 4),
 }
 SOURCES = tuple(sorted({s for s, _, _ in _SIGNATURES.values()}))
 
@@ -795,3 +797,45 @@ def relax_sweeps(d2: torch.Tensor, closest: torch.Tensor, update_mask,
             toffs.ctypes.data, toffs.shape[1], int(max_iters),
             RELAX_LOG_SWEEPS, state.data_ptr(), aux.data_ptr(), lib=lib)
     return d2_out, c_out, state
+
+
+def depth(depths: torch.Tensor, transforms, prev_depth, prev_transform, *,
+          cx: float, cy: float, fx: float, fy: float, min_dist: float,
+          max_dist: float, tol: float, use_filter: bool, margin: int):
+    """Back-projection and consistency filter of K depth images [K,H,W]
+    f32 in one launch: returns (px, py, valid), each [K, H*W] (x and y f32
+    in the camera frame, valid bool); z is the depth itself.  With
+    ``use_filter``, frame i is held against frame i - 1 and frame 0
+    against ``prev_depth`` [H,W] f32, through the camera-to-world
+    ``transforms`` [K,4,4] and ``prev_transform`` [4,4] f32; without it
+    they are not read and may be None.  Replaces the plain PyTorch ops of
+    ``ops.depth`` (the JAX package has no kernel here)."""
+    _check(depths, torch.float32, "depth depths")
+    if depths.dim() != 3:
+        raise ValueError("depth: expected depths [K,H,W]")
+    k, h, w = depths.shape
+    if k > 65535 or h * w >= 1 << 31:
+        raise ValueError(f"depth: {tuple(depths.shape)} exceeds the kernel's "
+                         "65535 frames or 2^31 pixels a frame")
+    ptrs = [None, None, None]
+    if use_filter:
+        for t, what, shape in ((transforms, "transforms", (k, 4, 4)),
+                               (prev_depth, "prev_depth", (h, w)),
+                               (prev_transform, "prev_transform", (4, 4))):
+            _check(t, torch.float32, f"depth {what}")
+            if tuple(t.shape) != shape:
+                raise ValueError(f"depth: {what} shape {tuple(t.shape)} != "
+                                 f"{shape}")
+        _same_device("depth", depths, transforms, prev_depth, prev_transform)
+        ptrs = [transforms.data_ptr(), prev_depth.data_ptr(),
+                prev_transform.data_ptr()]
+    dev = depths.device
+    px = torch.empty((k, h * w), dtype=torch.float32, device=dev)
+    py = torch.empty_like(px)
+    valid = torch.empty((k, h * w), dtype=torch.bool, device=dev)
+    f32 = lambda v: float(np.float32(v))  # noqa: E731
+    _launch("depth", dev, depths.data_ptr(), *ptrs, k, h, w, f32(cx),
+            f32(cy), f32(fx), f32(fy), f32(min_dist), f32(max_dist),
+            f32(tol), int(bool(use_filter)), int(margin), px.data_ptr(),
+            py.data_ptr(), valid.data_ptr())
+    return px, py, valid

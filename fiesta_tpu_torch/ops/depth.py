@@ -6,9 +6,11 @@ Pinhole back-projection of an [H,W] f32 depth image (meters) and the
 optional consistency filter: each point is reprojected into the previous
 frame through last_T^-1 @ T and kept only where the previous depth at the
 nearest pixel agrees within ``depth_filter_tolerance``, after the margin
-crop and the [min, max] depth gates.  Everything is plain PyTorch in the
-JAX package's component form and op order; divisions take tensor divisors
-(``grid.f32_scalar``) so that they are IEEE divisions.
+crop and the [min, max] depth gates.  CUDA tensors take the ``depth``
+kernel (``kernels/depth.cu``: every frame of a tick in one launch); CPU
+tensors the plain PyTorch version, in the JAX package's component form and
+op order, whose divisions take tensor divisors (``grid.f32_scalar``) so
+that they are IEEE divisions.  The two agree bit for bit.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ from typing import Optional
 
 import torch
 
+from .. import kernels
 from ..config import FiestaConfig
 from ..grid import f32_scalar
 from ..io.replay import pose_to_matrix  # noqa: F401  (depth.py:133)
@@ -69,6 +72,52 @@ def _solve(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.stack(x)
 
 
+def _depth_kernel(cfg: FiestaConfig, depths, transforms, prev_depth,
+                  prev_transform, use_filter: bool):
+    """The ``depth`` kernel on K frames [K,H,W]: (px, py, pz, valid), each
+    [K, H*W], pz a view of ``depths``."""
+    contig = [None if t is None else t.contiguous()
+              for t in (depths, transforms, prev_depth, prev_transform)]
+    px, py, valid = kernels.depth(
+        *contig, cx=cfg.center_x, cy=cfg.center_y, fx=cfg.focal_x,
+        fy=cfg.focal_y, min_dist=cfg.depth_filter_min_dist,
+        max_dist=cfg.depth_filter_max_dist, tol=cfg.depth_filter_tolerance,
+        use_filter=use_filter, margin=cfg.depth_filter_margin)
+    return px, py, contig[0].reshape(depths.shape[0], -1), valid
+
+
+def depth_tick_components(cfg: FiestaConfig, depths: torch.Tensor,
+                          transforms: torch.Tensor, prev_depth: torch.Tensor,
+                          prev_transform: torch.Tensor, use_filter: bool):
+    """The K depth frames of a tick [K,H,W] f32 with camera-to-world
+    transforms [K,4,4], each filtered against its predecessor (frame 0
+    against ``prev_depth`` [H,W] / ``prev_transform`` [4,4]): returns
+    (px, py, pz, valid), each [K, H*W].  CUDA tensors: the ``depth``
+    kernel, one launch, with pz a view of ``depths``; CPU:
+    ``_depth_tick_plain``."""
+    fn = _depth_kernel if depths.is_cuda else _depth_tick_plain
+    return fn(cfg, depths, transforms, prev_depth, prev_transform,
+              use_filter)
+
+
+def _depth_tick_plain(cfg: FiestaConfig, depths, transforms, prev_depth,
+                      prev_transform, use_filter: bool):
+    """``depth_tick_components`` in plain PyTorch ops, on any device: the
+    frames one by one through ``_components_plain``, stacked."""
+    xs, ys, zs, vals = [], [], [], []
+    ld, lt = prev_depth, prev_transform
+    for i in range(depths.shape[0]):
+        x, y, z, v = _components_plain(cfg, depths[i], transforms[i], lt, ld,
+                                       use_filter)
+        xs.append(x.reshape(-1))
+        ys.append(y.reshape(-1))
+        zs.append(z.reshape(-1))
+        vals.append(v.reshape(-1))
+        ld, lt = depths[i], transforms[i]
+    return torch.stack(xs), torch.stack(ys), torch.stack(zs), \
+        torch.stack(vals)
+
+
 def depth_to_cloud_components(
     cfg: FiestaConfig,
     depth: torch.Tensor,
@@ -80,7 +129,21 @@ def depth_to_cloud_components(
     """Back-projection and consistency filter in component form
     (``depth.py:34-90``): returns (px, py, pz, valid), each [H,W], camera
     frame.  ``transform`` / ``last_transform`` [4,4] f32 camera-to-world
-    and ``last_depth`` [H,W] are needed with ``use_filter``."""
+    and ``last_depth`` [H,W] are needed with ``use_filter``.  CUDA
+    tensors: the ``depth`` kernel with K = 1; CPU: ``_components_plain``."""
+    if not depth.is_cuda:
+        return _components_plain(cfg, depth, transform, last_transform,
+                                 last_depth, use_filter)
+    h, w = depth.shape
+    one = None if transform is None else transform[None]
+    return tuple(c.reshape(h, w) for c in _depth_kernel(
+        cfg, depth[None], one, last_depth, last_transform, use_filter))
+
+
+def _components_plain(cfg: FiestaConfig, depth: torch.Tensor, transform,
+                      last_transform, last_depth, use_filter: bool):
+    """``depth_to_cloud_components`` in plain PyTorch ops, on any device
+    (the ``depth`` kernel's reference)."""
     h, w = depth.shape
     dev = depth.device
     u = torch.arange(w, dtype=torch.float32, device=dev)[None, :]

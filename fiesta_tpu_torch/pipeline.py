@@ -40,7 +40,7 @@ from .grid import (Device, MapState, check_same_device, closest_packed_state,
                    resolve_device, window_mask)
 from .io.replay import pad_cloud_np, pose_to_matrix
 from .ops import edt, esdf, fusion, query, raycast
-from .ops.depth import depth_to_cloud, depth_to_cloud_components, \
+from .ops.depth import depth_tick_components, depth_to_cloud, \
     sensor_to_world
 from .timing import TICK, Timer, span
 
@@ -323,20 +323,10 @@ def fused_depth_batch_step(cfg: FiestaConfig, state: MapState,
     gives up ``state``."""
     with span(TICK):
         with span("fiesta.depth"):
-            xs, ys, zs, vals = [], [], [], []
-            ld, lt = prev_depth, prev_transform
-            for i in range(depths.shape[0]):
-                x, y, z, v = depth_to_cloud_components(
-                    cfg, depths[i], transforms[i], lt, ld,
-                    use_filter=use_filter)
-                xs.append(x.reshape(-1))
-                ys.append(y.reshape(-1))
-                zs.append(z.reshape(-1))
-                vals.append(v.reshape(-1))
-                ld, lt = depths[i], transforms[i]
-            points = (torch.stack(xs), torch.stack(ys), torch.stack(zs))
-            valids = torch.stack(vals)
-        return fused_batch_step(cfg, state, points, valids, transforms,
+            *points, valids = depth_tick_components(
+                cfg, depths, transforms, prev_depth, prev_transform,
+                use_filter)
+        return fused_batch_step(cfg, state, tuple(points), valids, transforms,
                                 cur_pos, use_window=use_window,
                                 method="scanline", max_iters=max_iters)
 

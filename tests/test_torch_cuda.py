@@ -27,10 +27,15 @@ their edges, 1600-row columns in both word forms, its tiles and residency
 at the wide path's maps and the CPU model's table) and the closest decode
 (packed and wide words, both formats, a slab's x origin, roots of k + 1/2
 rounded half to even).  The app's
-prefetch worker uploads on the stream its replay loop reads.
+prefetch worker uploads on the stream its replay loop reads.  The depth
+kernel at 1, 3 and 4 frames of 24x32, 23x37 (no 16-byte path) and
+480x640, with and without the filter and the margin, on NaN, infinite,
+zero and gated depths, against a previous pose that sees the same scene
+and one turned away, their eliminations pivoting on other rows.
 """
 
 import dataclasses
+import functools
 import math
 
 import numpy as np
@@ -45,6 +50,7 @@ from fiesta_tpu_torch.io import replay  # noqa: E402
 from fiesta_tpu_torch.config import (STENCILS,  # noqa: E402
                                      jump_offsets, stencil_offsets)
 from fiesta_tpu_torch.ops import edt, esdf, fusion, raycast, sort  # noqa: E402
+from fiesta_tpu_torch.ops import depth as depth_ops  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -876,7 +882,7 @@ def test_stream_kernels_equal_plain(dev, monkeypatch):
         "fuse": 4, "boxadd": 4, "closest_binary": 0, "closest_window": 0,
         "closest_split": 0, "closest_decode": 0, "closest_binary_wide": 0,
         "closest_window_wide": 0, "closest_split_wide": 0, "sort": 0,
-        "relax": 0}
+        "relax": 0, "depth": 0}
     monkeypatch.setattr(raycast, "splat_packed", raycast._splat_packed_plain)
     monkeypatch.setattr(raycast, "carve_free_mask_batch",
                         raycast._carve_free_plain)
@@ -1074,6 +1080,8 @@ def test_engine_kernels_equal_plain(dev, monkeypatch, method, kind):
         == 2
     if method == "scanline":
         assert kernels.LAUNCHES["splat"] == kernels.LAUNCHES["carve"] == n
+    # every converted frame, the first (which yields nothing) among them
+    assert kernels.LAUNCHES["depth"] == (0 if kind == "cloud" else n + 1)
     monkeypatch.setattr(raycast, "splat_packed", raycast._splat_packed_plain)
     monkeypatch.setattr(raycast, "carve_free_mask_batch",
                         raycast._carve_free_plain)
@@ -1626,3 +1634,104 @@ def test_sharded_tick_on_a_virtual_mesh(dev, n):
             cl = sharding.sharded_derive_closest(cfg, mesh)(state.logodds)
             _eq(sharding._gather_axis(mesh, cl, 0),
                 pipeline.derive_closest(cfg, ref.logodds))
+
+
+DEPTH_SHAPES = {"small": (24, 32), "odd": (23, 37), "demo": (480, 640)}
+
+
+@functools.lru_cache(maxsize=None)
+def _depth_scene(h, w):
+    """(cfg, depths [5,H,W] f32, camera-to-world transforms [5,4,4] f32):
+    five frames of an orbit, with NaN, infinities, zero, depths either
+    side of the gates and one on the lower gate written into each frame's
+    first rows and its last."""
+    cfg = replay.scale_intrinsics(ft.FiestaConfig(
+        resolution=0.1, origin=(-2.4, -2.4, -0.5), map_size=(4.8, 4.8, 2.0),
+        min_ray_length=0.3, max_ray_length=2.0, max_points_per_scan=h * w),
+        h, w)
+    _, frames = replay.make_sequence(cfg, n_frames=5, n_boxes=5, seed=3,
+                                     kind="depth", height=h, width=w,
+                                     orbit_radius=0.6)
+    depths = np.stack([f[2] for f in frames]).astype(np.float32)
+    lo = np.float32(cfg.depth_filter_min_dist)
+    edge = np.array([np.nan, np.inf, -np.inf, 0.0, lo, lo * 0.5,
+                     np.nextafter(lo, np.float32(0)),
+                     np.float32(cfg.depth_filter_max_dist) * 2], np.float32)
+    for i, d in enumerate(depths):
+        d[i % 2, :len(edge)] = edge
+        d[-1, -len(edge):] = edge[::-1]
+    tfs = np.stack([replay.pose_to_matrix(*f[1]) for f in frames]
+                   ).astype(np.float32)
+    return cfg, depths, tfs
+
+
+def _turned(tf):
+    """``tf`` with the camera yawed 90 degrees about the world z axis at
+    its own position: it looks away, so most reprojections into it leave
+    the image."""
+    out = tf.copy()
+    out[:3, :3] = np.array([[0, -1, 0], [1, 0, 0], [0, 0, 1]],
+                           np.float32) @ tf[:3, :3]
+    return out
+
+
+def _eq_bits(a, b):
+    """``_eq`` with f32 compared by bit pattern, NaN included."""
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    _eq(a, b)
+
+
+def _pivots(a):
+    """The rows on which ``ops.depth._solve`` pivots, step by step."""
+    a, rows, idx = a.astype(np.float32), [], np.arange(4)
+    for j in range(4):
+        p = int(np.argmax(np.where(idx >= j, np.abs(a[:, j]), -1)))
+        rows.append(p)
+        a[[j, p]] = a[[p, j]]
+        f = np.where(idx > j, a[:, j] / a[j, j], 0).astype(np.float32)
+        a = a - f[:, None] * a[j][None, :]
+    return rows
+
+
+@pytest.mark.parametrize("margin", [0, 3])
+@pytest.mark.parametrize("use_filter", [False, True], ids=["raw", "filter"])
+@pytest.mark.parametrize("k", [1, 3, 4])
+@pytest.mark.parametrize("shape", sorted(DEPTH_SHAPES))
+def test_depth_kernel(dev, shape, k, use_filter, margin):
+    """``kernels.depth`` through ``depth_tick_components`` against the
+    plain version on the card: frames 1..k, frame 1 held against frame 0
+    seen from its own pose and from one turned away.  px, py, pz and valid
+    bit-equal, one launch a call; at k = 1 ``depth_to_cloud_components``
+    too."""
+    cfg, depths, tfs = _depth_scene(*DEPTH_SHAPES[shape])
+    cfg = dataclasses.replace(cfg, depth_filter_margin=margin)
+    d = torch.from_numpy(depths[1:1 + k]).to(dev)
+    t = torch.from_numpy(tfs[1:1 + k]).to(dev)
+    prev_d = torch.from_numpy(depths[0]).to(dev)
+    poses = (tfs[0], _turned(tfs[0]))
+    # the first pivot lies on the diagonal for one pose and off it for the
+    # other; the second (the camera's y axis, world -z) always off it
+    assert {_pivots(p)[0] for p in poses} == {0, 1}
+    assert all(_pivots(p)[1] == 2 for p in poses)
+    n_valid = []
+    for pose in poses:
+        prev_t = torch.from_numpy(pose).to(dev)
+        before = kernels.LAUNCHES["depth"]
+        got = depth_ops.depth_tick_components(cfg, d, t, prev_d, prev_t,
+                                              use_filter)
+        assert kernels.LAUNCHES["depth"] == before + 1
+        ref = depth_ops._depth_tick_plain(cfg, d, t, prev_d, prev_t,
+                                          use_filter)
+        for a, b in zip(got, ref):
+            _eq_bits(a, b)
+        if k == 1:
+            one = depth_ops.depth_to_cloud_components(cfg, d[0], t[0],
+                                                      prev_t, prev_d,
+                                                      use_filter)
+            assert kernels.LAUNCHES["depth"] == before + 2
+            for a, b in zip(one, got):
+                _eq_bits(a.reshape(1, -1), b)
+        n_valid.append(int(got[3][0].sum()))
+    if use_filter:
+        assert n_valid[0] > 0 and n_valid[1] < n_valid[0] // 4, n_valid

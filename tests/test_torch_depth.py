@@ -10,6 +10,7 @@ and the boundary flips they could cause are counted in ROADMAP C.
 """
 
 import dataclasses
+import re
 
 import numpy as np
 import pytest
@@ -26,6 +27,7 @@ from fiesta_tpu.ops import depth as jdepth  # noqa: E402
 from fiesta_tpu.ops import raycast as jrc  # noqa: E402
 
 import fiesta_tpu_torch as ft  # noqa: E402
+from fiesta_tpu_torch import kernels  # noqa: E402
 from fiesta_tpu_torch import pipeline as tpipe  # noqa: E402
 from fiesta_tpu_torch.io import replay as treplay  # noqa: E402
 from fiesta_tpu_torch.ops import depth as tdepth  # noqa: E402
@@ -74,6 +76,82 @@ def test_depth_to_cloud_matches_jax(margin):
             assert_same(val, ref_val, "cloud valid")
             n_valid += int(val.sum()) if use_filter else 0
     assert n_valid > 100
+
+
+def _with_edge_depths(cfg, depths):
+    """``depths`` with NaN, infinities, zero, depths either side of the
+    gates and one on the lower gate written into each frame's first rows
+    (the last row of a frame where the margin crop keeps nothing)."""
+    depths = depths.copy()
+    lo = np.float32(cfg.depth_filter_min_dist)
+    edge = np.array([np.nan, np.inf, -np.inf, 0.0, lo, lo * 0.5,
+                     np.nextafter(lo, np.float32(0)),
+                     np.float32(cfg.depth_filter_max_dist) * 2], np.float32)
+    for i, d in enumerate(depths):
+        d[i % 2, :len(edge)] = edge
+        d[-1, -len(edge):] = edge[::-1]
+    return depths
+
+
+@pytest.mark.parametrize("margin", [0, 3])
+@pytest.mark.parametrize("use_filter", [False, True], ids=["raw", "filter"])
+@pytest.mark.parametrize("k", [1, 3])
+def test_depth_tick_components_matches_chain_and_jax(k, use_filter, margin):
+    """``depth_tick_components`` on CPU: K frames, frame 0 held against
+    the given predecessor and frame i against frame i - 1, equal to the
+    chained per-frame ``depth_to_cloud_components`` stacked, and to the
+    JAX package's ``depth_to_cloud_components`` run op by op."""
+    cfg = dataclasses.replace(engine_cfg(False), depth_filter_margin=margin)
+    tc = port_cfg(cfg)
+    _, depths, tfs = _depth_frames(cfg)
+    depths = _with_edge_depths(cfg, depths)
+    frames = range(1, 1 + k)
+    got = tdepth.depth_tick_components(
+        tc, torch.from_numpy(depths[1:1 + k]), torch.from_numpy(tfs[1:1 + k]),
+        torch.from_numpy(depths[0]), torch.from_numpy(tfs[0]), use_filter)
+    chain = [tdepth.depth_to_cloud_components(
+        tc, *(torch.from_numpy(a) for a in (depths[i], tfs[i], tfs[i - 1],
+                                            depths[i - 1])),
+        use_filter=use_filter) for i in frames]
+    with jax.disable_jit():
+        ref = [jdepth.depth_to_cloud_components(
+            cfg, *(jnp.asarray(a) for a in (depths[i], tfs[i], tfs[i - 1],
+                                            depths[i - 1])),
+            use_filter=use_filter) for i in frames]
+    for c, what in enumerate("xyzv"):
+        assert tuple(got[c].shape) == (k, H * W), what
+        assert_same(got[c], torch.stack([f[c].reshape(-1) for f in chain]),
+                    f"chain {what}")
+        assert_same(got[c], np.stack([np.asarray(f[c]).reshape(-1)
+                                      for f in ref]), f"jax {what}")
+    if use_filter:
+        n = int(got[3].sum())
+        assert 0 < n < k * H * W - 8 * k
+
+
+def test_depth_kernel_registered():
+    """The ``depth`` kernel's entry: its source, C symbol and launch
+    counter, and an argument list as long as the C entry's (plus the
+    stream)."""
+    src, sym, argtypes = kernels._SIGNATURES["depth"]
+    assert (src, sym) == ("depth.cu", "fiesta_depth")
+    assert src in kernels.SOURCES and kernels.LAUNCHES["depth"] == 0
+    text = (kernels._HERE / src).read_text()
+    params = re.search(rf"int {sym}\(([^)]*)\)", text).group(1)
+    assert len(params.split(",")) == len(argtypes)
+    assert re.search(r"__global__\s+void\s+__launch_bounds__\([^)]*\)\s+"
+                     r"depth_kernel\(", text)
+
+
+def test_depth_kernel_wants_cuda_tensors():
+    """A CPU tensor never reaches the kernel: the wrapper refuses it (the
+    ops module routes CPU tensors to the plain version)."""
+    d = torch.ones((1, 4, 4))
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.depth(d, None, None, None, cx=2.0, cy=2.0, fx=1.0, fy=1.0,
+                      min_dist=0.1, max_dist=10.0, tol=0.1,
+                      use_filter=False, margin=0)
+    assert kernels.LAUNCHES["depth"] == 0
 
 
 def test_relative_transform_agrees_to_rounding():
