@@ -9,11 +9,25 @@ and poses, and the program's outputs are held against it:
 * ``logodds``, ``seen``, ``d2``: voxels that differ (log-odds bit for
   bit) in the map after the last tick and after each sampled tick, the
   sample drawn from the seed;
-* ``untouched``: counters left non-zero after the last drain, and closest
-  entries written on a lazy-closest map;
+* ``untouched``: counters left non-zero after the last drain, and, on a
+  map whose configuration keeps no closest grid in its state (lazy
+  closest, or none tracked), closest entries written there;
 * ``mapped``: occupied voxels of the reference's last map, which has to
   reach the traffic mix's ``min_occupied``, so that a scene that maps
   nothing cannot pass.
+
+Where a closest grid is kept (eager closest: ``state.closest``), and
+where the mix reads the map, the same sampled maps are held to the
+read's reference (``references/read.py``), built on the reference's own
+map:
+
+* ``closest``: voxels whose closest entry is not a voxel occupied in the
+  reference's map at its exact squared distance, or not -1 exactly where
+  that distance lies beyond the truncation (whatever the tie-break);
+* ``query_dist``: sample positions whose distance (the nearest voxel's)
+  differs, bit for bit, from the reference's;
+* ``query_grad``: refinement positions whose trilinear distance or
+  gradient differs, bit for bit, from the reference's.
 
 Each difference's limit is 0: the reference computes the program's f32
 arithmetic op for op and an exact EDT, so a correct program agrees bit
@@ -24,8 +38,37 @@ bfloat16) differs in millions of voxels.
 from __future__ import annotations
 
 import dataclasses
+from typing import NamedTuple, Optional
 
 import torch
+
+from . import spec
+
+#: the read's reference, ``references/<READ_REFERENCE>.py``
+READ_REFERENCE = "read"
+
+
+class Sample(NamedTuple):
+    """A map after one tick: log-odds, seen, d2, the state's closest grid,
+    and the tick's read (``harness.Read``) where the mix reads the map."""
+
+    logodds: torch.Tensor
+    seen: torch.Tensor
+    d2: torch.Tensor
+    closest: torch.Tensor
+    read: Optional[object] = None
+
+
+def sample(state, read=None) -> Sample:
+    """The parts of a map state (and its read) that the check compares."""
+    return Sample(state.logodds, state.seen, state.d2, state.closest, read)
+
+
+def keeps_closest(fields: dict) -> bool:
+    """Whether the configuration's tick writes a closest grid into the
+    state: closest tracked, and not deferred to the query surface."""
+    return bool(fields.get("track_closest", True)) and \
+        fields.get("closest_mode", "lazy") != "lazy"
 
 
 @dataclasses.dataclass
@@ -107,13 +150,20 @@ def replay(ref, geo, obs, n_ticks: int, sample_ticks, dtype=torch.float32):
     return stats, m, snaps
 
 
+def read_reference(cell):
+    """The read's reference module (``references/read.py``)."""
+    return spec.load_module(
+        cell.bench_dir / "references" / f"{READ_REFERENCE}.py",
+        f"esdfbench_reference_{READ_REFERENCE}")
+
+
 def compare(ref, cell, stream, program, obs=None):
     """The checks of one run and the reference's stats [T,4].
     ``program``: ``stats`` [T,4] (host ints, every tick), ``samples``
-    {tick: (logodds, seen, d2)} of the program's map after those ticks
-    (the last tick among them), ``final`` (the program's last map, with
-    its counters and closest grid).  ``obs``: the reference's
-    observations of the orbit, where already made."""
+    {tick: ``Sample``} of the program's map after those ticks (the last
+    tick among them), ``final`` (the program's last map, with its
+    counters and closest grid).  ``obs``: the reference's observations of
+    the orbit, where already made."""
     geo = ref.Geometry(cell.fields)
     n_ticks = program["stats"].shape[0]
     if obs is None:
@@ -121,22 +171,44 @@ def compare(ref, cell, stream, program, obs=None):
     stats, m, snaps = replay(ref, geo, obs, n_ticks,
                              set(program["samples"]))
     stats_diff = int((stats != program["stats"]).any(dim=1).sum())
+    reads = stream.reads is not None
+    kept = keeps_closest(cell.fields)
+    rd = read_reference(cell) if reads or kept else None
     lo_diff = seen_diff = d2_diff = 0
-    for t, (lo, seen, d2) in sorted(program["samples"].items()):
+    closest_diff = dist_diff = grad_diff = 0
+    for t, s in sorted(program["samples"].items()):
         r_lo, r_seen = snaps[t]
-        lo_diff += int((lo.reshape(-1).view(torch.int32)
+        lo_diff += int((s.logodds.reshape(-1).view(torch.int32)
                         != r_lo.view(torch.int32)).sum())
-        seen_diff += int((seen.reshape(-1) != r_seen).sum())
+        seen_diff += int((s.seen.reshape(-1) != r_seen).sum())
         occ = (r_lo > geo.occ_thr).reshape(geo.grid)
-        d2_diff += int((d2 != ref.edt_d2(occ, geo.trunc)).sum())
-        del r_lo, r_seen, occ
+        r_d2 = ref.edt_d2(occ, geo.trunc)
+        d2_diff += int((s.d2 != r_d2).sum())
+        if kept:
+            closest_diff += rd.closest_errors(geo, s.closest, occ, r_d2)
+        if reads:
+            r = s.read
+            samples, refine = stream.reads.at(r.orbit_tick)
+            dist = rd.distance_grid(geo, r_d2, r_seen)
+            dist_diff += rd.nearest_errors(geo, r.dist, dist, samples)
+            grad_diff += rd.trilinear_errors(geo, r.trilinear, r.grad, dist,
+                                             refine)
+            del dist, samples, refine
+        del r_lo, r_seen, occ, r_d2
     final = program["final"]
-    untouched = int((final.hit_cnt != 0).sum() + (final.miss_cnt != 0).sum()
-                    + (final.closest != -1).sum())
+    untouched = (final.hit_cnt != 0).sum() + (final.miss_cnt != 0).sum()
+    if not kept:
+        untouched += (final.closest != -1).sum()
     mapped = int(m.occupied().sum())
-    return [
+    checks = [
         Check("stats", stats_diff, 0), Check("logodds", lo_diff, 0),
-        Check("seen", seen_diff, 0), Check("d2", d2_diff, 0),
-        Check("untouched", untouched, 0),
+        Check("seen", seen_diff, 0), Check("d2", d2_diff, 0)]
+    if kept:
+        checks.append(Check("closest", closest_diff, 0))
+    if reads:
+        checks += [Check("query_dist", dist_diff, 0),
+                   Check("query_grad", grad_diff, 0)]
+    return checks + [
+        Check("untouched", int(untouched), 0),
         Check("mapped", mapped, cell.traffic["min_occupied"], "min"),
     ], stats

@@ -8,9 +8,22 @@ is rendered once; the run cycles through it, a tick taking
 ``scans_per_tick`` consecutive frames.
 
 The traffic file gives every parameter (image size, rate, orbit, box
-count, placement and sizes).  The seed draws only the boxes, so every
-seed gives the same amount of work: the same image size, frames, ticks
+count, placement and sizes).  The seed draws only the boxes (and the
+planner's queries, below), so every seed gives the same amount of work: the same image size, frames, ticks
 and orbit, another scene.
+
+A mix with a ``reads`` object also has the planner read the map after
+every tick, as the port's sampling MPC (``planning/mpc.py``) reads it
+each solve: the distance grid once, the distance at every sample of the
+sampling stage (``rollouts`` control sequences over ``horizon`` steps,
+rolled out from rest at the tick's sensor position), and the trilinear
+distance with its gradient along ``refine_steps`` + 1 trajectories of
+the refinement (each Adam step's gradient, then the final cost).  The
+displacements are drawn once from the seed on the device, as the
+planner draws its controls (standard normals times ``sigma``, clipped
+to ``a_max``; velocities clipped to ``v_max``, steps of ``dt``); each
+tick reads them at its own sensor position.  The seed draws their
+places, never their number.
 """
 
 from __future__ import annotations
@@ -29,7 +42,9 @@ class Stream:
     ``transforms`` [F,4,4] f32 sensor-to-world, ``positions`` [F,3] f32;
     ``depths`` [F,H,W] f32 metres (NaN where nothing is hit) for depth
     input, ``points`` [F,H*W,3] f32 sensor-frame and ``valid`` [F,H*W]
-    bool for point clouds.  ``boxes`` [B,2,3] f64 on the host."""
+    bool for point clouds.  ``boxes`` [B,2,3] f64 on the host.
+    ``reads`` (``Reads``): the planner's queries after each tick, where
+    the mix reads the map."""
 
     kind: str
     height: int
@@ -41,6 +56,7 @@ class Stream:
     depths: torch.Tensor = None
     points: torch.Tensor = None
     valid: torch.Tensor = None
+    reads: "Reads" = None
 
     @property
     def frames(self) -> int:
@@ -185,6 +201,61 @@ def render_depths(fields: dict, boxes: np.ndarray, rot: np.ndarray,
     return out.reshape(rot.shape[0], height, width)
 
 
+def tick_positions(stream: Stream) -> torch.Tensor:
+    """The sensor position [T,3] at the end of each tick of the orbit (its
+    last frame's), where the tick's local window and reads centre."""
+    k = stream.scans_per_tick
+    return stream.positions[k - 1::k][:stream.ticks_per_orbit]
+
+
+@dataclasses.dataclass
+class Reads:
+    """The planner's queries, as displacements from the tick's sensor
+    position ``poses`` [T,3] f32: ``samples`` [H,K,3] f32, the sampling
+    stage's rollouts (read for the distance at each), and ``refine``
+    [R,H,3] f32, the refinement's trajectories (read for the trilinear
+    distance and gradient)."""
+
+    poses: torch.Tensor
+    samples: torch.Tensor
+    refine: torch.Tensor
+
+    def at(self, tick: int):
+        """(samples [H,K,3], refine [R,H,3]) world positions f32 of the
+        orbit's tick ``tick``."""
+        p = self.poses[tick]
+        return p + self.samples, p + self.refine
+
+
+def make_reads(spec: dict, poses: torch.Tensor, seed: int) -> Reads:
+    """The planner's queries of a mix's ``reads`` on the device of
+    ``poses`` [T,3]: ``rollouts`` control sequences of ``horizon`` steps
+    drawn from the seed (standard normals [H,3,K] times ``sigma``, clipped
+    to ``a_max``) and rolled out from rest (velocity clipped to ``v_max``,
+    steps of ``dt``); the refinement's ``refine_steps`` + 1 trajectories
+    are the first of them."""
+    dev = poses.device
+    h, k = int(spec["horizon"]), int(spec["rollouts"])
+    r = int(spec["refine_steps"]) + 1
+    dt, v_max = float(spec["dt"]), float(spec["v_max"])
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(_seed_words(seed))
+    normals = torch.randn((h, 3, k), generator=gen, dtype=torch.float32,
+                          device=dev)
+    accel = torch.clamp(normals * float(spec["sigma"]),
+                        -float(spec["a_max"]), float(spec["a_max"]))
+    v = torch.zeros((3, k), dtype=torch.float32, device=dev)
+    p = torch.zeros_like(v)
+    path = []
+    for a in accel:
+        v = torch.clamp(v + a * dt, -v_max, v_max)
+        p = p + v * dt
+        path.append(p)
+    samples = torch.stack(path).movedim(1, -1).contiguous()     # [H,K,3]
+    refine = samples[:, :r].movedim(1, 0).contiguous()          # [R,H,3]
+    return Reads(poses=poses.contiguous(), samples=samples, refine=refine)
+
+
 def make_stream(fields: dict, traffic: dict, seed: int, device) -> Stream:
     """One orbit of the traffic mix's frames for ``seed``, on ``device``."""
     h, w = traffic["height"], traffic["width"]
@@ -224,4 +295,7 @@ def make_stream(fields: dict, traffic: dict, seed: int, device) -> Stream:
         del depths
     else:
         raise ValueError(f"unknown input {stream.kind!r}: cloud or depth")
+    if traffic.get("reads") is not None:
+        stream.reads = make_reads(traffic["reads"], tick_positions(stream),
+                                  seed)
     return stream

@@ -4,7 +4,12 @@ the comparison, the result line.
 The program under test is ``fiesta_tpu_torch``; its tick entry is
 ``fused_batch_step`` for point clouds and ``fused_depth_batch_step`` for
 depth images, local-window update where the configuration's
-``global_update`` is false, as its app calls them.
+``global_update`` is false, as its app calls them.  Where the traffic mix
+has ``reads``, each tick is followed, inside the same call, by the
+planner's read of the tick's map as the port's sampling MPC reads it
+each solve (``ops/query.py``: ``distance_grid`` once, ``get_distance``
+at every sample, ``get_dist_grad_trilinear`` along the refinement's
+trajectories), which enqueues its work and reads nothing back.
 
 Set-up makes the scans on the card from the seed, builds the map and
 runs ``warm_orbits`` untimed orbits, which builds the kernels on a
@@ -33,6 +38,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 
@@ -99,9 +105,28 @@ def sync(device) -> None:
         torch.cuda.synchronize(device)
 
 
+#: the profiler range around the read, where ``Ticks.mark_read`` asks
+READ_MARK = "esdfbench.read"
+
+
+class Read(NamedTuple):
+    """The planner's read of one tick's map at the orbit tick's positions
+    (``generator.Reads.at``): the distance [H,K] at each sample, and the
+    trilinear distance [R,H] and gradient [R,H,3] along each refinement
+    trajectory."""
+
+    orbit_tick: int
+    dist: torch.Tensor
+    trilinear: torch.Tensor
+    grad: torch.Tensor
+
+
 class Ticks:
     """The program's tick entry with each distinct tick's arguments made
-    once: tick ``i`` takes the orbit's tick ``i % ticks_per_orbit``."""
+    once: tick ``i`` takes the orbit's tick ``i % ticks_per_orbit``.
+    Where the stream has reads, each call reads the new map too:
+    ``last_read`` holds that read (``Read``), ``read_ms`` its host ms, and
+    with ``mark_read`` it runs inside a profiler range ``READ_MARK``."""
 
     def __init__(self, cfg, stream):
         from fiesta_tpu_torch import pipeline
@@ -125,16 +150,49 @@ class Ticks:
                                   stream.transforms[prev], pos))
         self.depth = stream.kind == "depth"
         self.pipeline = pipeline
+        self.reads = stream.reads
+        self.last_read = None
+        self.read_ms = None
+        self.mark_read = False
+        if stream.reads is not None:
+            from fiesta_tpu_torch.ops import query
+
+            self.query = query
 
     def __call__(self, state, i: int):
-        a = self.args[i % len(self.args)]
+        j = i % len(self.args)
+        a = self.args[j]
         if self.depth:
-            return self.pipeline.fused_depth_batch_step(
+            out = self.pipeline.fused_depth_batch_step(
                 self.cfg, state, *a, use_window=self.use_window,
                 use_filter=self.cfg.use_depth_filter)
-        return self.pipeline.fused_batch_step(
-            self.cfg, state, *a, use_window=self.use_window,
-            method="scanline")
+        else:
+            out = self.pipeline.fused_batch_step(
+                self.cfg, state, *a, use_window=self.use_window,
+                method="scanline")
+        if self.reads is not None:
+            r0 = time.perf_counter()
+            if self.mark_read:
+                with torch.profiler.record_function(READ_MARK):
+                    self.last_read = self.read(out[0], j)
+            else:
+                self.last_read = self.read(out[0], j)
+            self.read_ms = (time.perf_counter() - r0) * 1e3
+        return out
+
+    def read(self, state, j: int) -> Read:
+        """The planner's read of ``state`` at orbit tick ``j``'s positions,
+        as ``planning/mpc.py`` makes it each solve: the distance grid,
+        built once; the distance at every sample of the sampling stage
+        (nearest voxel); the trilinear distance and gradient along the
+        refinement's trajectories (out of the map -1, the planner's)."""
+        q = self.query
+        samples, refine = self.reads.at(j)
+        grid = q.distance_grid(self.cfg, state.d2, state.seen)
+        dist = q.get_distance(self.cfg, grid, samples)
+        trilinear, grad = q.get_dist_grad_trilinear(self.cfg, grid, refine,
+                                                    out_value=-1.0)
+        return Read(j, dist, trilinear, grad)
 
 
 def power_limit_w():
@@ -227,7 +285,7 @@ def run(cell: spec.Cell, seed: int, seconds: float, traced: bool,
                         marks.append(clock.mark())
                         stats.append(st)
                         if sampled(j):
-                            keep[j] = (state.logodds, state.seen, state.d2)
+                            keep[j] = check.sample(state, ticks.last_read)
                 return go
 
             traced_ticks.update(range(i, i + 2 * per_orbit))
@@ -253,7 +311,7 @@ def run(cell: spec.Cell, seed: int, seconds: float, traced: bool,
         marks.append(clock.mark())
         stats.append(st)
         if sampled(i):
-            keep[i] = (state.logodds, state.seen, state.d2)
+            keep[i] = check.sample(state, ticks.last_read)
         i += 1
     sync(device)
     t_end = time.perf_counter()
@@ -311,7 +369,7 @@ def run(cell: spec.Cell, seed: int, seconds: float, traced: bool,
 
     # the check: the program's outputs against the reference's replay
     last = i - 1
-    keep[last] = (state.logodds, state.seen, state.d2)
+    keep[last] = check.sample(state, ticks.last_read)
     program = {
         "stats": torch.stack([torch.stack([s.num_observed, s.num_inserted,
                                            s.num_deleted, s.num_sweeps])

@@ -62,9 +62,6 @@ class Geometry:
             raise ValueError("this reference covers probabilistic fusion")
         if fields.get("edt_fine_dist", 5.0) < fields.get("trunc_dist", 5.0):
             raise ValueError("this reference covers the one-level EDT")
-        if fields.get("track_closest", True) and \
-                fields.get("closest_mode", "lazy") != "lazy":
-            raise ValueError("this reference covers the lazy closest mode")
         self.res = float(fields["resolution"])
         self.origin = tuple(float(v) for v in fields["origin"])
         self.map_size = tuple(float(v) for v in fields["map_size"])
@@ -86,6 +83,8 @@ class Geometry:
         self.global_update = bool(fields["global_update"])
         self.radius = tuple(float(v) for v in fields["radius"])
         self.trunc = int(math.ceil(float(fields["trunc_dist"]) / self.res))
+        # the distance of an unseen voxel, or one beyond the truncation
+        self.infinity = float(fields["infinity_distance"])
         # carve box: reach r voxels around the sensor, x/y extents rounded
         # up to a multiple of 8 where the grid's are
         self.reach = int(math.ceil((self.max_ray + 2 * self.res)

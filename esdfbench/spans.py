@@ -11,13 +11,15 @@ cell on the program's tick entry: one orbit of scans made from the run's
 seed, a new map, four whole orbits:
 
 * a warm orbit, untraced, which launches every shape, then one more
-  with the spans off, for the host ms around each call;
+  with the spans off, for the host ms around each call (and around the
+  planner's read inside it, where the cell reads the map);
 * the span orbit: the program's spans on, in memory only (no profiler, no
   CUDA events), so the host runs at nearly its untraced pace: host ms a
   tick by span (``host_ms``, inclusive of the span's children);
 * the span-trace orbit: the spans on under ``torch.profiler`` with CPU
   and CUDA activity, each span a ``record_function`` range on the trace's
-  clock; ``read_spans`` reads it.
+  clock, and the planner's read inside a range of the harness's own
+  (``harness.READ_MARK``); ``read_spans`` reads it.
 
 These ticks are not the window's: they change no end-to-end metric, no
 ``dispatch_ms`` and no other reader's slice, and the check does not
@@ -41,6 +43,9 @@ from . import generator, harness, spec, trace
 
 PREFIX = "fiesta."
 TICK = "fiesta.tick"
+#: the harness's range around the planner's read (the program opens no
+#: span there: the planner calls ``ops/query.py`` directly)
+READ = harness.READ_MARK
 #: runtime calls after which the host has waited for the device
 SYNCS = ("cudaDeviceSynchronize", "cudaStreamSynchronize",
          "cudaEventSynchronize", "cudaMemcpy")
@@ -114,6 +119,9 @@ def read_spans(evs, ticks: int):
     * ``tick``: ``launches``, ``syncs`` and ``device_ms`` a tick under
       ``fiesta.tick`` and its children; ``ops``, the device operations of
       the trace, and ``unattributed``, those under no program span;
+    * ``read``: ``launches``, ``syncs`` and ``device_ms`` a tick under the
+      read's range (``READ``) and the spans inside it, or None where the
+      trace holds none;
     * ``marked``: whether the trace holds a mark (``trace.MARK_NAME``);
     * ``span_gaps``: the device's idle gaps within the slice, seconds by
       the innermost program span open at each gap's middle (``NO_SPAN``
@@ -124,16 +132,23 @@ def read_spans(evs, ticks: int):
         return None
     _, _, s0, s1, thread, _, _ = outer[0]
     spans = [(a, b, name) for name, dev, a, b, th, _, note in evs
-             if not dev and th == thread and name.startswith(PREFIX)]
+             if not dev and th == thread
+             and (name.startswith(PREFIX) or name == READ)]
     if not spans:
         return None
     parent = _parents(spans)
-    under_tick = []
-    for i in range(len(spans)):
-        j = i
-        while j is not None and spans[j][2] != TICK:
-            j = parent[j]
-        under_tick.append(j is not None)
+
+    def under(names):
+        """Whether each span is one of ``names`` or lies inside one."""
+        out = []
+        for i in range(len(spans)):
+            j = i
+            while j is not None and spans[j][2] not in names:
+                j = parent[j]
+            out.append(j is not None)
+        return out
+
+    under_tick, under_read = under((TICK,)), under((READ,))
     rows = {}
 
     def row(name):
@@ -159,6 +174,7 @@ def read_spans(evs, ticks: int):
                                  if c in called])
     tick = {"launches": 0, "syncs": 0, "device_ms": 0.0, "ops": len(ops),
             "unattributed": 0}
+    read = {"launches": 0, "syncs": 0, "device_ms": 0.0}
     for a, b, _, corr in ops:
         i = at_call.get(corr)
         if i is None:
@@ -167,19 +183,23 @@ def read_spans(evs, ticks: int):
         r = row(spans[i][2])
         r["device_ms"] += (b - a) * 1e-3
         r["launches"] += 1
-        if under_tick[i]:
-            tick["launches"] += 1
-            tick["device_ms"] += (b - a) * 1e-3
+        for total, inside in ((tick, under_tick), (read, under_read)):
+            if inside[i]:
+                total["launches"] += 1
+                total["device_ms"] += (b - a) * 1e-3
     for i in _innermost(spans, syncs).values():
         if i is not None:
             row(spans[i][2])["syncs"] += 1
             tick["syncs"] += under_tick[i]
+            read["syncs"] += under_read[i]
     for r in rows.values():
         for k in ("host_self_ms", "device_ms", "launches", "syncs"):
             r[k] /= ticks
-    for k in ("launches", "syncs", "device_ms"):
-        tick[k] /= ticks
-    return {"spans": rows, "tick": tick, "marked": marked,
+    for total in (tick, read):
+        for k in ("launches", "syncs", "device_ms"):
+            total[k] /= ticks
+    return {"spans": rows, "tick": tick,
+            "read": read if any(under_read) else None, "marked": marked,
             "span_gaps": _span_gaps(spans, ops, s0, s1)}
 
 
@@ -188,7 +208,7 @@ def _device_ops(evs):
     operations, the marks, annotations and program spans left out."""
     marked, ops = False, []
     for name, dev, a, b, _, corr, note in evs:
-        if not dev or note or name.startswith(PREFIX):
+        if not dev or note or name.startswith(PREFIX) or name == READ:
             continue
         if trace.MARK_NAME in name:
             marked = True
@@ -252,7 +272,9 @@ def orbits(cell, seed: int, device):
     ``read_spans``' dict with ``host_ms`` (the span orbit's, by span name),
     ``call_ms`` (host ms around each call, as ``dispatch_ms`` times it:
     ``off`` in an orbit after the warm one, spans off, ``on`` in the span
-    orbit) and ``seconds`` (each phase's wall), or None where no span was
+    orbit), ``read_ms`` (host ms a tick around the planner's read in the
+    ``off`` orbit, None where the cell does not read the map) and
+    ``seconds`` (each phase's wall), or None where no span was
     recorded."""
     import fiesta_tpu_torch as ft
     from fiesta_tpu_torch import timing
@@ -264,17 +286,19 @@ def orbits(cell, seed: int, device):
     n = stream.ticks_per_orbit
     state = ft.make_state(cfg, device)
 
-    def orbit(calls=None):
+    def orbit(calls=None, reads=None):
         nonlocal state
         for j in range(n):
             c0 = time.perf_counter()
             state, _ = ticks(state, j)
             if calls is not None:
                 calls.append((time.perf_counter() - c0) * 1e3)
+            if reads is not None and ticks.read_ms is not None:
+                reads.append(ticks.read_ms)
 
-    off, on = [], []
+    off, on, reads = [], [], []
     orbit()
-    orbit(off)
+    orbit(off, reads)
     harness.sync(device)
     t1 = time.perf_counter()
     try:
@@ -284,6 +308,7 @@ def orbits(cell, seed: int, device):
         hosts = host_ms(timing.drain(), n)
         t2 = time.perf_counter()
         found = None
+        ticks.mark_read = True
         for _ in range(3):      # the profiler has been seen to trace nothing
             evs = _profile(orbit, device)
             timing.drain()
@@ -300,6 +325,7 @@ def orbits(cell, seed: int, device):
         return None
     return dict(found, host_ms=hosts,
                 call_ms={"off": sum(off) / n, "on": sum(on) / n},
+                read_ms=sum(reads) / n if reads else None,
                 seconds={"warm": t1 - t0, "span": t2 - t1,
                          "span_trace": time.perf_counter() - t2})
 
@@ -343,10 +369,12 @@ def measure(reading, device=None, seed=None):
     table = {name: dict(r, host_ms=found["host_ms"].get(name, 0.0))
              for name, r in found["spans"].items()}
     harness.log(f"span orbits: call ms a tick {found['call_ms']['off']:.4f} "
-                f"spans off, {found['call_ms']['on']:.4f} on; seconds "
+                f"spans off, {found['call_ms']['on']:.4f} on; read ms "
+                f"{found['read_ms']}; seconds "
                 f"{json.dumps(found['seconds'])}")
     harness.log(f"span orbits: spans {json.dumps(table)}; tick "
-                f"{json.dumps(found['tick'])}; span_gaps "
+                f"{json.dumps(found['tick'])}; read "
+                f"{json.dumps(found['read'])}; span_gaps "
                 f"{json.dumps(found['span_gaps'])}")
     reading.spans = found
     return found

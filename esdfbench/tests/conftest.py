@@ -2,7 +2,7 @@
 pytest esdfbench/tests``; the ``card`` tests skip without a CUDA card).
 
 ``small_root`` is a temporary copy of the benchmark (``BENCHMARK.json``
-and ``esdfbench/``) with two more cells at a size the CPU runs in
+and ``esdfbench/``) with more cells at a size the CPU runs in
 seconds: the program's plain PyTorch versions take the kernels' place
 there, and the check is the same.
 """
@@ -15,9 +15,17 @@ import pytest
 
 REPO = Path(__file__).resolve().parents[2]
 
-#: the small cells: (cell, configuration it shrinks, traffic it shrinks)
-SMALL = (("small_cow", "cow_and_lady", "orbit_clouds_30hz"),
-         ("small_demo", "demo_onboard", "orbit_depth_30hz"))
+#: the small cells: (cell, configuration it shrinks, traffic it shrinks,
+#: fields changed besides the size, the cell whose end-to-end metrics it
+#: reports)
+SMALL = (("small_cow", "cow_and_lady", "orbit_clouds_30hz", {},
+          "cow_global_stream"),
+         ("small_demo", "demo_onboard", "orbit_depth_30hz", {},
+          "demo_local_stream"),
+         ("small_cow_read", "cow_and_lady", "orbit_clouds_read", {},
+          "cow_global_read"),
+         ("small_cow_eager", "cow_and_lady", "orbit_clouds_30hz",
+          {"closest_mode": "eager"}, "cow_global_stream"))
 H, W = 24, 32
 
 
@@ -41,7 +49,7 @@ def make_small_root(dest: Path) -> Path:
     shutil.copytree(REPO / "esdfbench", dest / "esdfbench",
                     ignore=shutil.ignore_patterns("__pycache__", "tests"))
     bench = json.loads((REPO / "BENCHMARK.json").read_text())
-    for name, config, traffic in SMALL:
+    for name, config, traffic, changed, like in SMALL:
         c = json.loads((REPO / "esdfbench" / "configs"
                         / f"{config}.json").read_text())
         c.update(resolution=0.1, origin=[-2.0, -2.0, -0.6],
@@ -50,7 +58,7 @@ def make_small_root(dest: Path) -> Path:
                  center_x=c["center_x"] * W / 640,
                  center_y=c["center_y"] * H / 480,
                  focal_x=c["focal_x"] * W / 640,
-                 focal_y=c["focal_y"] * H / 480)
+                 focal_y=c["focal_y"] * H / 480, **changed)
         (dest / "esdfbench" / "configs" / f"{name}.json").write_text(
             json.dumps(c))
         t = json.loads((REPO / "esdfbench" / "traffic"
@@ -62,6 +70,10 @@ def make_small_root(dest: Path) -> Path:
                           orbit_clearance=0.2)
         if t["boxes"]["focus"]:
             t["boxes"]["focus"] = [0.3, 1.6]
+        if t.get("reads"):
+            # long steps, so that some samples leave the map's box
+            t["reads"].update(horizon=10, rollouts=64, dt=0.3,
+                              refine_steps=2)
         (dest / "esdfbench" / "traffic" / f"small_{traffic}.json"
          ).write_text(json.dumps(t))
         bench["configs"].append({"name": name, "source": "test",
@@ -70,6 +82,9 @@ def make_small_root(dest: Path) -> Path:
         bench["workloads"].append({"name": name, "config": name,
                                    "traffic": f"small_{traffic}",
                                    "chips": 1, "why": "test"})
+        for m in bench["end_to_end"]:
+            if like in m.get("workloads", ()):
+                m["workloads"].append(name)
     (dest / "BENCHMARK.json").write_text(json.dumps(bench, indent=1))
     return dest
 

@@ -112,8 +112,54 @@ def test_benchmark_json_names_and_units():
             assert name.match(e["name"]), e["name"]
             if "unit" in e:
                 assert unit.match(e["unit"])
+    cells = {w["name"] for w in bench["workloads"]}
+    # every cell reports what each of its per-layer metrics moves
+    reported = {w: {m["name"] for m in bench["end_to_end"]
+                    if w in m.get("workloads", cells)} for w in cells}
     for m in bench["per_layer"]:
-        assert m["moves"] == "tick_ms"
-        assert set(m["workloads"]) <= {w["name"] for w in bench["workloads"]}
+        assert set(m["workloads"]) <= cells
+        for w in m["workloads"]:
+            assert m["moves"] in reported[w] - {"setup_s"}, (m["name"], w)
         assert (spec.BENCH_DIR / "metrics" / f"{m['name']}.py").exists()
+    for w in cells:
+        assert "setup_s" in reported[w] and len(reported[w]) >= 2
     assert all(w["chips"] == 1 for w in bench["workloads"])
+
+
+def test_tick_ms_is_held_end_to_end_where_steady_and_per_layer_in_the_read_cell():
+    cow, read = spec.load_cell("cow_global_stream"), \
+        spec.load_cell("cow_global_read")
+    assert [m["name"] for m in cow.end_to_end] == [
+        "tick_ms", "tick_p95_ms", "setup_s"]
+    assert [m["name"] for m in read.end_to_end] == ["tick_p95_ms", "setup_s"]
+    assert "tick_ms.with_read" in {m["name"] for m in read.per_layer}
+    assert all(m["moves"] == "tick_p95_ms" for m in read.per_layer)
+    assert all(m["moves"] == "tick_ms" for m in cow.per_layer)
+
+
+@pytest.mark.parametrize("base", [
+    "dispatch_ms", "plain_ms", "carve_roofline", "edt_roofline",
+    "idle_share"])
+def test_with_read_readers_read_what_their_base_reads(base):
+    from esdfbench import trace
+
+    s = trace.TraceSlice(ticks=10, window_s=0.05, busy_s=0.02,
+                         by_name={"carve_sweep": 0.004,
+                                  "edt_minplus_kernel": 0.006,
+                                  "vectorized_elementwise_kernel": 0.008},
+                         device_ops=[], idle_gaps=[])
+    cell = spec.load_cell("cow_global_read")
+    reading = harness.Reading(cell, s, [3.0, 5.0], {
+        "carve_sweep", "edt_minplus_kernel"}, _geometry("cow_and_lady"),
+        [8.0, 9.0, 10.0])
+    got = spec.metric_reader(cell, f"{base}.with_read")(reading)
+    assert got is not None
+    assert got == spec.metric_reader(cell, base)(reading)
+
+
+def test_tick_ms_with_read_is_the_mean_untraced_interval():
+    cell = spec.load_cell("cow_global_read")
+    reader = spec.metric_reader(cell, "tick_ms.with_read")
+    reading = harness.Reading(cell, None, [], set(), None, [8.0, 9.0, 13.0])
+    assert reader(reading) == pytest.approx(10.0)
+    assert reader(harness.Reading(cell, None, [], set(), None, [])) is None

@@ -94,6 +94,28 @@ def test_read_spans_by_hand():
                                   "fiesta.update": 15e-6})
 
 
+def test_read_spans_under_the_read():
+    """The harness's range around the planner's read (after tick 1): its
+    launches and synchronisations a tick, apart from the tick's; None
+    where the trace holds no read."""
+    assert spans.read_spans(_trace(True), ticks=2)["read"] is None
+    evs = _trace(True) + [
+        (spans.READ, False, 355.0, 389.0, 7, 0, True),
+        (spans.READ, True, 360.0, 394.0, 0, 0, True),
+        ("cudaLaunchKernel", False, 358.0, 359.0, 7, 7, False),
+        ("cudaLaunchKernel", False, 370.0, 371.0, 7, 8, False),
+        ("cudaStreamSynchronize", False, 375.0, 377.0, 7, 0, False),
+        ("vectorized_elementwise_kernel", True, 383.0, 384.0, 0, 7, False),
+        ("index_elementwise_kernel", True, 386.0, 389.0, 0, 8, False),
+    ]
+    got = spans.read_spans(evs, ticks=2)
+    assert got["read"] == pytest.approx({"launches": 1.0, "syncs": 0.5,
+                                         "device_ms": 4e-3 / 2})
+    assert got["tick"]["launches"] == 2.0 and got["tick"]["syncs"] == 0.5
+    assert got["tick"]["ops"] == 8 and got["tick"]["unattributed"] == 2
+    assert got["spans"][spans.READ]["launches"] == 1.0
+
+
 def test_read_spans_without_spans_is_none():
     assert spans.read_spans(_trace(False), ticks=2) is None
     assert spans.read_spans([], ticks=2) is None
@@ -118,8 +140,9 @@ def _reading(root, name):
     return harness.Reading(cell, None, [], set(), None)
 
 
-@pytest.mark.parametrize("name,extra", [("small_cow", set()),
-                                        ("small_demo", {"fiesta.depth"})])
+@pytest.mark.parametrize("name,extra", [
+    ("small_cow", set()), ("small_demo", {"fiesta.depth"}),
+    ("small_cow_read", set())])
 def test_span_orbits_on_a_small_cell(small_root, name, extra):
     """The span orbits through the program's plain versions on the CPU:
     host ms by layer, every span name of the tick, no device operation."""
@@ -137,12 +160,23 @@ def test_span_orbits_on_a_small_cell(small_root, name, extra):
                                             "fiesta.integrate",
                                             "fiesta.update"))
     assert 0 < parts <= host["fiesta.tick"]
-    assert set(found["spans"]) == set(host)
+    reads = name == "small_cow_read"
+    assert set(found["spans"]) == set(host) | ({spans.READ} if reads
+                                              else set())
     assert found["tick"]["ops"] == 0 and found["tick"]["syncs"] == 0
     for metric in ("tick_host_ms", "integrate_host_ms", "update_host_ms",
                    "launches_per_tick", "host_syncs_per_tick"):
         value = spec.metric_reader(reading.cell, metric)(reading)
         assert value is not None and value >= 0, metric
+    # the read's metrics read something where the cell reads the map
+    for metric in ("query_host_ms", "query_launches_per_tick",
+                   "query_syncs_per_tick"):
+        value = spec.metric_reader(reading.cell, metric)(reading)
+        assert (value is not None) is reads, metric
+        if value is not None:
+            assert value >= 0 and found["read"]["syncs"] == 0
+    if reads:
+        assert found["read_ms"] > 0
     from fiesta_tpu_torch import timing
     assert not timing._on
 
@@ -157,5 +191,6 @@ def test_no_spans_no_reading(small_root, monkeypatch):
     reading = _reading(small_root, "small_cow")
     for metric in ("tick_host_ms", "depth_host_ms", "integrate_host_ms",
                    "update_host_ms", "launches_per_tick",
-                   "host_syncs_per_tick"):
+                   "host_syncs_per_tick", "query_host_ms",
+                   "query_launches_per_tick", "query_syncs_per_tick"):
         assert spec.metric_reader(reading.cell, metric)(reading) is None
