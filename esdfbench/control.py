@@ -6,7 +6,12 @@ grid, the read's reference gives the control's closest grid from the
 control's own map; where the mix reads the map, it gives the read of
 that map in bfloat16 too (the read is f32 in the configuration): the
 distance grid's values rounded, and the trilinear interpolation run in
-bfloat16.
+bfloat16.  Where the reference keeps the ESDF as state (the incremental
+map), the control's map before the check's stretch is the fixpoint that
+the reference's relaxation reaches from an empty map on the control's
+occupancy there, and its maps through the stretch that fixpoint
+followed (``check.chain``) on the control's occupancy; a full replay of
+every tick would take tens of minutes a seed at the cell's size.
 
     python3 -m esdfbench.control --workload <cell> --ticks <n> \
         --seeds <s> [<s> ...]
@@ -32,17 +37,40 @@ def control_outputs(ref, geo, obs, n_ticks: int, samples, cell, stream):
     """What the reference in bfloat16 gives in the program's place: the
     stats of every tick and its map after each sampled tick, with the
     closest grid and the read worked out from that map."""
-    stats, m, snaps = check.replay(ref, geo, obs, n_ticks, set(samples),
+    stateful = check.keeps_esdf(ref)
+    first = n_ticks - check.STRETCH_TICKS
+    wanted = set(samples) | (set(range(first - 1, n_ticks)) if stateful
+                             else set())
+    stats, m, snaps = check.replay(ref, geo, obs, n_ticks, wanted,
                                    torch.bfloat16)
     dev = obs[0].idx.device
     rd = check.read_reference(cell)
     kept = check.keeps_closest(cell.fields)
     none = torch.full(geo.grid, -1, dtype=torch.int32, device=dev)
+    stretch = None
+    if stateful:
+        empty = (torch.full(geo.grid, ref.INF_D2, dtype=torch.int32,
+                            device=dev),
+                 torch.full((3,) + geo.grid, ref.UNDEFINED,
+                            dtype=torch.int16, device=dev))
+        occ = (snaps[first - 1][0] > geo.occ_thr).reshape(geo.grid)
+        start = ref.update(geo, *empty, torch.zeros_like(occ), occ)[:2]
+        maps = list(check.chain(ref, geo, snaps, first, n_ticks - first,
+                                start))
+        stats[first:, 3] = torch.tensor([n for _, _, n, _ in maps],
+                                        dtype=torch.int64)
+        stretch = (first, start, [(d2, c) for d2, c, _, _ in maps])
     out = {}
-    for t, (lo, seen) in snaps.items():
+    for t in sorted(samples):
+        lo, seen = snaps[t]
         occ = (lo > geo.occ_thr).reshape(geo.grid)
-        d2 = ref.edt_d2(occ, geo.trunc)
-        closest = rd.closest_grid(geo, occ) if kept else none
+        if stateful:
+            # only the last map's distances are compared
+            d2, closest = stretch[2][-1] if t == n_ticks - 1 else (none,
+                                                                  none)
+        else:
+            d2 = ref.edt_d2(occ, geo.trunc)
+            closest = rd.closest_grid(geo, occ) if kept else none
         read = None
         if stream.reads is not None:
             j = t % stream.ticks_per_orbit
@@ -58,7 +86,8 @@ def control_outputs(ref, geo, obs, n_ticks: int, samples, cell, stream):
         hit_cnt=torch.zeros(geo.grid, dtype=torch.uint8, device=dev),
         miss_cnt=torch.zeros(geo.grid, dtype=torch.uint8, device=dev),
         closest=none)
-    return {"stats": stats, "samples": out, "final": final}
+    return {"stats": stats, "samples": out, "final": final,
+            "stretch": stretch}
 
 
 def readings(cell, seed: int, n_ticks: int, device):

@@ -28,6 +28,16 @@ With ``trace``, two whole orbits inside the window run under the
 profiler (``trace.py``: a device slice, then a host slice for the idle
 gaps), and the per-layer metrics are read from them and from the host
 clock around each call outside them.
+
+Where the configuration's reference keeps the ESDF as state (FIESTA's
+incremental map, ``check.keeps_esdf``), the harness runs
+``check.STRETCH_TICKS`` more ticks once the window has closed and the
+memory peak has been read, outside the timing, and keeps a copy of the
+map before them and after each, which the check follows
+(``check.chain``).  The traced run copies the map to the host before
+its device slice, and the reference counts the relaxation's work in the
+slice's first ticks from it (``check.relax_work``: ``relax_roofline``;
+the check holds their sweeps).
 """
 
 from __future__ import annotations
@@ -211,16 +221,24 @@ class Reading:
     """What a per-layer metric reads: the traced slice, the host ms of
     each call outside the traced orbits and the tick intervals there
     (ms, CUDA events), the cell (configuration fields, traffic) and the
-    names of the program's hand-written kernels."""
+    names of the program's hand-written kernels.  ``kernel_dir``: the
+    program's kernel sources (a reader finds a file's kernel names
+    there); ``stats``: the window's ``UpdateStats`` [T,4] on the host;
+    ``work``: where the reference keeps the ESDF, its count of the
+    relaxation's work in the ticks that open the device slice
+    (``check.relax_work``), else None."""
 
     def __init__(self, cell, slice_, dispatch_ms, hand_kernels, geometry,
-                 intervals_ms=()):
+                 intervals_ms=(), kernel_dir=None, stats=None, work=None):
         self.cell = cell
         self.slice = slice_
         self.dispatch_ms = dispatch_ms
         self.intervals_ms = list(intervals_ms)
         self.hand_kernels = hand_kernels
         self.geometry = geometry
+        self.kernel_dir = kernel_dir
+        self.stats = stats
+        self.work = work
 
 
 def run(cell: spec.Cell, seed: int, seconds: float, traced: bool,
@@ -232,6 +250,8 @@ def run(cell: spec.Cell, seed: int, seconds: float, traced: bool,
 
     cfg = ft.config_from_fields(cell.fields).validate()
     traffic = cell.traffic
+    ref = spec.reference(cell)
+    stateful = check.keeps_esdf(ref)
     stream = generator.make_stream(cell.fields, traffic, seed, device)
     ticks = Ticks(cfg, stream)
     per_orbit = stream.ticks_per_orbit
@@ -260,6 +280,7 @@ def run(cell: spec.Cell, seed: int, seconds: float, traced: bool,
         return (t - warm - offset) % every == 0
 
     keep = {}                 # the program's maps after sampled ticks
+    before_slice = None       # stateful: (tick, map on the host) before it
     marks, dispatch, traced_ticks = [], [], set()
     slice_, attempts = None, 0
     i = warm
@@ -286,9 +307,15 @@ def run(cell: spec.Cell, seed: int, seconds: float, traced: bool,
                         stats.append(st)
                         if sampled(j):
                             keep[j] = check.sample(state, ticks.last_read)
+                        if stateful and not host_ops and \
+                                j == first + check.STRETCH_TICKS - 1:
+                            # the ticks whose relaxation the reference counts
+                            trace.cut()
                 return go
 
             traced_ticks.update(range(i, i + 2 * per_orbit))
+            if stateful:
+                before_slice = (i, check.esdf_copy(state, host=True))
             evs, wall = trace.profile(orbit(i, False), False)
             i += per_orbit
             found = trace.read_device(evs, wall, per_orbit)
@@ -320,6 +347,16 @@ def run(cell: spec.Cell, seed: int, seconds: float, traced: bool,
 
     memory_peak = (torch.cuda.max_memory_allocated(device)
                    if device.type == "cuda" else 0)
+    stretch = None
+    if stateful:
+        # the ticks the check follows, outside the window and its timing
+        stretch = (i, check.esdf_copy(state), [])
+        for _ in range(check.STRETCH_TICKS):
+            state, st = ticks(state, i)
+            stats.append(st)
+            stretch[2].append(check.esdf_copy(state))
+            i += 1
+        sync(device)
     bad = forbidden_modules(sys.modules)
     if bad:
         raise SystemExit(f"modules of JAX or the JAX package loaded: {bad}")
@@ -350,16 +387,31 @@ def run(cell: spec.Cell, seed: int, seconds: float, traced: bool,
         f"dispatch {statistics.mean(dispatch):.4f} ms a call; "
         f"set-up {setup_s:.2f} s; memory peak {memory_peak} B")
 
-    ref = spec.reference(cell)
+    program_stats = torch.stack([
+        torch.stack([s.num_observed, s.num_inserted, s.num_deleted,
+                     s.num_sweeps]) for s in stats]).to(torch.int64).cpu()
+    obs = work = None
     if traced:
         geo = ref.Geometry(cell.fields)
-        hand = trace.hand_kernel_names(Path(kernels.__file__).parent)
+        kernel_dir = Path(kernels.__file__).parent
+        hand = trace.hand_kernel_names(kernel_dir)
         # the intervals of the ticks outside the traced orbits, and not
         # the first after one (it holds the profiler's close)
         untraced = [iv for j, iv in enumerate(intervals)
                     if warm + j not in traced_ticks
                     and warm + j - 1 not in traced_ticks]
-        reading = Reading(cell, slice_, dispatch, hand, geo, untraced)
+        if before_slice is not None:
+            w0 = time.perf_counter()
+            obs = check.observations(ref, geo, stream)
+            first = before_slice[0]
+            work = (first, check.relax_work(ref, geo, obs, *before_slice,
+                                            check.STRETCH_TICKS))
+            log(f"relax work of ticks {first}-{first + len(work[1]) - 1} "
+                f"(sweeps, candidates, voxels lowered): {work[1]}; "
+                f"{time.perf_counter() - w0:.2f} s")
+        reading = Reading(cell, slice_, dispatch, hand, geo, untraced,
+                          kernel_dir, program_stats[warm:warm + n_window],
+                          work[1] if work else None)
         for m in cell.per_layer:
             value = spec.metric_reader(cell, m["name"])(reading)
             if value is not None:
@@ -370,16 +422,15 @@ def run(cell: spec.Cell, seed: int, seconds: float, traced: bool,
     # the check: the program's outputs against the reference's replay
     last = i - 1
     keep[last] = check.sample(state, ticks.last_read)
-    program = {
-        "stats": torch.stack([torch.stack([s.num_observed, s.num_inserted,
-                                           s.num_deleted, s.num_sweeps])
-                              for s in stats]).to(torch.int64).cpu(),
-        "samples": keep, "final": state}
+    program = {"stats": program_stats, "samples": keep, "final": state,
+               "stretch": stretch}
     log(f"check: {len(stats)} ticks, maps after ticks {sorted(keep)}")
     t_check = time.perf_counter()
-    checks, ref_stats = check.compare(ref, cell, stream, program)
-    failed = int((ref_stats[warm:] != program["stats"][warm:]).any(dim=1)
-                 .sum())
+    checks, ref_stats = check.compare(ref, cell, stream, program, obs=obs,
+                                      work=work)
+    window = slice(warm, warm + n_window)
+    failed = int(check.differing_ticks(ref_stats[window],
+                                       program_stats[window]).sum())
     log(f"check took {time.perf_counter() - t_check:.2f} s")
     result["correct"] = all(c.ok for c in checks)
     result["failed"] = failed

@@ -61,3 +61,24 @@ def edt_bound_s(grid) -> tuple:
     return (sum(t for t, _ in passes),
             "bytes" if all(b == "bytes" for _, b in passes)
             else "operations")
+
+
+# the relaxation: int32 operations a candidate takes (three coordinate
+# loads' bounds checks folded, the neighbour index, the defined test,
+# three differences, three squares and two adds, the compare:
+# ``chip_smoke.py``'s RELAX_OPS), and the bytes of a voxel that changes,
+# its d2 (4 B) and closest (3 x 2 B) read once and written once
+RELAX_OPS = 12
+RELAX_BYTES_PER_CHANGE = 20
+
+
+def relax_bound_s(pairs: int, changed: int) -> tuple:
+    """One tick's relaxation to its fixpoint: ``pairs`` candidates (each
+    in-grid neighbour of the tick's inserts and resets in the first
+    sweep, then of each sweep's changed voxels in the next), each
+    RELAX_OPS integer operations, and the d2 and closest of the
+    ``changed`` distinct voxels that it lowers read and written once.
+    Not the dense first sweep: a kernel that seeds its first sweep from
+    the changes needs only these."""
+    return bound_s(changed * RELAX_BYTES_PER_CHANGE, RELAX_OPS * pairs,
+                   I32_OPS_PER_S)

@@ -19,19 +19,26 @@ REPO = Path(__file__).resolve().parents[2]
 #: fields changed besides the size, the cell whose end-to-end metrics it
 #: reports)
 SMALL = (("small_cow", "cow_and_lady", "orbit_clouds_30hz", {},
-          "cow_global_stream"),
+          "cow_global_read"),
          ("small_demo", "demo_onboard", "orbit_depth_30hz", {},
           "demo_local_stream"),
          ("small_cow_read", "cow_and_lady", "orbit_clouds_read", {},
           "cow_global_read"),
          ("small_cow_eager", "cow_and_lady", "orbit_clouds_30hz",
-          {"closest_mode": "eager"}, "cow_global_stream"))
+          {"closest_mode": "eager"}, "cow_global_read"),
+         ("small_cow_incr", "cow_and_lady_incremental",
+          "orbit_clouds_30hz", {}, "cow_incr_dynamic"))
 H, W = 24, 32
 
 
 def pytest_configure(config):
     config.addinivalue_line(
         "markers", "card: needs a CUDA card; skips without one")
+    import torch
+
+    # one thread, as a run has (``run.py``): the small cells' many tiny
+    # operations only wait on a thread pool
+    torch.set_num_threads(1)
 
 
 @pytest.fixture

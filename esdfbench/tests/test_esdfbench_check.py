@@ -54,7 +54,8 @@ def _answer_altered(real):
     return step
 
 
-@pytest.mark.parametrize("cell", ["small_cow", "small_demo"])
+@pytest.mark.parametrize("cell", ["small_cow", "small_demo",
+                                  "small_cow_incr"])
 @pytest.mark.parametrize("fault", [None, _unchanged_once, _half_batch,
                                    _answer_altered])
 def test_faults_under_the_timed_path_fail_the_check(small_root, monkeypatch,

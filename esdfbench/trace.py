@@ -35,15 +35,16 @@ import torch
 MARKS = 3                 # device sleeps that open each trace
 MARK_CYCLES = 5_000_000   # ~2.5 ms each at the H100's 1.98 GHz
 MARK_NAME = "spin_kernel"
+CUT_CYCLES = 2_000        # a cut inside a slice (``cut``): ~1 us
 SLICE = "esdfbench.slice"
 TICK = "esdfbench.tick"
 
 
-def hand_kernel_names(kernel_dir: Path) -> set:
+def hand_kernel_names(kernel_dir: Path, pattern: str = "*.cu*") -> set:
     """The ``__global__`` function names of the CUDA sources (and shared
-    headers) in ``kernel_dir``."""
+    headers) in ``kernel_dir`` whose names match ``pattern``."""
     names = set()
-    for src in Path(kernel_dir).glob("*.cu*"):
+    for src in Path(kernel_dir).glob(pattern):
         names |= set(re.findall(
             r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?(\w+)",
             src.read_text()))
@@ -66,6 +67,17 @@ class TraceSlice:
     by_name: dict            # device seconds by base name over the slice
     device_ops: list         # [[name, seconds]], the 10 largest
     idle_gaps: list          # [[what the host was doing, seconds]], 10
+    # by base name, each operation's (start us, seconds) in start order
+    series: dict = dataclasses.field(default_factory=dict)
+    # the start (us) of each ``cut`` inside the slice, in order
+    cuts: list = dataclasses.field(default_factory=list)
+
+
+def cut():
+    """A mark on the device between two ticks of a traced slice: the
+    operations that start before it belong to the ticks before it.  Not
+    one of the slice's operations (``_device_ops`` leaves marks out)."""
+    torch.cuda._sleep(CUT_CYCLES)
 
 
 def profile(run_ticks, host_ops: bool):
@@ -143,16 +155,19 @@ def read_device(evs, wall_s: float, ticks: int):
     if not marked or not ops:
         return None
     busy = _union([[a, b] for a, b, _ in ops])
-    by_name = {}
+    by_name, series = {}, {}
     for a, b, name in ops:
         key = base_name(name)
         by_name[key] = by_name.get(key, 0.0) + (b - a) * 1e-6
+        series.setdefault(key, []).append((a, (b - a) * 1e-6))
+    cuts = sorted(a for name, dev, a, _, _, note in evs
+                  if dev and not note and MARK_NAME in name and a > ops[0][0])
     return TraceSlice(
         ticks=ticks, window_s=wall_s,
         busy_s=sum(b - a for a, b in busy) * 1e-6, by_name=by_name,
         device_ops=[[k, v] for k, v in sorted(
             by_name.items(), key=lambda kv: -kv[1])[:10]],
-        idle_gaps=[])
+        idle_gaps=[], series=series, cuts=cuts)
 
 
 def read_gaps(evs):
