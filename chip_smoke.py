@@ -77,7 +77,8 @@ runs after 10; any failure raises and exits non-zero:
    logs its column tiles and those holding a seed (the others only
    write).  The carve is also timed at the demo box (on the demo's first
    tick) and prints its wavefronts' steps; the depth kernel is timed at
-   the demo cell's 3 frames of 480x640, filtered (``depth_row``); the
+   the demo cell's 3 frames of 480x640, filtered (``depth_row``), and
+   the splat prep at the cow and demo cells' ticks (``prep_row``); the
    min-plus pass prints its window offsets per voxel (``minplus_taps``),
    the closest split pass those of each side (``split_taps``) and the
    closest window pass those of its two sides together
@@ -261,8 +262,8 @@ H, W = 192, 256          # scan size of the cow_and_lady bench (bench.py)
 TICKS = 5                # timed ticks of 3 scans each
 EAGER_TICKS = 2          # ticks in eager closest mode on the final map
 QUERIES = 2 ** 19        # ~ the MPC's 491 k lookups per solve (query.py)
-STREAM_KERNELS = ("splat", "carve", "edt_binary", "edt_minplus", "fuse",
-                  "boxadd")
+STREAM_KERNELS = ("prep", "splat", "carve", "edt_binary", "edt_minplus",
+                  "fuse", "boxadd")
 CLOSEST_KERNELS = ("closest_binary", "closest_window", "closest_split",
                    "closest_decode")
 MIN_OCCUPIED = 1000      # a representative scene (bench.py:184)
@@ -277,7 +278,7 @@ PLAN_SOLVES = 5          # timed plan_step solves, one sync each
 FLY_STEPS = 10           # receding-horizon steps (run.py --fly)
 PLAN_TOL = 1e-3          # card vs CPU solve: tests/test_torch_mpc.py's gate
 GRAD_TOL = 1e-5          # card vs CPU cost gradient, relative L2: same gate
-INCR_KERNELS = ("splat", "carve", "boxadd", "relax")   # the incremental tick
+INCR_KERNELS = ("prep", "splat", "carve", "boxadd", "relax")  # incremental
 # phase 15: the demo preset's 40 m floor at cow_and_lady's 0.05 m, 800x800x80
 # voxels at t = 100, where the packed closest word misses int32
 WIDE_MAP_SIZE = (40.0, 40.0, 4.0)
@@ -419,6 +420,7 @@ def demo_config():
 
 #: (module, dispatch function, plain version) of every kernel wrapper
 PLAIN = (
+    (raycast, "_scanline_splat_prep", raycast._scanline_splat_prep_plain),
     (raycast, "splat_packed", raycast._splat_packed_plain),
     (raycast, "carve_free_mask_batch", raycast._carve_free_plain),
     (raycast, "apply_box_counts", raycast._apply_box_counts_plain),
@@ -1150,6 +1152,63 @@ def depth_row(dev, card):
         f"{row['bound_ms']:.4f} ms, bytes), plain {row['plain_ms']:.4f}; "
         f"bit-equal, {row['valid']} valid; on {card}")
     return row
+
+
+def prep_row(dev, card):
+    """The splat prep's kernel on the cow tick (3 clouds of 480x640
+    sensor-frame points with transforms) and the demo tick (the depth
+    kernel's components of 3 filtered 480x640 frames): bit-equal to the
+    plain prep (val where a ray passes the gates), its CUDA launches a
+    call, then its times (``kernel_times``) beside the plain version's and
+    its bytes bound (3 f32 and a valid byte read, lin, val and rvalid
+    written: 22 bytes a ray)."""
+    h, w = 480, 640
+    rows = {}
+    for name, base in (("cow", ft.COW_AND_LADY), ("demo", ft.DEMO_ONBOARD)):
+        cfg = dataclasses.replace(replay.scale_intrinsics(base, h, w),
+                                  max_points_per_scan=h * w)
+        kind = "cloud" if name == "cow" else "depth"
+        _, frames = replay.make_sequence(cfg, n_frames=4, n_boxes=20, seed=0,
+                                         kind=kind, height=h, width=w,
+                                         period=12.0, orbit_radius=5.0)
+        if kind == "cloud":
+            pts, vals, tfs = (b[0] for b in replay.stage_update_batches(
+                cfg, frames[1:], device=dev)[:3])
+        else:
+            depths = torch.from_numpy(
+                np.stack([f[2] for f in frames])).to(dev)
+            tfs = torch.from_numpy(np.stack(
+                [replay.pose_to_matrix(*f[1]) for f in frames]).astype(
+                    np.float32)).to(dev)
+            *xyz, vals = depth_ops.depth_tick_components(
+                cfg, depths[1:], tfs[1:], depths[0], tfs[0], True)
+            pts, tfs = tuple(xyz), tfs[1:]
+        args = (cfg, pts, vals)
+        got = raycast._scanline_splat_prep(*args, transforms=tfs)
+        ref = raycast._scanline_splat_prep_plain(*args, transforms=tfs)
+        rv = ref[4].reshape(-1)
+        for a, b, what in zip(got, ref, ("starts", "po_box", "lin", "val",
+                                         "rvalid")):
+            if what == "val":
+                a, b = a[rv], b[rv]
+            bit_equal(a, b, f"prep {name} {what}")
+        by_kernel, launches, _ = profiled(
+            lambda: raycast._scanline_splat_prep(*args, transforms=tfs), 10)
+        rays = vals.numel()
+        row = dict(rays=rays, valid=int(rv.sum()), by_kernel=by_kernel,
+                   cuda_launches=launches,
+                   **kernel_times(lambda: raycast._scanline_splat_prep(
+                       *args, transforms=tfs)),
+                   plain_ms=time_ms(lambda: raycast._scanline_splat_prep_plain(
+                       *args, transforms=tfs)),
+                   bound_ms=22 * rays / HBM_BYTES_PER_S * 1e3)
+        log(f"prep ({name} tick, {rays} rays): {row['ms']:.4f} ms "
+            f"host-paced, {row['device_ms']:.4f} on the card alone, host "
+            f"{row['host_ms']:.4f} (bound {row['bound_ms']:.4f} ms, bytes), "
+            f"plain {row['plain_ms']:.4f}; CUDA launches a call {launches}; "
+            f"bit-equal, {row['valid']} valid; on {card}")
+        rows[name] = row
+    return rows
 
 
 def bound(nbytes, ops, rate):
@@ -3120,6 +3179,7 @@ def run(dev, cfg, h, w, ticks, dcfg, dh, dw, dticks):
         f" on the card alone (bound {carve_demo['bound_ms']:.4f} ms), "
         f"bit-equal; wavefront steps {carve_demo['steps']}; on {card}")
     depth_demo = depth_row(dev, card)
+    prep_ticks = prep_row(dev, card)
 
     # the drain and the box add on one more tick of counters
     ticked = pipeline.integrate_scan_batch(cfg, ft.copy_state(k_state),
@@ -3462,7 +3522,7 @@ def run(dev, cfg, h, w, ticks, dcfg, dh, dw, dticks):
                       "demo_occupied": n_demo,
                       "fuse_window_demo": fuse_window,
                       "carve_steps": steps, "carve_demo": carve_demo,
-                      "depth_demo": depth_demo,
+                      "depth_demo": depth_demo, "prep": prep_ticks,
                       "minplus_taps": taps, "split_taps": split["taps"],
                       "window_taps": window["taps"],
                       "far_device_ms": {r["name"]: r["far_device_ms"]

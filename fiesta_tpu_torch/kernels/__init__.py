@@ -14,8 +14,8 @@ CUDA tensors only; CPU tensors take the plain PyTorch versions there.
 
 Flags: ``-fmad=false`` (no FMA contraction) and IEEE division / square
 root, so the f32 arithmetic of the splat decode, the carve's free test,
-the fusion step, the closest decode's root and the depth conversion
-rounds exactly as the plain PyTorch versions do.
+the fusion step, the closest decode's root, the depth conversion and the
+splat prep rounds exactly as the plain PyTorch versions do.
 """
 
 from __future__ import annotations
@@ -45,7 +45,8 @@ LAUNCHES = {"splat": 0, "carve": 0, "edt_binary": 0, "edt_minplus": 0,
             "fuse": 0, "boxadd": 0, "closest_binary": 0,
             "closest_window": 0, "closest_split": 0, "closest_decode": 0,
             "closest_binary_wide": 0, "closest_window_wide": 0,
-            "closest_split_wide": 0, "sort": 0, "relax": 0, "depth": 0}
+            "closest_split_wide": 0, "sort": 0, "relax": 0, "depth": 0,
+            "prep": 0}
 
 #: compiler output (ptxas register/shared-memory report) per source
 BUILD_LOG: dict = {}
@@ -85,6 +86,9 @@ _SIGNATURES = {
                                        _P]),
     "depth": ("depth.cu", "fiesta_depth",
               [_P] * 4 + [_I] * 3 + [_F] * 7 + [_I, _I] + [_P] * 4),
+    "prep": ("prep.cu", "fiesta_prep",
+             [_P] * 3 + [_I] + [_P] * 3 + [_I, _L] + [_I] * 10 + [_F] * 12
+             + [_P] * 6),
 }
 SOURCES = tuple(sorted({s for s, _, _ in _SIGNATURES.values()}))
 
@@ -839,3 +843,83 @@ def depth(depths: torch.Tensor, transforms, prev_depth, prev_transform, *,
             f32(tol), int(bool(use_filter)), int(margin), px.data_ptr(),
             py.data_ptr(), valid.data_ptr())
     return px, py, valid
+
+
+def prep(points, valid: torch.Tensor, origins=None, transforms=None, *,
+         grid, box, extent, aligned: bool, origin, res: float,
+         min_ray: float, max_ray: float):
+    """The splat prep of K scans in one launch: gates, clip, carve-box
+    placement, endpoint or box-exit voxel and packed value per ray.
+    ``points``: world-frame [K,P,3] f32 with ``origins`` [K,3] f32, or
+    sensor-frame with ``transforms`` [K,4,4] f32 (the sensor at their
+    translations), as [K,P,3] or as the components (px, py, pz), each
+    [K,P]; ``valid`` [K,P] bool.  ``grid``, ``box`` and ``extent`` (the
+    placement extent min(grid, 2r + 1)) are per-axis voxel counts,
+    ``aligned`` floors x/y corners to multiples of 8, ``origin`` is the
+    map's.  Returns (starts [K,3] i32, po_box [K,3] f32, lin [K*P] i32
+    (K*BX*BY*BZ for a dropped ray), val [K*P] f32, rvalid [K,P] bool).
+    Replaces the plain PyTorch ops of ``ops.raycast`` (the JAX package
+    has no kernel here)."""
+    comps = points if isinstance(points, (tuple, list)) else None
+    if comps is not None:
+        if len(comps) != 3:
+            raise ValueError("prep: expected the components (px, py, pz)")
+        for c in comps:
+            _check(c, torch.float32, "prep points")
+        if comps[0].dim() != 2 or any(c.shape != comps[0].shape
+                                      for c in comps):
+            raise ValueError("prep: expected components of one shape [K,P]")
+        k, p = comps[0].shape
+        ptrs, ps = [c.data_ptr() for c in comps], 1
+        first = comps[0]
+    else:
+        _check(points, torch.float32, "prep points")
+        if points.dim() != 3 or points.shape[2] != 3:
+            raise ValueError("prep: expected points [K,P,3]")
+        k, p = points.shape[:2]
+        base = points.data_ptr()
+        ptrs, ps = [base, base + 4, base + 8], 3
+        first = points
+    _check(valid, torch.bool, "prep valid")
+    if tuple(valid.shape) != (k, p):
+        raise ValueError(f"prep: valid shape {tuple(valid.shape)} != {(k, p)}")
+    if transforms is not None:
+        _check(transforms, torch.float32, "prep transforms")
+        if tuple(transforms.shape) != (k, 4, 4):
+            raise ValueError("prep: expected transforms [K,4,4]")
+        sensor, orig_ptr, tf_ptr = transforms, None, transforms.data_ptr()
+    elif origins is not None:
+        _check(origins, torch.float32, "prep origins")
+        if tuple(origins.shape) != (k, 3):
+            raise ValueError("prep: expected origins [K,3]")
+        sensor, orig_ptr, tf_ptr = origins, origins.data_ptr(), None
+    else:
+        raise ValueError("prep: origins or transforms needed")
+    _same_device("prep", first, valid, sensor,
+                 *(comps[1:] if comps is not None else ()))
+    if k > 65535:
+        raise ValueError(f"prep: {k} scans exceed the kernel's 65535")
+    dev = first.device
+    starts = torch.empty((k, 3), dtype=torch.int32, device=dev)
+    po_box = torch.empty((k, 3), dtype=torch.float32, device=dev)
+    lin = torch.empty(k * p, dtype=torch.int32, device=dev)
+    val = torch.empty(k * p, dtype=torch.float32, device=dev)
+    rvalid = torch.empty((k, p), dtype=torch.bool, device=dev)
+    _launch("prep", dev, *ptrs, ps, valid.data_ptr(), orig_ptr, tf_ptr, k,
+            p, *grid, *box, *extent, int(bool(aligned)),
+            *_prep_floats(tuple(origin), res, min_ray, max_ray, tuple(box)),
+            starts.data_ptr(), po_box.data_ptr(), lin.data_ptr(),
+            val.data_ptr(), rvalid.data_ptr())
+    return starts, po_box, lin, val, rvalid
+
+
+@functools.lru_cache(maxsize=64)
+def _prep_floats(origin, res, min_ray, max_ray, box):
+    """The prep's f32 arguments, rounded once per geometry as PyTorch
+    rounds the plain prep's Python scalars: the origin, res, the ray
+    limits, the 1e-9 floor, 0.5 * res, box * res and max_ray + res (each
+    formed in double, then rounded)."""
+    f32 = lambda v: float(np.float32(v))  # noqa: E731
+    return (*(f32(o) for o in origin), f32(res), f32(min_ray), f32(max_ray),
+            f32(1e-9), f32(0.5 * res), *(f32(b * res) for b in box),
+            f32(max_ray + res))

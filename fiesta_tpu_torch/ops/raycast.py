@@ -3,9 +3,9 @@ the batched scanline path of ``fiesta_tpu/ops/raycast.py``).
 
 Per tick, K scans are integrated into sensor-centered carve boxes:
 
-1. per-ray prep (plain PyTorch, component form): validity and length
-   gates, clipping at max_ray_length, box placement, endpoint or box-exit
-   voxel, and ONE packed f32 per ray carrying observation class and range
+1. per-ray prep (``_scanline_splat_prep``): validity and length gates,
+   clipping at max_ray_length, box placement, endpoint or box-exit voxel,
+   and ONE packed f32 per ray carrying observation class and range
    (``2000 + range`` for a hit, ``1000 + range`` for a free seed);
 2. the splat (``splat_packed``): zero-filled target, scatter-max of the
    packed values, decode into seeds / hit / free-endpoint masks;
@@ -16,9 +16,9 @@ Per tick, K scans are integrated into sensor-centered carve boxes:
    full grid, in scan order, with box corners kept on the device so the
    tick never waits on the host.
 
-Steps 2, 3 and 4 have hand-written CUDA kernels (``kernels/splat.cu``,
-``kernels/carve.cu``, ``kernels/boxadd.cu``); a CPU tensor takes the plain
-PyTorch version here.
+Each step has a hand-written CUDA kernel (``kernels/prep.cu``,
+``kernels/splat.cu``, ``kernels/carve.cu``, ``kernels/boxadd.cu``); a CPU
+tensor takes the plain PyTorch version here.
 
 f32 arithmetic follows the JAX expressions op for op, with tensor
 divisors (``grid.f32_scalar``) so that every division is IEEE.
@@ -26,6 +26,7 @@ divisors (``grid.f32_scalar``) so that every division is IEEE.
 
 from __future__ import annotations
 
+import functools
 import math
 import os
 from typing import NamedTuple, Tuple
@@ -150,6 +151,28 @@ def splat_packed(lin: torch.Tensor, val: torch.Tensor, n: int, thr: float):
     return _splat_packed_plain(lin, val, n, thr)
 
 
+def _check_flat_index(k: int, nb: int) -> None:
+    """The flat index k*nb + lin_w is int32; past 2^31 it wraps."""
+    if k * nb >= 2**31:
+        raise ValueError(
+            f"flat endpoint splat index overflows int32: {k} scans x "
+            f"{nb} box voxels = {k * nb} >= 2^31; reduce scans_per_tick "
+            "or the carve box (max_ray_length/resolution)")
+
+
+@functools.lru_cache(maxsize=64)
+def _prep_geometry(cfg: FiestaConfig) -> dict:
+    """The ``prep`` kernel's per-config arguments: grid, carve box,
+    placement extent min(grid, 2r + 1), alignment, map origin and the ray
+    limits."""
+    e = 2 * _carve_reach(cfg) + 1
+    return dict(grid=cfg.grid_shape, box=_carve_box_shape(cfg),
+                extent=tuple(min(g, e) for g in cfg.grid_shape),
+                aligned=_aligned_box(cfg), origin=cfg.origin,
+                res=cfg.resolution, min_ray=cfg.min_ray_length,
+                max_ray=cfg.max_ray_length)
+
+
 def _scanline_splat_prep(cfg: FiestaConfig, points, valid, origins=None,
                          transforms=None):
     """Per-ray half of the batched splat (ops/raycast.py:775-877): box
@@ -160,19 +183,33 @@ def _scanline_splat_prep(cfg: FiestaConfig, points, valid, origins=None,
     the components (px, py, pz), each [K,P] (the depth tick); valid [K,P]
     bool.  Returns (starts [K,3] i32, po_box [K,3] f32,
     lin_flat [K*P] i32 flat target index (K*BX*BY*BZ = dropped),
-    val_flat [K*P] f32 packed value, rvalid [K,P] bool).
+    val_flat [K*P] f32 packed value, rvalid [K,P] bool).  CUDA tensors:
+    the ``prep`` kernel, one launch; CPU tensors: the plain version.
     """
+    components = isinstance(points, (tuple, list))
+    first = points[0] if components else points
+    if not first.is_cuda:
+        return _scanline_splat_prep_plain(cfg, points, valid, origins,
+                                          transforms)
+    geo = _prep_geometry(cfg)
+    _check_flat_index(first.shape[0], math.prod(geo["box"]))
+    points = (tuple(c.contiguous() for c in points) if components
+              else points.contiguous())
+    return kernels.prep(
+        points, valid.contiguous(),
+        None if origins is None else origins.contiguous(),
+        None if transforms is None else transforms.contiguous(), **geo)
+
+
+def _scanline_splat_prep_plain(cfg: FiestaConfig, points, valid,
+                               origins=None, transforms=None):
+    """``_scanline_splat_prep`` in plain PyTorch ops, on any device."""
     gx, gy, gz = cfg.grid_shape
     bx, by, bz = _carve_box_shape(cfg)
     nb = bx * by * bz
     components = isinstance(points, (tuple, list))
     k = points[0].shape[0] if components else points.shape[0]
-    if k * nb >= 2**31:
-        # the flat index k*nb + lin_w is int32; past 2^31 it wraps
-        raise ValueError(
-            f"flat endpoint splat index overflows int32: {k} scans x "
-            f"{nb} box voxels = {k * nb} >= 2^31; reduce scans_per_tick "
-            "or the carve box (max_ray_length/resolution)")
+    _check_flat_index(k, nb)
     res = cfg.resolution
     dev = points[0].device if components else points.device
     res_t = torch.full((), res, dtype=torch.float32, device=dev)

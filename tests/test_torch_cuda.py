@@ -882,7 +882,9 @@ def test_stream_kernels_equal_plain(dev, monkeypatch):
         "fuse": 4, "boxadd": 4, "closest_binary": 0, "closest_window": 0,
         "closest_split": 0, "closest_decode": 0, "closest_binary_wide": 0,
         "closest_window_wide": 0, "closest_split_wide": 0, "sort": 0,
-        "relax": 0, "depth": 0}
+        "relax": 0, "depth": 0, "prep": 4}
+    monkeypatch.setattr(raycast, "_scanline_splat_prep",
+                        raycast._scanline_splat_prep_plain)
     monkeypatch.setattr(raycast, "splat_packed", raycast._splat_packed_plain)
     monkeypatch.setattr(raycast, "carve_free_mask_batch",
                         raycast._carve_free_plain)
@@ -898,6 +900,7 @@ def test_stream_kernels_equal_plain(dev, monkeypatch):
     for a, b in zip(k_stats, p_stats):
         _eq(a, b)
     assert kernels.LAUNCHES["splat"] == 4          # the plain run: none
+    assert kernels.LAUNCHES["prep"] == 4
 
 
 def _sort_keys(kind, n, g):
@@ -1079,9 +1082,15 @@ def test_engine_kernels_equal_plain(dev, monkeypatch, method, kind):
     assert kernels.LAUNCHES["fuse"] == 2 and kernels.LAUNCHES["edt_binary"] \
         == 2
     if method == "scanline":
-        assert kernels.LAUNCHES["splat"] == kernels.LAUNCHES["carve"] == n
+        # one prep, splat and carve a batched integrate call
+        assert kernels.LAUNCHES["prep"] == kernels.LAUNCHES["splat"] == \
+            kernels.LAUNCHES["carve"] == n
+    else:
+        assert kernels.LAUNCHES["prep"] == 0
     # every converted frame, the first (which yields nothing) among them
     assert kernels.LAUNCHES["depth"] == (0 if kind == "cloud" else n + 1)
+    monkeypatch.setattr(raycast, "_scanline_splat_prep",
+                        raycast._scanline_splat_prep_plain)
     monkeypatch.setattr(raycast, "splat_packed", raycast._splat_packed_plain)
     monkeypatch.setattr(raycast, "carve_free_mask_batch",
                         raycast._carve_free_plain)
@@ -1389,6 +1398,8 @@ def test_relax_kernel_rejects_what_it_cannot_index(dev):
 
 
 def _incremental_plain(monkeypatch):
+    monkeypatch.setattr(raycast, "_scanline_splat_prep",
+                        raycast._scanline_splat_prep_plain)
     monkeypatch.setattr(raycast, "splat_packed", raycast._splat_packed_plain)
     monkeypatch.setattr(raycast, "carve_free_mask_batch",
                         raycast._carve_free_plain)
@@ -1735,3 +1746,212 @@ def test_depth_kernel(dev, shape, k, use_filter, margin):
         n_valid.append(int(got[3][0].sum()))
     if use_filter:
         assert n_valid[0] > 0 and n_valid[1] < n_valid[0] // 4, n_valid
+
+
+# the splat prep's configurations: the cow and demo grids (8-aligned boxes;
+# the cow box spans z) and an unaligned grid smaller than the box's reach
+PREP_CFGS = {
+    "cow": ft.COW_AND_LADY,
+    "demo": ft.DEMO_ONBOARD,
+    "unaligned": ft.FiestaConfig(
+        resolution=0.1, origin=(-2.25, -1.85, -0.95), map_size=(4.5, 3.7, 2.1),
+        min_ray_length=0.3, max_ray_length=1.5),
+}
+
+
+def _prep_sensors(cfg):
+    """Sensor positions [13,3] f32: the grid's middle, then two at each
+    face: just inside the grid, and past it by 0.7 max range."""
+    lo = np.array(cfg.origin, np.float64)
+    hi = lo + np.array(cfg.grid_shape) * cfg.resolution
+    mid = (lo + hi) / 2
+    out = [mid]
+    near, past = 0.3 * cfg.resolution, 0.7 * cfg.max_ray_length
+    for j in range(3):
+        for face, sgn in ((lo, 1), (hi, -1)):
+            for off in (near, -past):
+                p = mid.copy()
+                p[j] = face[j] + sgn * off
+                out.append(p)
+    return np.array(out, np.float32)
+
+
+def _prep_rays(cfg, o, start, rng, p):
+    """World endpoints [p,3] f32 for a sensor at ``o`` whose box corner is
+    ``start``: random directions and lengths up to 1.5 max range, and
+    first rays of zero length; at the min and max range along each axis
+    (exactly and an ulp either side); ending on each face of the box (and
+    an ulp either side); far out along each axis, so out of the box there;
+    with NaN or an infinity in each component."""
+    res, box = cfg.resolution, raycast._carve_box_shape(cfg)
+    d = rng.normal(size=(p, 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    pts = (o + d * rng.uniform(0, 1.5 * cfg.max_ray_length, (p, 1))
+           ).astype(np.float32)
+    edge = [o]
+    f32 = np.float32
+    for r in (f32(cfg.min_ray_length), f32(cfg.max_ray_length)):
+        for a in range(3):
+            for sgn in (1, -1):
+                for rr in (np.nextafter(r, f32(0)), r,
+                           np.nextafter(r, f32(np.inf))):
+                    q = o.copy()
+                    q[a] = f32(o[a] + sgn * rr)
+                    edge.append(q)
+    lw = np.array(cfg.origin, f32) + np.asarray(start, f32) * f32(res)
+    hw = lw + np.array(box, f32) * f32(res)
+    for a in range(3):
+        for face in (lw[a], hw[a]):
+            for f in (np.nextafter(face, f32(-np.inf)), face,
+                      np.nextafter(face, f32(np.inf))):
+                q = (o + rng.uniform(-0.3, 0.3, 3) * res).astype(f32)
+                q[a] = f
+                edge.append(q)
+        for sgn in (1, -1):
+            q = o.copy()
+            q[a] = f32(o[a] + sgn * 3 * box[a] * res)
+            edge.append(q)
+    for a in range(3):
+        for bad in (np.nan, np.inf, -np.inf):
+            q = (o + 0.5).astype(f32)
+            q[a] = bad
+            edge.append(q)
+    edge = np.array(edge, f32)
+    pts[:len(edge)] = edge
+    return pts
+
+
+def _rotation(rng):
+    """A random rotation [3,3] from a unit quaternion."""
+    q = rng.normal(size=4)
+    w, x, y, z = q / np.linalg.norm(q)
+    return np.array([
+        [1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y)],
+        [2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x)],
+        [2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)]])
+
+
+def _prep_scene(name, k, group, p=3000):
+    """(cfg, {form: (points, kwargs)}, valid [K,P] bool) of K scans from
+    sensors ``group * K ...`` of ``_prep_sensors`` (cyclically), as
+    numpy: world points with origins, sensor-frame points with random
+    rotations and the components of those."""
+    cfg = PREP_CFGS[name]
+    rng = np.random.default_rng([k, group, len(name)])
+    sensors = _prep_sensors(cfg)
+    o = sensors[[(group * k + i) % len(sensors) for i in range(k)]]
+    po = ((o - np.array(cfg.origin, np.float32)) / np.float32(cfg.resolution)
+          - np.float32(0.5)).astype(np.float32)
+    starts = raycast._box_starts(cfg, torch.from_numpy(po)).numpy()
+    world = np.stack([_prep_rays(cfg, o[i], starts[i], rng, p)
+                      for i in range(k)])
+    valid = rng.random((k, p)) < 0.9
+    valid[:, :120] = True
+    tfs = np.zeros((k, 4, 4), np.float32)
+    sensor = np.empty_like(world)
+    for i in range(k):
+        rot = _rotation(rng).astype(np.float32)
+        tfs[i, :3, :3], tfs[i, :3, 3], tfs[i, 3, 3] = rot, o[i], 1.0
+        with np.errstate(invalid="ignore"):
+            sensor[i] = (world[i] - o[i]) @ rot
+    forms = {"world": (world, dict(origins=o)),
+             "sensor": (sensor, dict(transforms=tfs)),
+             "components": (tuple(np.ascontiguousarray(sensor[..., j])
+                                  for j in range(3)), dict(transforms=tfs))}
+    return cfg, forms, valid
+
+
+def _to_dev(x, dev):
+    if isinstance(x, tuple):
+        return tuple(torch.from_numpy(c).to(dev) for c in x)
+    return torch.from_numpy(x).to(dev)
+
+
+def _prep_bits(got, ref):
+    """starts, po_box, lin and rvalid bit for bit, val where rvalid."""
+    rv = ref[4].reshape(-1)
+    for a, b in zip(got[:3] + got[4:], ref[:3] + ref[4:]):
+        _eq_bits(a, b)
+    _eq_bits(got[3][rv], ref[3][rv])
+
+
+@pytest.mark.parametrize("form", ["world", "sensor", "components"])
+@pytest.mark.parametrize("k", [1, 3, 4])
+@pytest.mark.parametrize("name", sorted(PREP_CFGS))
+def test_prep_kernel(dev, name, k, form):
+    """``kernels.prep`` through ``_scanline_splat_prep`` against the plain
+    prep on the card, in every input form, K scans from the 13 sensors of
+    ``_prep_sensors`` (each used at least once), with the edge rays of
+    ``_prep_rays``: one launch of ``prep_kernel`` a call, starts, po_box,
+    lin and rvalid bit-equal, val where rvalid.  The plain prep's own
+    values show the rays reached every case: hits, clipped rays and rays
+    that leave the box across a face of each axis."""
+    seen = dict(hit=0, clipped=0, short=0, exit=[0, 0, 0])
+    for group in range(-(-13 // k)):
+        cfg, forms, valid = _prep_scene(name, k, group)
+        pts, kw = forms[form]
+        pts, v = _to_dev(pts, dev), _to_dev(valid, dev)
+        kw = {key: _to_dev(a, dev) for key, a in kw.items()}
+        before = kernels.LAUNCHES["prep"]
+        if group == 0:
+            got, names = _cuda_kernels(
+                lambda: raycast._scanline_splat_prep(cfg, pts, v, **kw))
+            assert names == ["prep_kernel"], names
+        else:
+            got = raycast._scanline_splat_prep(cfg, pts, v, **kw)
+        assert kernels.LAUNCHES["prep"] == before + 1
+        ref = raycast._scanline_splat_prep_plain(cfg, pts, v, **kw)
+        _prep_bits(got, ref)
+        rv, val = ref[4].reshape(-1), ref[3]
+        thr = 1000.0 + np.float32(cfg.max_ray_length + cfg.resolution)
+        seen["hit"] += int((rv & (val >= 2000.0)).sum())
+        seen["clipped"] += int((rv & (val == thr)).sum())
+        seen["short"] += int((v.reshape(-1) & ~rv).sum())
+        # a ray that leaves the box: its voxel on the face it crossed
+        out = (rv & (val < thr)).cpu()
+        box = raycast._carve_box_shape(cfg)
+        lin = ref[2].cpu()[out] % math.prod(box)
+        cell = (lin // (box[1] * box[2]), lin // box[2] % box[1],
+                lin % box[2])
+        for j in range(3):
+            seen["exit"][j] += int(((cell[j] == 0)
+                                    | (cell[j] == box[j] - 1)).sum())
+    assert seen["hit"] and seen["clipped"] and seen["short"], seen
+    assert all(seen["exit"]), seen
+
+
+@pytest.mark.parametrize("impl", ["lax", "pallas"])
+def test_prep_kernel_sorted_splat(dev, monkeypatch, impl):
+    """The sorted splat (``FIESTA_SPLAT=sorted``, either sort) after the
+    kernel's prep: seeds, masks and counts bit-equal to those after the
+    plain prep."""
+    monkeypatch.setattr(raycast, "_SPLAT_ORDER", "sorted")
+    monkeypatch.setattr(raycast, "_SPLAT_SORT_IMPL", impl)
+    for name in sorted(PREP_CFGS):
+        cfg, forms, valid = _prep_scene(name, 3, 1)
+        pts, kw = forms["components"]
+        args = (cfg, _to_dev(pts, dev), _to_dev(valid, dev))
+        kw = {key: _to_dev(a, dev) for key, a in kw.items()}
+        before = dict(kernels.LAUNCHES)
+        got = raycast._scanline_seeds_batch(*args, **kw)
+        assert kernels.LAUNCHES["prep"] == before["prep"] + 1
+        assert kernels.LAUNCHES["sort"] == before["sort"] + (impl == "pallas")
+        with monkeypatch.context() as m:
+            m.setattr(raycast, "_scanline_splat_prep",
+                      raycast._scanline_splat_prep_plain)
+            ref = raycast._scanline_seeds_batch(*args, **kw)
+        for a, b in zip(got, ref):
+            _eq_bits(a, b)
+
+
+def test_prep_kernel_no_rays(dev):
+    """Scans of no rays still place their boxes: starts and po_box as the
+    plain prep's, empty rays."""
+    cfg = PREP_CFGS["unaligned"]
+    o = torch.from_numpy(_prep_sensors(cfg)[:4]).to(dev)
+    pts = torch.zeros((4, 0, 3), device=dev)
+    v = torch.zeros((4, 0), dtype=torch.bool, device=dev)
+    got = raycast._scanline_splat_prep(cfg, pts, v, origins=o)
+    ref = raycast._scanline_splat_prep_plain(cfg, pts, v, origins=o)
+    for a, b in zip(got, ref):
+        _eq_bits(a, b)

@@ -209,3 +209,56 @@ def test_flat_index_overflow_guard():
     with pytest.raises(ValueError, match="overflows int32"):
         trc._scanline_seeds_batch(tc, pts, torch.ones((k, 4), dtype=bool),
                                   torch.zeros((k, 3)))
+
+
+def test_prep_kernel_registered():
+    """The ``prep`` kernel's entry: its source, C symbol and launch
+    counter, an argument list as long as the C entry's (the stream
+    included), and a ``__global__`` the benchmark's reader of
+    hand-written kernels finds (so its time is not counted as plain ops)."""
+    import re
+
+    from esdfbench import trace
+    from fiesta_tpu_torch import kernels
+
+    src, sym, argtypes = kernels._SIGNATURES["prep"]
+    assert (src, sym) == ("prep.cu", "fiesta_prep")
+    assert src in kernels.SOURCES and kernels.LAUNCHES["prep"] == 0
+    text = (kernels._HERE / src).read_text()
+    params = re.search(rf"int {sym}\(([^)]*)\)", text).group(1)
+    assert len(params.split(",")) == len(argtypes)
+    assert "prep_kernel" in trace.hand_kernel_names(kernels._HERE)
+
+
+def test_prep_kernel_wants_cuda_tensors():
+    """A CPU tensor never reaches the kernel: the wrapper refuses it, and
+    the prep routes CPU tensors to the plain version."""
+    from fiesta_tpu_torch import kernels
+
+    tc = tconfig.config_from_fields(dataclasses.asdict(UNALIGNED))
+    pts, val, tfs = (torch.from_numpy(a) for a in _scans(UNALIGNED, k=2))
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.prep(pts, val, transforms=tfs, **trc._prep_geometry(tc))
+    got = trc._scanline_splat_prep(tc, pts, val, transforms=tfs)
+    ref = trc._scanline_splat_prep_plain(tc, pts, val, transforms=tfs)
+    for g, r in zip(got, ref):      # bit for bit, NaN values included
+        if g.dtype == torch.float32:
+            g, r = g.view(torch.int32), r.view(torch.int32)
+        assert torch.equal(g, r)
+    assert kernels.LAUNCHES["prep"] == 0
+
+
+@pytest.mark.parametrize("cfg", [ALIGNED, UNALIGNED],
+                         ids=["aligned", "unaligned"])
+def test_prep_geometry(cfg):
+    """The kernel's per-config arguments are the plain prep's: the box,
+    its alignment, and the placement extent that ``_box_starts`` clamps
+    with, min(grid, 2r + 1)."""
+    tc = tconfig.config_from_fields(dataclasses.asdict(cfg))
+    geo = trc._prep_geometry(tc)
+    e = 2 * jrc._carve_reach(cfg) + 1
+    assert geo["box"] == jrc._carve_box_shape(cfg)
+    assert geo["extent"] == tuple(min(g, e) for g in cfg.grid_shape)
+    assert geo["aligned"] == (cfg is ALIGNED)
+    assert (geo["origin"], geo["res"], geo["min_ray"], geo["max_ray"]) == (
+        cfg.origin, cfg.resolution, cfg.min_ray_length, cfg.max_ray_length)
