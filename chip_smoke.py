@@ -24,8 +24,8 @@ after.  Phases, in order but for 15, which runs after 8, and 14, which
 runs after 10; any failure raises and exits non-zero:
 
 1. device and build: the card's name and power limit (nvidia-smi), then
-   every kernel built with nvcc from the sources in this checkout, with
-   relax.cu's and closest.cu's measurement variants beside them (timed);
+   every kernel built with nvcc from the sources in this checkout (timed),
+   and each kernel's registers and shared memory from ptxas;
 2. the stream: ``fused_stream`` with the kernels, launch counts zeroed
    just before and read just after (each of its kernels must have
    launched); then the same ticks through the plain PyTorch versions on
@@ -68,12 +68,10 @@ runs after 10; any failure raises and exits non-zero:
    one computes the same function, and the card's bound.  A kernel's
    ``ms`` is host-paced (calls back to back, as the main path makes
    them); beside it, queued behind a device sleep, the card's time
-   alone.  The nine redesigned kernels (splat, sort, carve, min-plus, EDT
-   binary, closest split, box add, closest binary, closest window) also
-   print their CUDA launches per call and device time by kernel name
-   (``torch.profiler``), beside their times before their redesign
-   (``EARLIER_MS``); the splat's zero fill has a row of its own, and the
-   windowed drain's row takes the same timings.  The closest binary pass
+   alone.  Each row traced by ``torch.profiler`` also prints its CUDA
+   launches per call and device time by kernel name; the splat's zero
+   fill has a row of its own, and the windowed drain's row takes the
+   same timings.  The closest binary pass
    logs its column tiles and those holding a seed (the others only
    write).  The carve is also timed at the demo box (on the demo's first
    tick) and prints its wavefronts' steps; the depth kernel is timed at
@@ -119,15 +117,13 @@ runs after 10; any failure raises and exits non-zero:
    below t^2 (phase 2's, globally), counted over the grid and, windowed,
    inside the last update window too; the relax kernel, on each stream's
    tick with the most sweeps and its last, timed host-paced and on the
-   card alone per call and per sweep beside the earlier dense kernel's
-   time, its two bounds (dense, and the frontier's: the dense first sweep
-   and then the candidates of changed neighbours), the frontier's own
-   bit tests and tile moves apart, and the plain loop, with the voxels
-   that changed in each sweep (the plain loop on the card), the tiles the
-   kernel visited and its grid's blocks an SM; its measurement variants
-   (the frontier without the changed-neighbour pull, caps of 80 and 128
-   registers) bit-equal to the plain loop and timed in turns with it;
-   one more tick's CUDA launches and busy time; then ``FiestaPipeline`` in
+   card alone per call and per sweep, beside its two bounds (dense, and
+   the frontier's: the dense first sweep and then the candidates of
+   changed neighbours), the frontier's own bit tests and tile moves apart,
+   and the plain loop, with the voxels that changed in each sweep (the
+   plain loop on the card), the tiles the kernel visited and its grid's
+   blocks an SM; one more tick's CUDA launches and busy time; then
+   ``FiestaPipeline`` in
    incremental mode on phase 5's frames, ``update()`` every third frame
    under sync debug mode "error", kernels then plain;
 11. the unbounded world: ``ScrollingFiestaPipeline`` with a tile archive
@@ -197,15 +193,11 @@ runs after 10; any failure raises and exits non-zero:
    traced both ways, the path's peak memory both ways, and each wide
    kernel and the decode of its i64 words against its plain version at
    these shapes (bit-equal as 64-bit words), timed beside its bound.
-   The wide split (on u32 tile words here) also beside its parent
-   kernel, the bounded body on 64-bit words (``SPLIT_VARIANTS``,
-   ``kernels/split_wide_parent.cu``), on the
-   card alone in turns, with both kernels' parts (load and store, plus
-   the carries) and the package's u64 form, its window offsets a side
-   (mean, p99, most) and their operations (``SPLIT_TAP_OPS``, a work
-   model), its bytes and operations bounds, each launch's resident
-   blocks and warps an SM,
-   registers and spills; then its 64-bit leg: the map tiled 2x2 along x
+   The wide split (on u32 tile words here) also on the card alone in
+   turns with its u64 form (bit-equal to plain too), with its window
+   offsets a side (mean, p99, most), its bytes and operations bounds and
+   each launch's resident blocks and warps an SM, registers and spills;
+   then its 64-bit leg: the map tiled 2x2 along x
    and y (1600x1600x80, s = 18, u64 tile words in chunks) through the
    wide binary and window kernels, and the split alone on it the same
    way, bit-equal to its plain version (timed once);
@@ -223,12 +215,13 @@ runs after 10; any failure raises and exits non-zero:
    shapes), the nvidia-smi line, and last ``{"ok": true, "device":
    {...}}``.
 
-The script needs a CUDA card and the rest of the repository; without
-either it exits non-zero and prints no result.
+Bounds are ``esdfbench.roofline``'s peaks and rule (``bound_s``) applied
+to each row's bytes and operations.  The script needs a CUDA card and the
+rest of the repository; without either it exits non-zero and prints no
+result.
 """
 
 import collections
-import concurrent.futures
 import contextlib
 import dataclasses
 import io
@@ -245,6 +238,9 @@ import time
 import numpy as np
 import torch
 
+from esdfbench.roofline import (ENVELOPE_OPS, F32_OPS_PER_S, HBM_BYTES_PER_S,
+                                I32_OPS_PER_S, RELAX_OPS, bound_s,
+                                carve_bound_s)
 import fiesta_tpu_torch as ft
 from fiesta_tpu_torch import checkpoint, kernels, pipeline
 from fiesta_tpu_torch import run as fiesta_run
@@ -292,43 +288,6 @@ WIDE_REPLACES = {"closest_binary_wide": 966, "closest_window_wide": 994,
 # defined test, da, db and their squares, dc2 and its clamp, c*, the axis
 # selects and the packing
 DECODE_OPS = 30
-# int32 operations a relax candidate takes: three coordinate loads' bounds
-# checks folded, the neighbour index, the defined test, three differences,
-# three squares and two adds, the compare (the kernel's inner loop)
-RELAX_OPS = 12
-# the relax kernel before its redesign (every sweep dense) on the tick
-# with the most sweeps (18) at cow, host-paced: ms a call and a sweep, on
-# an H100 80GB HBM3 at 700 W (PERF.md, kernel table)
-EARLIER_RELAX_MS = (28.594, 1.589)
-# measurement variants of relax.cu (kernels.build_variants), timed beside
-# it on phase 10's calls: the tile frontier without the changed-neighbour
-# pull, and launch bounds of 3 and 2 blocks an SM (80 and 128 registers)
-# in place of 4 (64)
-RELAX_VARIANTS = {
-    "frontier_alone": ("relax.cu", ("FIESTA_RELAX_PULL_ALL=1",)),
-    "min_blocks_3": ("relax.cu", ("FIESTA_RELAX_MIN_BLOCKS=3",)),
-    "min_blocks_2": ("relax.cu", ("FIESTA_RELAX_MIN_BLOCKS=2",)),
-}
-# measurement variants (kernels.build_variants), timed beside the wide
-# split in phase 15: its parent kernel (split_wide_parent.cu: the bounded
-# body on 64-bit words, as before its redesign), and both kernels stopped
-# after the load and store and after the carries (the parent's k0p sweep;
-# the near masks and the lp/nn walk)
-SPLIT_VARIANTS = {
-    "parent": ("split_wide_parent.cu", ()),
-    "parent_load_store": ("split_wide_parent.cu", ("FIESTA_SPLIT_STOP=1",)),
-    "parent_carries": ("split_wide_parent.cu", ("FIESTA_SPLIT_STOP=2",)),
-    "load_store": ("closest.cu", ("FIESTA_SPLIT_STOP=1",)),
-    "carries": ("closest.cu", ("FIESTA_SPLIT_STOP=2",)),
-}
-# the wide split's work model, logged beside its bounds and not one of
-# them: int32 operations a tap of its bounded windows takes, by tile word
-# bits (the offset clamped at kmax (add, min), its square and shift, the
-# row and its address, the shared load, the add and the min (9), and a
-# quarter of the turn's test (square, shift, compare, branch, step); on
-# 64-bit words the shifts and the add take two, the min four).  Its
-# operations bound is the function's cheapest exact pass (ENVELOPE_OPS)
-SPLIT_TAP_OPS = {32: 10, 64: 16}
 # phase 15's 64-bit leg: the wide map tiled 2x2 along x and y, 1600x1600x80
 # (an 80 m floor at 0.05 m; s = 18)
 WIDE_LONG_TILES = (2, 2, 1)
@@ -356,39 +315,10 @@ TWINS = {"bench_torch.py": [], "bench_demo_torch.py": [],
 TWIN_TIMEOUT_S = 300
 MPC_DU_TOL = 0.05        # bench_mpc.py's same-schedule tolerance
 SHARD_APP_FRAMES = 9     # phase 14: run.py --devices 1
-# H100 SXM published peaks (NVIDIA data sheet and Hopper white paper)
-HBM_BYTES_PER_S = 3.35e12
-# 67 TFLOP/s of non-tensor f32 counts an FMA as two operations; the kernels
-# build with -fmad=false, so each f32 operation is one instruction
-F32_OPS_PER_S = 67e12 / 2
-I32_OPS_PER_S = 132 * 64 * 1.98e9      # 64 INT32 lanes/SM x 132 SMs x boost
 SLEEP_CYCLES = 40_000_000   # ~20 ms at the H100's 1.98 GHz boost clock
 MARK_CYCLES = 5_000_000     # ~2.5 ms: each of the profiler's first kernels
 MARKS = 8                   # sleeps that open a trace (the profiler drops
                             # its first kernel, on some cards two)
-# host-paced ms per call of the splat (three launches), the sort (28
-# launches at 2^18 pairs), the carve (217 launches at cow), the min-plus
-# pass (mean of axes 1 and 2), the EDT binary pass (a thread a column),
-# the closest split and window passes (the brute-force window), the box
-# add (a thread a box voxel) and the closest binary pass (a thread a
-# column) before their redesign, at the same shapes on an H100 80GB HBM3
-# at 700 W (PERF.md, kernel table), and the launches
-EARLIER_MS = {"splat": 0.0714, "sort": 0.1716, "carve": 1.3794,
-              "edt_minplus": 0.4933, "edt_binary": 0.1663,
-              "closest_split": 0.6178, "boxadd": 0.0964,
-              "closest_binary": 0.2824, "closest_window": 0.2614}
-EARLIER_MINPLUS_AXIS_MS = (0.6378, 0.3488)
-# derive_closest's device busy ms at cow with the decode in plain PyTorch,
-# on an H100 80GB HBM3 at 700 W (PERF.md, section 5)
-EARLIER_DERIVE_BUSY_MS = 1.679
-EARLIER_LAUNCHES = {"splat": "3", "sort": "28 at 2^18 pairs",
-                    "carve": "217 at cow", "edt_minplus": "1",
-                    "edt_binary": "1", "closest_split": "1", "boxadd": "1",
-                    "closest_binary": "1", "closest_window": "1"}
-# int32 operations per voxel of an exact O(A) min-plus pass: a lower
-# envelope of parabolas (Felzenszwalb-Huttenlocher) builds with amortised
-# two intersection tests of ~8 operations per element, then one evaluation
-ENVELOPE_OPS = 24
 
 
 def log(msg):
@@ -631,7 +561,8 @@ def closest_rows(cfg, occupied):
         replaces="fiesta_tpu/ops/pallas/edt.py:614", err=err,
         **kernel_times(lambda: kernels.closest_binary(occ, plan, a)),
         plain_ms=time_ms(lambda: edt._binary_packed_plain(occ, plan, a)),
-        library_ms=None, bound=bound(5 * nvox, 4 * nvox, I32_OPS_PER_S),
+        library_ms=None,
+        bound=in_ms(bound_s(5 * nvox, 4 * nvox, I32_OPS_PER_S)),
         cuda_launches=sum(counts.values()), by_kernel=by_name,
         tiles=seed_tiles(occupied, plan, a))]
     p2 = kernels.closest_window(p1, plan, b)
@@ -656,8 +587,9 @@ def closest_rows(cfg, occupied):
             library_ms=None,
             far_device_ms=kernel_times(lambda: kern(far, plan, axis))[
                 "device_ms"],
-            bound=bound(8 * nvox, ENVELOPE_OPS * near_cols * x.shape[axis],
-                        I32_OPS_PER_S)))
+            bound=in_ms(bound_s(8 * nvox,
+                                ENVELOPE_OPS * near_cols * x.shape[axis],
+                                I32_OPS_PER_S))))
     for row, kern, x, axis, taps in (
             (rows[-2], kernels.closest_window, p1, b, window_taps),
             (rows[-1], kernels.closest_split, p2, c, split_taps)):
@@ -685,7 +617,7 @@ def decode_row(vps, plan, packed_out):
                  "with unpack_split :861; port-only: XLA in fiesta_tpu)",
         err=max_abs_err(list(kern()), list(plain())), **kernel_times(kern),
         plain_ms=time_ms(plain), library_ms=None,
-        bound=bound(nbytes, DECODE_OPS * nvox, I32_OPS_PER_S),
+        bound=in_ms(bound_s(nbytes, DECODE_OPS * nvox, I32_OPS_PER_S)),
         cuda_launches=sum(counts.values()), by_kernel=by_name)
 
 
@@ -718,13 +650,12 @@ def peak_above(fn):
     return out, (torch.cuda.max_memory_allocated() - held) / 2**20
 
 
-def wide_rows(occupied, plan, variants):
+def wide_rows(occupied, plan):
     """The three wide passes and the decode of their i64 words on the
     wide map's final occupancy, each against its plain version (the pair
-    passes packed into 64-bit words), with their bounds; the split also
-    beside its parent kernel (``split_wide_detail``, with ``variants``,
-    SPLIT_VARIANTS' libraries).  Returns the wide passes' rows and the
-    decode's at these shapes."""
+    passes packed into 64-bit words), with their bounds; the split with
+    ``split_wide_detail``.  Returns the wide passes' rows and the decode's
+    at these shapes."""
     a, b, c = plan["a"], plan["b"], plan["c"]
     cap, nvox = plan["cap"], occupied.numel()
     occ = occupied.view(torch.uint8)
@@ -747,7 +678,7 @@ def wide_rows(occupied, plan, variants):
             near_cols = int(((x >> shift) < cap).any(dim=axis).sum())
             nbytes, ops = 16 * nvox, ENVELOPE_OPS * near_cols * x.shape[axis]
             if name == "closest_split_wide":
-                extra = split_wide_detail(x, plan, axis, variants,
+                extra = split_wide_detail(x, plan, axis,
                                           plain(x, plan, axis))
         by_name, counts, _ = profiled(lambda: kern(x, plan, axis), 10)
         rows.append(dict(
@@ -758,96 +689,53 @@ def wide_rows(occupied, plan, variants):
             **kernel_times(lambda: kern(x, plan, axis)),
             plain_ms=time_ms(lambda: plain(x, plan, axis), calls=1,
                              windows=3),
-            library_ms=None, bound=bound(nbytes, ops, I32_OPS_PER_S),
+            library_ms=None, bound=in_ms(bound_s(nbytes, ops, I32_OPS_PER_S)),
             cuda_launches=sum(counts.values()), by_kernel=by_name,
             **({"split": extra} if extra else {})))
         x = kern(x, plan, axis)
     return rows, decode_row(x, plan, True)
 
 
-def ptxas_entries(text, part):
-    """{entry function: registers, spill stores and loads in bytes} of the
-    kernels whose mangled name holds ``part``, from nvcc's ``-Xptxas -v``
-    report ``text``."""
-    out, name = {}, None
-    for line in text.splitlines():
-        m = re.search(r"Compiling entry function '(\w+)'", line)
-        if m:
-            name = m.group(1)
-        elif name and part in name:
-            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
-                          r"loads", line)
-            if m:
-                out.setdefault(name, {}).update(spill_stores=int(m[1]),
-                                                spill_loads=int(m[2]))
-            m = re.search(r"Used (\d+) registers", line)
-            if m:
-                out.setdefault(name, {})["registers"] = int(m[1])
-    return out
-
-
-def split_wide_detail(x, plan, axis, variants, ref):
+def split_wide_detail(x, plan, axis, ref):
     """The wide split on its input ``x`` along ``axis`` (``ref``: the
-    plain pass's words) beside its parent kernel: the bytes bound and the
-    operations bound (the cheapest exact pass, ENVELOPE_OPS a row of each
-    column holding a value below cap), the work model (window offsets a
-    side: mean, p99 and most, beside the brute-force window's; the int32
-    operations those taps take on u32 and on u64 tile words,
-    SPLIT_TAP_OPS, and their time at the int32 rate), the card's
-    time alone of both kernels' parts in turns (load and store, plus the
-    carries, the whole pass; the package's u64 form too where it takes
-    u32), each launch's residency and the split kernels' ptxas registers
-    and spills.  The parent and the u64 form must equal ``ref``."""
+    plain pass's words): its bytes bound and its operations bound (the
+    cheapest exact pass, ENVELOPE_OPS a row of each column holding a value
+    below cap), its window offsets a side (mean, p99 and most, beside the
+    brute-force window's), the card's time alone in turns with its u64
+    form where it takes u32, and each launch's residency.  The u64 form
+    must equal ``ref``."""
     nvox = x.numel()
     bits = kernels.split_wide_word_bits(plan, x.shape[axis])
     near_cols = int(((x >> plan["s"]) < plan["cap"]).any(dim=axis).sum())
     ops = ENVELOPE_OPS * near_cols * x.shape[axis]
-    taps = split_taps(x, plan, axis)
-    n_taps = (taps["n"]["mean_taps"] + taps["p"]["mean_taps"]) * nvox
-    tap_ops = {w: n_taps * SPLIT_TAP_OPS[w] for w in (32, 64)}
 
     def split(**kw):
         return lambda: kernels._closest_split_wide(x, plan, axis, **kw)
 
-    fns = {"parent": split(lib=variants["parent"]),
-           "parent_load_store": split(lib=variants["parent_load_store"]),
-           "parent_carries": split(lib=variants["parent_carries"]),
-           "package": split(), "load_store": split(lib=variants["load_store"]),
-           "carries": split(lib=variants["carries"])}
+    fns = {"package": split()}
     residency = {
-        "package": kernels.closest_split_wide_residency(x.shape, plan, axis),
-        "parent": kernels.closest_split_wide_residency(
-            x.shape, plan, axis, lib=variants["parent"])}
+        "package": kernels.closest_split_wide_residency(x.shape, plan, axis)}
     if bits == 32:
         fns["package_u64"] = split(bits=64)
         residency["package_u64"] = kernels.closest_split_wide_residency(
             x.shape, plan, axis, bits=64)
-    err = max(max_abs_err([fns[k]()], [ref])
-              for k in ("parent", "package", "package_u64") if k in fns)
+    err = max(max_abs_err([fn()], [ref]) for fn in fns.values())
     turns = {k: [] for k in fns}
     for order in (list(fns), list(fns)[::-1]):
         for k in order:
             turns[k].append(queued_ms(fns[k], calls=5, windows=3)[0])
-    ptxas = {}
-    for src in ("closest.cu", "parent"):
-        for fn, v in ptxas_entries(kernels.BUILD_LOG.get(src, ""),
-                                   "closest_split_wide").items():
-            ptxas[f"{src}: {fn}"] = v
-    return dict(word_bits=bits, ops=ops, taps=taps, taps_total=n_taps,
-                tap_ops=tap_ops,
+    return dict(word_bits=bits, ops=ops, taps=split_taps(x, plan, axis),
                 ops_bound_ms=ops / I32_OPS_PER_S * 1e3,
-                tap_ops_ms={w: v / I32_OPS_PER_S * 1e3
-                            for w, v in tap_ops.items()},
                 bytes_bound_ms=16 * nvox / HBM_BYTES_PER_S * 1e3, err=err,
-                device_ms=turns, residency=residency, ptxas=ptxas)
+                device_ms=turns, residency=residency)
 
 
-def wide_long_split(occupied, t, variants):
+def wide_long_split(occupied, t):
     """Phase 15's 64-bit leg: the wide map's occupancy tiled
     WIDE_LONG_TILES (1600x1600x80 at t = 100: s = 18, u64 tile words)
     through the wide binary and window kernels, then the wide split on its
     own: bit-equal to the plain pass (timed once), timed beside its bounds
-    and CUDA launches, and ``split_wide_detail`` beside the parent."""
+    and CUDA launches, and ``split_wide_detail``."""
     occ = occupied.repeat(*WIDE_LONG_TILES).view(torch.uint8)
     shape = tuple(occ.shape)
     plan = edt.closest_plan_wide(shape, t)
@@ -865,13 +753,14 @@ def wide_long_split(occupied, t, variants):
     end.record()
     end.synchronize()
     err = max_abs_err([split()], [ref])
-    detail = split_wide_detail(x, plan, c, variants, ref)
+    detail = split_wide_detail(x, plan, c, ref)
     del ref
     by_name, counts, _ = profiled(split, 3)
     out = dict(grid=list(shape), plan=plan, err=err,
                plain_ms=start.elapsed_time(end),
                **kernel_times(split, calls=3, windows=3),
-               bound=bound(16 * x.numel(), detail["ops"], I32_OPS_PER_S),
+               bound=in_ms(bound_s(16 * x.numel(), detail["ops"],
+                                   I32_OPS_PER_S)),
                cuda_launches=sum(counts.values()), by_kernel=by_name,
                split=detail)
     del x
@@ -880,38 +769,26 @@ def wide_long_split(occupied, t, variants):
 
 
 def split_line(what, r, card):
-    """The log line of a wide split row: times beside the parent's in
-    turns, both bounds, taps, residency and ptxas."""
+    """The log line of a wide split row: times in turns, both bounds,
+    taps and residency."""
     d = r["split"]
-    med = {k: statistics.median(v) for k, v in d["device_ms"].items()}
     return (
         f"closest_split_wide at {what} ({d['word_bits']}-bit tile words): "
         f"on the card alone in turns (forward, then backward) "
         f"{ {k: [round(x, 4) for x in v] for k, v in d['device_ms'].items()} }"
-        f"; medians package {med['package']:.4f} ms, parent "
-        f"{med['parent']:.4f} ({med['parent'] / med['package']:.2f}x); "
-        f"parts: load and store {med['load_store']:.4f}, with the carries "
-        f"{med['carries']:.4f} (parent {med['parent_load_store']:.4f}, "
-        f"{med['parent_carries']:.4f}); bounds: bytes "
-        f"{d['bytes_bound_ms']:.4f} ms, operations "
+        f"; bounds: bytes {d['bytes_bound_ms']:.4f} ms, operations "
         f"{d['ops_bound_ms']:.4f} ({ENVELOPE_OPS} int32 a row of each "
-        f"column with a value below cap); work model: "
-        f"{d['taps_total']:.4g} taps at {SPLIT_TAP_OPS} int32 a tap by "
-        f"tile word bits, "
-        f"{ {w: round(v, 4) for w, v in d['tap_ops_ms'].items()} } ms at "
-        f"the int32 rate; window offsets a voxel: side n "
+        f"column with a value below cap); window offsets a voxel: side n "
         f"mean {d['taps']['n']['mean_taps']:.3f} p99 "
         f"{d['taps']['n']['p99_taps']} max {d['taps']['n']['max_taps']}, "
         f"side p mean {d['taps']['p']['mean_taps']:.3f} p99 "
         f"{d['taps']['p']['p99_taps']} max {d['taps']['p']['max_taps']}, "
         f"brute-force {d['taps']['brute_mean_taps']:.2f} a side; residency "
-        f"{d['residency']}; ptxas {d['ptxas']}; "
-        f"{', '.join(k for k in ('parent', 'package_u64') if k in med)} "
-        f"bit-equal to plain; on {card}")
+        f"{d['residency']}; {', '.join(d['device_ms'])} bit-equal to plain; "
+        f"on {card}")
 
 
-def wide_path(cfg, batches, eager, dev, card, rows, launches,
-              split_variants):
+def wide_path(cfg, batches, eager, dev, card, rows, launches):
     """Phase 15: the closest path where the packed word misses int32 (the
     cow config on a 40 m floor, ``WIDE_MAP_SIZE``): phase 2's scans
     streamed into it, then ``derive_closest``, EAGER_TICKS eager ticks
@@ -921,9 +798,8 @@ def wide_path(cfg, batches, eager, dev, card, rows, launches,
     the plain versions: every output bit-equal, the derived d2 equal to
     the tick's ``rebuild_d2``.  ``derive_closest`` timed and traced both
     ways, peak memory both ways, and each wide kernel against its plain
-    version at these shapes (appended to ``rows``), the split beside its
-    parent kernel (``split_variants``: SPLIT_VARIANTS' libraries), then
-    the split's 64-bit leg (``wide_long_split``).  Returns a summary."""
+    version at these shapes (appended to ``rows``), then the split's
+    64-bit leg (``wide_long_split``).  Returns a summary."""
     wcfg = dataclasses.replace(cfg, map_size=WIDE_MAP_SIZE).validate()
     shape = wcfg.grid_shape
     t = edt.trunc_vox_for(wcfg.resolution, wcfg.trunc_dist)
@@ -963,9 +839,9 @@ def wide_path(cfg, batches, eager, dev, card, rows, launches,
         p_by_name, p_counts, _ = profiled(derive, 1)
         derive_plain_peak = peak_above(derive)[1]
     occupied = ft.occupied_grid(wcfg, w_state.logodds)
-    k_rows, decode = wide_rows(occupied, plan, split_variants)
+    k_rows, decode = wide_rows(occupied, plan)
     rows.extend(k_rows)
-    long_split = wide_long_split(occupied, t, split_variants)
+    long_split = wide_long_split(occupied, t)
     out = dict(grid=list(shape), t=t, plan=plan, ms_per_tick=w_ms,
                launches=got, defined=n_def, queries_near=n_near,
                derive_closest_ms=derive_ms,
@@ -1211,10 +1087,9 @@ def prep_row(dev, card):
     return rows
 
 
-def bound(nbytes, ops, rate):
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / rate * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+def in_ms(bound):
+    """A ``roofline`` bound, (seconds, by), as (ms, by)."""
+    return bound[0] * 1e3, bound[1]
 
 
 def read_launches(names):
@@ -1364,7 +1239,7 @@ def pass_row(kern, plain, nbytes, ops):
     (host-paced and on the card alone) beside the plain version's and the
     card's bound."""
     times = kernel_times(kern)
-    b = bound(nbytes, ops, I32_OPS_PER_S)
+    b = in_ms(bound_s(nbytes, ops, I32_OPS_PER_S))
     return dict(err=max_abs_err([kern()], [plain()]), ms=times["ms"],
                 device_ms=times["device_ms"],
                 plain_ms=time_ms(plain, calls=1, windows=3), bound_ms=b[0],
@@ -1383,6 +1258,7 @@ def level_rows(occ, t):
         lambda: edt._binary_pass_plain(f, t), 8 * nvox, 4 * nvox)}
     x = kernels.edt_binary(f, t)
     for axis in (1, 2):
+        # as phase 7's row: columns near an obstacle only
         near_cols = int((x < edt._INF_EDT).any(dim=axis).sum())
         rows[f"edt_minplus_axis{axis}"] = pass_row(
             lambda x=x, axis=axis: kernels.edt_minplus(x, t, axis),
@@ -1688,33 +1564,36 @@ def relax_bounds(nvox, ndirs, sweeps, changed, visited):
     the sweep before.  Beside them, not in them, the frontier design's own
     extra work: one changed-bit test a direction for each voxel of a tile
     visited after the first sweep, and those tiles' d2 and closest read
-    and written.  Returns (dense, frontier, extra), each (ms, by)."""
+    and written.  Returns (dense, frontier, extra), each (ms, by).
+
+    Unlike the cell's ``roofline.relax_bound_s``, which counts only the
+    candidates of the voxels that change, both count the dense first sweep
+    and every voxel's bytes: they bound this kernel, which starts dense."""
     io_bytes = nvox * 20
-    dense = bound(io_bytes, RELAX_OPS * ndirs * nvox * sweeps, I32_OPS_PER_S)
-    frontier = bound(io_bytes, RELAX_OPS * ndirs * (
-        nvox + sum(changed[:sweeps - 1])), I32_OPS_PER_S)
+    dense = in_ms(bound_s(io_bytes, RELAX_OPS * ndirs * nvox * sweeps,
+                          I32_OPS_PER_S))
+    frontier = in_ms(bound_s(io_bytes, RELAX_OPS * ndirs * (
+        nvox + sum(changed[:sweeps - 1])), I32_OPS_PER_S))
     later = sum(visited[1:]) * int(np.prod(kernels.RELAX_TILE))
-    extra = bound(later * 20, ndirs * later, I32_OPS_PER_S)
+    extra = in_ms(bound_s(later * 20, ndirs * later, I32_OPS_PER_S))
     return dense, frontier, extra
 
 
-def relax_logged(args, kw, lib=None):
+def relax_logged(args, kw):
     """One relax kernel call through ``kernels.relax_sweeps``: (d2,
     closest, sweeps tensor, sweeps, the grid's blocks, tiles visited per
     sweep)."""
-    d2, c, state = kernels.relax_sweeps(*args, **kw, lib=lib)
+    d2, c, state = kernels.relax_sweeps(*args, **kw)
     st = state.cpu().tolist()
     return d2, c, state[1], st[1], st[2], st[3:3 + st[1]]
 
 
-def relax_row(calls, nvox, variants):
+def relax_row(calls, nvox):
     """The relax kernel at the main path's shapes: on the recorded call
     with the most sweeps and on the last, timed beside the plain loop and
     the bounds, with the voxels that changed in each sweep (the plain loop
     on the card), the tiles the kernel visited and its cooperative grid's
-    blocks an SM; one CUDA launch a call.  The measurement ``variants``
-    ({name: library}) must equal the plain loop too, and are timed in
-    turns with the package's kernel (forward, then backward)."""
+    blocks an SM; one CUDA launch a call."""
     out = {}
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     most = max(calls, key=lambda c: int(c[2]))
@@ -1728,19 +1607,6 @@ def relax_row(calls, nvox, variants):
         changed = relax_changed_per_sweep(*args, **kw)
         assert logged == len(changed) == len(visited) == sweeps, \
             (logged, len(changed), len(visited), sweeps)
-        grid = {"package": blocks / sms}
-        fns = {"package": kern}
-        for vname, lib in variants.items():
-            *vgot, vn, vblocks, _ = relax_logged(args, kw, lib)
-            err = max(err, max_abs_err(vgot, ref))
-            assert vn == sweeps, (vname, vn, sweeps)
-            grid[vname] = vblocks / sms
-            fns[vname] = (lambda lib: lambda: kernels.relax_sweeps(
-                *args, **kw, lib=lib))(lib)
-        turns = {v: [] for v in fns}
-        for order in (list(fns), list(fns)[::-1]):
-            for v in order:
-                turns[v].append(time_ms(fns[v], calls=2, windows=3))
         times = kernel_times(kern, calls=2, windows=3)
         by_name, counts, _ = profiled(kern, 2)
         ndirs = len(args[4])
@@ -1761,7 +1627,7 @@ def relax_row(calls, nvox, variants):
             tile_extra_ms=extra[0], tile_extra_by=extra[1],
             changed_per_sweep=changed, tiles_per_sweep=visited,
             tiles=ntiles, tile_share=sum(visited) / (ntiles * sweeps),
-            blocks_per_sm=grid, sms=sms, variant_ms=turns,
+            blocks_per_sm=blocks / sms, sms=sms,
             cuda_launches=sum(counts.values()), by_kernel=by_name,
             directions=ndirs)
     return out
@@ -1940,12 +1806,12 @@ def world_path(cfg, frames, dev):
 
 
 def incremental_path(cfg, batches, k_state, frames, dev, card, rows,
-                     launches, relax_variants):
+                     launches):
     """Phase 10: the phase-2 stream in incremental mode, global and in the
     demo preset's window, kernels then plain; the invariants against phase
     2's exact d2 (``k_state``); the relax kernel's timings on each
-    stream's calls beside ``relax_variants`` ({name: library}) and its row
-    (the global stream's, appended to ``rows``); the incremental engine
+    stream's calls and its row (the global stream's, appended to
+    ``rows``); the incremental engine
     under sync debug mode "error".  Adds the launches to ``launches``;
     returns (summary, relax timings by stream)."""
     icfg = dataclasses.replace(cfg, esdf_mode="incremental").validate()
@@ -2000,7 +1866,7 @@ def incremental_path(cfg, batches, k_state, frames, dev, card, rows,
             f"; on {card}")
         relax_calls[name] = calls
     # after both streams' launch counts were read
-    relax = {name: relax_row(calls, i_state.d2.numel(), relax_variants)
+    relax = {name: relax_row(calls, i_state.d2.numel())
              for name, calls in relax_calls.items()}
     most = relax["global"]["most"]
     rows.append(dict(
@@ -2018,16 +1884,11 @@ def incremental_path(cfg, batches, k_state, frames, dev, card, rows,
         for which, r in rs.items():
             label = {"most": "the tick with the most sweeps",
                      "last": "the last tick"}[which]
-            earlier = (f" (before the redesign, every sweep dense: "
-                       f"{EARLIER_RELAX_MS[0]} ms a call of 18 sweeps, "
-                       f"{EARLIER_RELAX_MS[1]} a sweep, host-paced, in an "
-                       f"earlier call)"
-                       if (stream, which) == ("global", "most") else "")
             log(f"relax ({stream}, {label}: {r['sweeps']} sweeps, "
                 f"{r['directions']} directions): {r['ms']:.3f} ms "
                 f"host-paced, {r['device_ms']:.3f} on the card alone "
                 f"({r['ms_per_sweep']:.4f} / {r['device_ms_per_sweep']:.4f}"
-                f" ms a sweep){earlier}; frontier bound {r['bound_ms']:.3f} "
+                f" ms a sweep); frontier bound {r['bound_ms']:.3f} "
                 f"ms by {r['bound_by']} ({r['bound_ms_per_sweep']:.4f} a "
                 f"sweep), dense bound {r['dense_bound_ms']:.3f} ms by "
                 f"{r['dense_bound_by']} ({r['dense_bound_ms_per_sweep']:.4f}"
@@ -2038,11 +1899,8 @@ def incremental_path(cfg, batches, k_state, frames, dev, card, rows,
                 f"changed per sweep (plain loop) {r['changed_per_sweep']}; "
                 f"tiles visited per sweep (kernel, of {r['tiles']}) "
                 f"{r['tiles_per_sweep']}, {100 * r['tile_share']:.1f} % of "
-                f"the dense work; on {card}")
-            log(f"relax ({stream}, {label}): host-paced ms a call in turns "
-                f"(forward, backward) {r['variant_ms']}; the cooperative "
-                f"grid's blocks an SM ({r['sms']} SMs) {r['blocks_per_sm']}"
-                f"; every variant bit-equal to the plain loop; on {card}")
+                f"the dense work; the cooperative grid's blocks an SM "
+                f"({r['sms']} SMs) {r['blocks_per_sm']}; on {card}")
     kernels.reset_launch_counts()
     eng_frames = frames[:ENGINE_FRAMES]
     ie_pipe, ie_out, ie_frame_ms, ie_update_ms = run_engine(
@@ -2902,22 +2760,10 @@ def run(dev, cfg, h, w, ticks, dcfg, dh, dw, dticks):
     log(f"card: {card} ({torch.cuda.get_device_name(0)}, "
         f"torch {torch.__version__}, cuda {torch.version.cuda})")
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(1) as pool:
-        variants = pool.submit(kernels.build_variants,
-                               {**RELAX_VARIANTS, **SPLIT_VARIANTS})
-        kernels.build()
-        variants = variants.result()
-    relax_variants = {k: variants[k] for k in RELAX_VARIANTS}
-    split_variants = {k: variants[k] for k in SPLIT_VARIANTS}
+    kernels.build()
     log(f"kernels built in {time.perf_counter() - t0:.1f} s "
-        f"({', '.join(kernels.SOURCES)}; relax.cu's measurement variants "
-        f"{', '.join(RELAX_VARIANTS)}; closest.cu's "
-        f"{', '.join(SPLIT_VARIANTS)})")
+        f"({', '.join(kernels.SOURCES)})")
     for src, text in sorted(kernels.BUILD_LOG.items()):
-        if src in SPLIT_VARIANTS:    # the other kernels are the package's
-            for fn, v in ptxas_entries(text, "closest_split_wide").items():
-                log(f"  ptxas {src}: {fn}: {v}")
-            continue
         for line in text.splitlines():
             if "registers" in line or "smem" in line:
                 log(f"  ptxas {src}: {line.strip()}")
@@ -2996,8 +2842,7 @@ def run(dev, cfg, h, w, ticks, dcfg, dh, dw, dticks):
     derive_busy = sum(derive_kernels.values())
     log(f"derive_closest: {derive_ms:.4f} ms (plain {derive_plain_ms:.3f} "
         f"ms); busy {derive_busy:.4f} ms in "
-        f"{sum(derive_counts.values()):g} CUDA launches (with the plain "
-        f"decode: {EARLIER_DERIVE_BUSY_MS}), device ms by kernel "
+        f"{sum(derive_counts.values()):g} CUDA launches, device ms by kernel "
         f"{ {k: round(v, 4) for k, v in derive_kernels.items()} }; three "
         f"queries of {QUERIES} positions: {query_ms:.4f} ms; on {card}")
 
@@ -3104,7 +2949,7 @@ def run(dev, cfg, h, w, ticks, dcfg, dh, dw, dticks):
             lin, val, n, thr)),
         library_ms=library["ms"], library_device_ms=library["device_ms"],
         cuda_launches=sum(splat_counts.values()), by_kernel=splat_kernels,
-        bound=bound(lin.numel() * 8 + n * 6, 0, F32_OPS_PER_S)))
+        bound=in_ms(bound_s(lin.numel() * 8 + n * 6, 0, F32_OPS_PER_S))))
     # its zero fill of the f32 target (fill.py:39): the card's time by
     # kernel name, beside torch.zeros of the same bytes on the card alone,
     # which is also its plain version (timed once, in both columns); the
@@ -3116,7 +2961,7 @@ def run(dev, cfg, h, w, ticks, dcfg, dh, dw, dticks):
         replaces="fiesta_tpu/ops/pallas/fill.py:39", err=rows[-1]["err"],
         ms=splat_kernels["splat_fill"], device_ms=splat_kernels["splat_fill"],
         plain_ms=zeros_ms, library_ms=zeros_ms,
-        bound=bound(4 * n, 0, F32_OPS_PER_S)))
+        bound=in_ms(bound_s(4 * n, 0, F32_OPS_PER_S))))
 
     # the sorted splat's sort on the same rays: keys and values bit-equal
     ksorted = kernels.sort_pairs(lin, val)
@@ -3138,7 +2983,7 @@ def run(dev, cfg, h, w, ticks, dcfg, dh, dw, dticks):
         # 8 bytes per pair in and out; the cheapest exact method is a radix
         # sort of the keys (below 2^24 here): 3 passes of ~10 integer
         # operations per pair
-        bound=bound(16 * n_rays, 30 * n_rays, I32_OPS_PER_S)))
+        bound=in_ms(bound_s(16 * n_rays, 30 * n_rays, I32_OPS_PER_S))))
     log(f"sort: {n_rays} pairs padded to "
         f"{kernels.sort_padded_size(n_rays)}, keys and values bit-equal")
     seeds = got[0].view((3,) + box)
@@ -3155,11 +3000,7 @@ def run(dev, cfg, h, w, ticks, dcfg, dh, dw, dticks):
         plain_ms=time_ms(lambda: raycast._carve_free_plain(cfg, seeds, po),
                          calls=1, windows=3),
         library_ms=None, cuda_launches=sum(carve_counts.values()),
-        by_kernel=carve_kernels,
-        # 3 wavefront visits per voxel (it lies in one half-space of each
-        # orientation), ~20 f32 ops each (offsets, two divisions and
-        # floors, four taps, octant test, r2, free test)
-        bound=bound(n * 4 + n + po.numel() * 4, 3 * 20 * n, F32_OPS_PER_S)))
+        by_kernel=carve_kernels, bound=in_ms(carve_bound_s(3, box))))
     steps = carve_steps(po, box)
     steps["cluster_size"] = kernels.carve_cluster_size(seeds.shape)
     log(f"carve: {int(kfree.sum())} free voxels of {n}; wavefront steps "
@@ -3173,7 +3014,7 @@ def run(dev, cfg, h, w, ticks, dcfg, dh, dw, dticks):
         err=max_abs_err([kernels.carve(dseeds, dpo, *dcarve)],
                         [raycast._carve_free_plain(dcfg, dseeds, dpo)]),
         **kernel_times(lambda: kernels.carve(dseeds, dpo, *dcarve)),
-        bound_ms=bound(dn * 5, 3 * 20 * dn, F32_OPS_PER_S)[0])
+        bound_ms=in_ms(carve_bound_s(dseeds.shape[0], dseeds.shape[1:]))[0])
     log(f"carve at the demo box {carve_demo['box']}: "
         f"{carve_demo['ms']:.4f} ms host-paced, {carve_demo['device_ms']:.4f}"
         f" on the card alone (bound {carve_demo['bound_ms']:.4f} ms), "
@@ -3201,7 +3042,7 @@ def run(dev, cfg, h, w, ticks, dcfg, dh, dw, dticks):
         library_ms=None,
         # 15 bytes per voxel; ~8 f32 operations (add, clamp, selects, two
         # threshold tests)
-        bound=bound(15 * nvox, 8 * nvox, F32_OPS_PER_S)))
+        bound=in_ms(bound_s(15 * nvox, 8 * nvox, F32_OPS_PER_S))))
 
     # the windowed drain at the demo's shapes, on its final map with a
     # tick's worth of counters, windowed around its last position
@@ -3267,8 +3108,8 @@ def run(dev, cfg, h, w, ticks, dcfg, dh, dw, dticks):
         library_ms=None,
         # the boxes' hit and miss bytes read once, and each grid voxel of
         # the boxes' union read and written once in each counter
-        bound=bound(2 * hitc.numel() + 4 * union, 2 * hitc.numel(),
-                    I32_OPS_PER_S),
+        bound=in_ms(bound_s(2 * hitc.numel() + 4 * union, 2 * hitc.numel(),
+                            I32_OPS_PER_S)),
         cuda_launches=sum(box_counts.values()), by_kernel=box_kernels))
 
     t = edt.trunc_vox_for(cfg.resolution, cfg.trunc_dist)
@@ -3286,7 +3127,8 @@ def run(dev, cfg, h, w, ticks, dcfg, dh, dw, dticks):
         replaces="fiesta_tpu/ops/pallas/edt.py:195", err=err,
         **kernel_times(lambda: kernels.edt_binary(f, t)),
         plain_ms=time_ms(lambda: edt._binary_pass_plain(f, t)),
-        library_ms=None, bound=bound(nvox * 8, 4 * nvox, I32_OPS_PER_S),
+        library_ms=None,
+        bound=in_ms(bound_s(nvox * 8, 4 * nvox, I32_OPS_PER_S)),
         cuda_launches=sum(binary_counts.values()), by_kernel=binary_kernels))
 
     # the main path runs the min-plus pass along axis 1, then axis 2; the
@@ -3304,10 +3146,11 @@ def run(dev, cfg, h, w, ticks, dcfg, dh, dw, dticks):
         # where the window covers the column (axis 2: A = 80 <= t), and a
         # min-plus convolution with the convex kernel k^2 (|k| <= t, SMAWK)
         # where it does not (axis 1); only columns holding a value below
-        # "far" need it
+        # "far" need it, where the cell's roofline.edt_bound_s counts
+        # every column (both are bytes-bound)
         near_cols = int((x < edt._INF_EDT).any(dim=axis).sum())
         ops = ENVELOPE_OPS * near_cols * x.shape[axis]
-        bounds.append(bound(nvox * 8, ops, I32_OPS_PER_S))
+        bounds.append(in_ms(bound_s(nvox * 8, ops, I32_OPS_PER_S)))
         taps.append(minplus_taps(x, t, axis))
     by_kernel = collections.Counter()
     for by_name, _, _ in profs:
@@ -3322,8 +3165,7 @@ def run(dev, cfg, h, w, ticks, dcfg, dh, dw, dticks):
         cuda_launches=statistics.mean(sum(c.values()) for _, c, _ in profs),
         by_kernel=dict(by_kernel)))
     log(f"edt_minplus per axis (1, 2): {times[0]['ms']:.4f} / "
-        f"{times[1]['ms']:.4f} ms host-paced (before the redesign "
-        f"{EARLIER_MINPLUS_AXIS_MS[0]} / {EARLIER_MINPLUS_AXIS_MS[1]}), "
+        f"{times[1]['ms']:.4f} ms host-paced, "
         f"{times[0]['device_ms']:.4f} / {times[1]['device_ms']:.4f} on the "
         f"card alone; plain {plain_ms[0]:.3f} / {plain_ms[1]:.3f} ms, "
         f"bounds {bounds}; window offsets per voxel {taps}; on {card}")
@@ -3409,8 +3251,7 @@ def run(dev, cfg, h, w, ticks, dcfg, dh, dw, dticks):
 
     log(f"[{time.perf_counter() - t_run:.0f} s] phase 15")
     # -- phase 15: the wide closest path (800x800x80) ------------------------
-    wide = wide_path(cfg, batches, eager, dev, card, rows, launches,
-                     split_variants)
+    wide = wide_path(cfg, batches, eager, dev, card, rows, launches)
 
     log(f"[{time.perf_counter() - t_run:.0f} s] phase 9")
     # -- phase 9: the planner on phase 2's final map ----------------------
@@ -3429,7 +3270,7 @@ def run(dev, cfg, h, w, ticks, dcfg, dh, dw, dticks):
     log(f"[{time.perf_counter() - t_run:.0f} s] phase 10")
     # -- phase 10: the incremental cow stream ------------------------------
     incr, relax = incremental_path(cfg, batches, k_state, frames, dev, card,
-                                   rows, launches, relax_variants)
+                                   rows, launches)
 
     log(f"[{time.perf_counter() - t_run:.0f} s] phase 14")
     # -- phase 14: the multi-device engine on virtual meshes of the card ---
@@ -3459,12 +3300,10 @@ def run(dev, cfg, h, w, ticks, dcfg, dh, dw, dticks):
     # -- phase 17: the per-kernel JSON line --------------------------------
 
     for r in rows:
-        if r["name"] not in EARLIER_LAUNCHES:
+        if "cuda_launches" not in r:
             continue
-        log(f"{r['name']}: {r['cuda_launches']:g} CUDA launches per call "
-            f"({EARLIER_LAUNCHES[r['name']]} before the redesign); "
-            f"{r['ms']:.4f} ms host-paced (before the redesign "
-            f"{EARLIER_MS[r['name']]}, host-paced, in an earlier call), "
+        log(f"{r['name']}: {r['cuda_launches']:g} CUDA launches per call; "
+            f"{r['ms']:.4f} ms host-paced, "
             f"{r['device_ms']:.4f} ms on the card alone, {r['host_ms']:.4f} "
             f"ms to enqueue on the host; library "
             f"{r.get('library_ms')}, on the card alone "

@@ -112,42 +112,41 @@ def _nvcc() -> str:
     return path
 
 
-def _compile(jobs: dict) -> dict:
-    """Compile {key: (source, extra nvcc flags)} where needed, one nvcc
-    process each, all started together, and load them.  Returns {key:
-    ctypes.CDLL}; raises with nvcc's output if a build fails."""
+def _compile(sources) -> dict:
+    """Compile ``sources`` where needed, one nvcc process each, all
+    started together, and load them.  Returns {source: ctypes.CDLL};
+    raises with nvcc's output if a build fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     headers = b"".join(h.read_bytes() for h in sorted(_HERE.glob("*.cuh")))
     targets, procs = {}, {}
-    for key, (src, extra) in jobs.items():
-        flags = (*NVCC_FLAGS, *extra)
+    for src in sources:
         digest = hashlib.sha256((_HERE / src).read_bytes() + headers +
-                                " ".join(flags).encode()).hexdigest()[:16]
+                                " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
         so = BUILD_DIR / f"{Path(src).stem}-{digest}.so"
-        targets[key] = so
+        targets[src] = so
         log = so.with_name(f"{so.name}.log")
         if so.exists() and log.exists():  # built earlier: its report
-            BUILD_LOG[key] = log.read_text()
+            BUILD_LOG[src] = log.read_text()
         if not so.exists():
             tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-            procs[key] = (tmp, subprocess.Popen(
-                [_nvcc(), *flags, "-o", str(tmp), str(_HERE / src)],
+            procs[src] = (tmp, subprocess.Popen(
+                [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_HERE / src)],
                 stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
     errors = []
-    for key, (tmp, proc) in procs.items():
+    for src, (tmp, proc) in procs.items():
         out, err = proc.communicate()
-        BUILD_LOG[key] = out + err
+        BUILD_LOG[src] = out + err
         if proc.returncode:
-            errors.append(f"{key}: nvcc exited {proc.returncode}\n{err}")
+            errors.append(f"{src}: nvcc exited {proc.returncode}\n{err}")
         else:
-            os.replace(tmp, targets[key])
-            targets[key].with_name(f"{targets[key].name}.log").write_text(
-                BUILD_LOG[key])
+            os.replace(tmp, targets[src])
+            targets[src].with_name(f"{targets[src].name}.log").write_text(
+                BUILD_LOG[src])
     if errors:
         raise RuntimeError("kernel build failed:\n" + "\n".join(errors))
     libs = {}
-    for key, (src, _) in jobs.items():
-        lib = ctypes.CDLL(str(targets[key]))
+    for src in sources:
+        lib = ctypes.CDLL(str(targets[src]))
         lib.fiesta_cuda_error_string.argtypes = [_I]
         lib.fiesta_cuda_error_string.restype = ctypes.c_char_p
         if src == "carve.cu":
@@ -158,40 +157,27 @@ def _compile(jobs: dict) -> dict:
             lib.fiesta_closest_binary_tile_cols.restype = _I
             lib.fiesta_closest_split_wide_fits_u32.argtypes = [_I] * 3
             lib.fiesta_closest_split_wide_fits_u32.restype = _I
-        if hasattr(lib, "fiesta_closest_split_wide_residency"):
             lib.fiesta_closest_split_wide_residency.argtypes = \
                 [_I, _L] + [_I] * 3 + [_P]
             lib.fiesta_closest_split_wide_residency.restype = _I
         for s, sym, argtypes in _SIGNATURES.values():
-            # a measurement source (not in SOURCES) may export a package
-            # source's symbols: split_wide_parent.cu's wide split
-            if s == src or (src not in SOURCES and hasattr(lib, sym)):
+            if s == src:
                 getattr(lib, sym).argtypes = argtypes
                 getattr(lib, sym).restype = _I
-        libs[key] = lib
+        libs[src] = lib
     return libs
 
 
 def build() -> dict:
     """Compile (where needed) and load every kernel library.  Returns
     {source: ctypes.CDLL}; raises with nvcc's output if a build fails."""
-    _libs.update(_compile({s: (s, ()) for s in SOURCES if s not in _libs}))
+    _libs.update(_compile([s for s in SOURCES if s not in _libs]))
     return _libs
 
 
-def build_variants(variants: dict) -> dict:
-    """Variants of kernel sources for measurement, beside the package's
-    own libraries: {name: (source, macros)} with macros ``NAME=VALUE``
-    strings passed as ``-D``.  Returns {name: ctypes.CDLL}; ``BUILD_LOG``
-    keeps each one's compiler output under its name.  The wrappers take
-    one through their ``lib`` argument; no package path uses them."""
-    return _compile({name: (src, tuple(f"-D{m}" for m in macros))
-                     for name, (src, macros) in variants.items()})
-
-
-def _launch(name: str, device: torch.device, *args, lib=None) -> None:
+def _launch(name: str, device: torch.device, *args) -> None:
     src, sym, _ = _SIGNATURES[name]
-    lib = lib or _libs.get(src) or build()[src]
+    lib = _libs.get(src) or build()[src]
     fn = getattr(lib, sym)
     # PyTorch's current stream on ``device``, as a raw handle; the launch
     # goes to the calling thread's current device, so switch only when the
@@ -529,11 +515,10 @@ def split_wide_fits_u32(plan, a: int) -> bool:
 
 
 def _closest_split_wide(p2: torch.Tensor, plan, axis: int, bits=None,
-                        rows=0, lib=None) -> torch.Tensor:
-    """``closest_split_wide`` with measurement and test overrides: ``bits``
-    64 takes u64 tile words where u32 would do, ``rows`` > 0 sets the
-    chunk rows (0: the launcher's own), ``lib`` launches a variant's
-    library (``build_variants``)."""
+                        rows=0) -> torch.Tensor:
+    """``closest_split_wide`` with test overrides: ``bits`` 64 takes u64
+    tile words where u32 would do, ``rows`` > 0 sets the chunk rows (0:
+    the launcher's own)."""
     _check(p2, torch.int64, "closest_split_wide p2")
     _check_closest(p2, axis, None, "closest_split_wide")
     _check_wide(plan, "closest_split_wide")
@@ -546,7 +531,7 @@ def _closest_split_wide(p2: torch.Tensor, plan, axis: int, bits=None,
     out = torch.empty_like(p2)
     _launch("closest_split_wide", p2.device, p2.data_ptr(), out.data_ptr(),
             outer, a, inner, min(plan["t"], a - 1), plan["s"], plan["cap"],
-            bits // 8, rows, lib=lib)
+            bits // 8, rows)
     return out
 
 
@@ -560,15 +545,13 @@ def closest_split_wide(p2: torch.Tensor, plan, axis: int) -> torch.Tensor:
 
 
 def closest_split_wide_residency(shape, plan, axis: int, bits=None,
-                                 rows=0, lib=None) -> dict:
+                                 rows=0) -> dict:
     """The wide split's launch along ``axis`` of a volume of ``shape`` as
-    the card runs it (``bits``, ``rows`` and ``lib`` as
-    ``_closest_split_wide`` takes them; the parent kernel's library,
-    ``split_wide_parent.cu``, reports its own): threads, shared
-    bytes, resident blocks and warps an SM
+    the card runs it (``bits`` and ``rows`` as ``_closest_split_wide``
+    takes them): threads, shared bytes, resident blocks and warps an SM
     (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), registers and
     local (spill) bytes a thread, tile word bytes, columns, chunk rows."""
-    lib = lib or _libs.get("closest.cu") or build()["closest.cu"]
+    lib = _libs.get("closest.cu") or build()["closest.cu"]
     _, a, inner = _columns(shape, axis)
     tl = min(plan["t"], a - 1)
     bits = bits or split_wide_word_bits(plan, a)
@@ -742,7 +725,7 @@ def relax_to_fixpoint(d2: torch.Tensor, closest: torch.Tensor, update_mask,
 
 def relax_sweeps(d2: torch.Tensor, closest: torch.Tensor, update_mask,
                  source_mask, dirs, max_iters: int = 0, push_src_mask=None,
-                 push_recv_mask=None, lib=None, x_offset: int = 0):
+                 push_recv_mask=None, x_offset: int = 0):
     """``relax_to_fixpoint``'s launch, returning (d2, closest, state):
     ``state`` is the kernel's i32 scratch on the card, [3 +
     ``RELAX_LOG_SWEEPS``], holding the sweep count at [1], the
@@ -751,8 +734,7 @@ def relax_sweeps(d2: torch.Tensor, closest: torch.Tensor, update_mask,
     ``max_iters`` 1: 1 when the sweep changed something, else 0).  After the first, dense sweep the kernel visits only the
     tiles of ``RELAX_TILE`` voxels that ``relax_tile_offsets`` marks from
     the tiles that changed, and pulls only from neighbours that changed.
-    ``lib``: a variant of ``relax.cu`` from ``build_variants`` (None: the
-    package's); ``x_offset`` as in ``relax_to_fixpoint``."""
+    ``x_offset`` as in ``relax_to_fixpoint``."""
     _check(d2, torch.int32, "relax d2")
     _check(closest, torch.int16, "relax closest")
     if d2.dim() != 3 or tuple(closest.shape) != (3,) + tuple(d2.shape):
@@ -799,7 +781,7 @@ def relax_sweeps(d2: torch.Tensor, closest: torch.Tensor, update_mask,
             gx, gy, gz, int(x_offset), table.ctypes.data, table.shape[1],
             nsmall,
             toffs.ctypes.data, toffs.shape[1], int(max_iters),
-            RELAX_LOG_SWEEPS, state.data_ptr(), aux.data_ptr(), lib=lib)
+            RELAX_LOG_SWEEPS, state.data_ptr(), aux.data_ptr())
     return d2_out, c_out, state
 
 

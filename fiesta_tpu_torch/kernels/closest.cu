@@ -138,15 +138,6 @@
 
 #include "fiesta_kernels.cuh"
 
-// Measurement variants of the wide split (kernels.build_variants; no
-// package path builds them): FIESTA_SPLIT_STOP 1 stops it after the load,
-// storing the all-far word, and 2 after the carries (the near masks and
-// the lp/nn walk).  Its parent kernel, the bounded body on 64-bit words,
-// is split_wide_parent.cu.
-#ifndef FIESTA_SPLIT_STOP
-#define FIESTA_SPLIT_STOP 0
-#endif
-
 namespace {
 
 constexpr int kBinaryThreads = 512;
@@ -568,16 +559,14 @@ __device__ __forceinline__ int split_put_pair(T* tile, unsigned* mask,
   else
     *(ulonglong2*)(tile + r * tc + cc) = make_ulonglong2(w0, w1);
   int near = 0;
-  if (FIESTA_SPLIT_STOP != 1) {
-    const unsigned bit = 1u << (r & 31);
-    if ((w0 >> s) < (T)cap) {
-      near = 1;
-      atomicOr(&mask[cc * mw + (r >> 5)], bit);
-    }
-    if ((w1 >> s) < (T)cap) {
-      near = 1;
-      atomicOr(&mask[(cc + 1) * mw + (r >> 5)], bit);
-    }
+  const unsigned bit = 1u << (r & 31);
+  if ((w0 >> s) < (T)cap) {
+    near = 1;
+    atomicOr(&mask[cc * mw + (r >> 5)], bit);
+  }
+  if ((w1 >> s) < (T)cap) {
+    near = 1;
+    atomicOr(&mask[(cc + 1) * mw + (r >> 5)], bit);
   }
   return near;
 }
@@ -643,7 +632,7 @@ __device__ __forceinline__ void split_wide_body(
         const T w =
             base[cc] >= 0 ? (T)f[base[cc] + (lo + r) * inner] : fill;
         tile[r * tc + cc] = w;
-        if (FIESTA_SPLIT_STOP != 1 && (w >> s) < (T)cap) {
+        if ((w >> s) < (T)cap) {
           near = 1;
           atomicOr(&mask[cc * mw + (r >> 5)], 1u << (r & 31));
         }
@@ -670,16 +659,11 @@ __device__ __forceinline__ void split_wide_body(
           if (nn <= b) nn = first_near(near_rows, b + 1, n);
         }
         const int kp = nn < n ? min(nn - b, kK0Far) : kK0None;
-        if (FIESTA_SPLIT_STOP == 2) {
-          if (lp + kp == -7) acc_n = 0;  // keeps the carries live
-        } else {
-          if (lp >= 0)
-            acc_n = bounded_side(col, tc, b, -1, b - lp, min(tl, i), s,
-                                 acc_n);
-          if (kp != kK0None)
-            acc_p = bounded_side(col, tc, b, 1, kp, min(tl, A - 1 - i), s,
-                                 acc_p);
-        }
+        if (lp >= 0)
+          acc_n = bounded_side(col, tc, b, -1, b - lp, min(tl, i), s, acc_n);
+        if (kp != kK0None)
+          acc_p = bounded_side(col, tc, b, 1, kp, min(tl, A - 1 - i), s,
+                               acc_p);
       }
       if (base[c] >= 0)
         out[base[c] + i * inner] = split_word(acc_n, acc_p, s, cap);

@@ -79,11 +79,6 @@
 //   state[2] and the tiles visited in sweep k (the first `log_sweeps`) to
 //   state[3 + k].
 //
-// Two macros build variants of this file for measurement only (the
-// package builds it with neither): FIESTA_RELAX_PULL_ALL=1 counts every
-// neighbour as changed (the tile frontier without the changed-neighbour
-// pull), FIESTA_RELAX_MIN_BLOCKS sets the launch bounds' blocks an SM.
-//
 // Bound: operations in the dense first sweep (about twelve int32
 // operations a direction and voxel: ≈ 0.5 ms at cow_and_lady's 12.8 M
 // voxels and 54 directions), then the candidates of changed neighbours
@@ -137,16 +132,7 @@ constexpr int kThreads = 256;
 // and 128 registers hold 3 and 2.  On an H100 the 64-register code ran
 // faster on the global calls; with the push masks, at 3 blocks either
 // way, the 80-register code ran 3-4 % faster on the longest call.
-// chip_smoke.py phase 10 times those variants and logs each one's blocks
-// an SM.
-#ifndef FIESTA_RELAX_MIN_BLOCKS
-#define FIESTA_RELAX_MIN_BLOCKS 4
-#endif
-#ifndef FIESTA_RELAX_PULL_ALL
-#define FIESTA_RELAX_PULL_ALL 0
-#endif
-constexpr int kMinBlocks = FIESTA_RELAX_MIN_BLOCKS;
-constexpr bool kPullAll = FIESTA_RELAX_PULL_ALL;  // measurement only
+constexpr int kMinBlocks = 4;
 constexpr int kPerThread = kTX * kTY * kTZ / kThreads;
 constexpr int kMaxDirs = 128;       // directions a call, at most
 constexpr int kMaxTileOffs = 320;   // RELAX_MAX_TILE_OFFSETS
@@ -358,7 +344,7 @@ __device__ __forceinline__ bool relax_tile(int t, Sweep s, RelaxMasks m,
     const int x = x0 + tid / kHY - 2, y = y0 + tid % kHY - 2;
     unsigned w = 0;
     if ((unsigned)x < (unsigned)gx && (unsigned)y < (unsigned)gy) {
-      if (k == 0 || kPullAll) {
+      if (k == 0) {
         w = (1u << kHZ) - 1;
       } else {
         const int ox = (x >> 3) - tx, oy = (y >> 3) - ty;
@@ -389,7 +375,7 @@ __device__ __forceinline__ bool relax_tile(int t, Sweep s, RelaxMasks m,
     if (x < gx && y < gy && (unsigned)xn < (unsigned)gx &&
         (unsigned)yn < (unsigned)gy) {
       if (dz == 0) {  // along x or y: the neighbour's row, same z
-        if (k == 0 || kPullAll) {
+        if (k == 0) {
           mk = 0xFFFFu;
         } else {
           const int which = dx ? (xn >> 3) - ((x0 + dx) >> 3)
@@ -400,7 +386,7 @@ __device__ __forceinline__ bool relax_tile(int t, Sweep s, RelaxMasks m,
         }
       } else {  // along z: this row's bits at z + dz, over two z tiles
         const int zs = z0 + dz;
-        if (k == 0 || kPullAll) {
+        if (k == 0) {
           const int lo = max(0, -zs), hi = min(kTZ, gz - zs);
           mk = hi > lo ? (1u << hi) - (1u << lo) : 0u;
         } else {

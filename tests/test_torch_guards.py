@@ -3,10 +3,13 @@
 The port imports neither JAX nor the JAX package, ``chip_smoke.py``,
 ``soak_torch.py`` and the benchmark twins (``bench*_torch.py``) do not
 either, and the entry points (the app and the twins among them) run on
-CUDA unless asked for the CPU.
+CUDA unless asked for the CPU.  The kernel layer builds only the
+package's sources, and ``chip_smoke.py`` takes its peaks and bound rule
+from the benchmark (``esdfbench/roofline.py``).
 """
 
 import ast
+import inspect
 import pathlib
 import subprocess
 import sys
@@ -17,7 +20,7 @@ pytest.importorskip("jax")
 torch = pytest.importorskip("torch")
 
 import fiesta_tpu_torch as ft  # noqa: E402
-from fiesta_tpu_torch import checkpoint, grid, run  # noqa: E402
+from fiesta_tpu_torch import checkpoint, grid, kernels, run  # noqa: E402
 from fiesta_tpu_torch.io import replay  # noqa: E402
 from fiesta_tpu_torch.scrolling import ScrollingFiestaPipeline  # noqa: E402
 
@@ -152,3 +155,47 @@ def test_benchmarks_refuse_to_run_on_the_cpu_unasked(twin, capsys):
     with pytest.raises(SystemExit, match="--platform cpu"):
         mod.main([])
     assert capsys.readouterr().out == ""
+
+
+def test_kernel_dir_holds_only_the_package_sources():
+    """Every CUDA source beside the kernel wrappers is one the package
+    builds (``kernels.SOURCES``)."""
+    kdir = pathlib.Path(kernels.__file__).parent
+    assert sorted(p.name for p in kdir.glob("*.cu")) == \
+        sorted(kernels.SOURCES)
+
+
+@pytest.mark.parametrize("name", ["_launch", "relax_sweeps",
+                                  "_closest_split_wide",
+                                  "closest_split_wide_residency"])
+def test_kernel_wrappers_launch_only_the_package_build(name):
+    """No wrapper takes another library than the package's own, and no
+    build of a variant exists."""
+    assert not hasattr(kernels, "build_variants")
+    assert "lib" not in inspect.signature(getattr(kernels, name)).parameters
+
+
+YARDSTICK = ["HBM_BYTES_PER_S", "F32_OPS_PER_S", "I32_OPS_PER_S",
+             "ENVELOPE_OPS", "RELAX_OPS", "bound"]
+
+
+@pytest.mark.parametrize("name", YARDSTICK)
+def test_chip_smoke_takes_its_yardstick_from_the_benchmark(name):
+    """``chip_smoke.py`` defines none of the card's peaks, work constants
+    or the bound rule, and imports them from ``esdfbench.roofline``."""
+    tree = ast.parse((ROOT / "chip_smoke.py").read_text())
+    defined = set()
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.Assign, ast.AnnAssign, ast.AugAssign)):
+            targets = node.targets if isinstance(node, ast.Assign) \
+                else [node.target]
+            defined |= {n.id for t in targets for n in ast.walk(t)
+                        if isinstance(n, ast.Name)}
+        elif isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+            defined.add(node.name)
+    assert name not in defined
+    imported = {(n.module, a.name) for n in ast.walk(tree)
+                if isinstance(n, ast.ImportFrom) for a in n.names}
+    assert ("esdfbench.roofline", "bound_s") in imported
+    if name != "bound":
+        assert ("esdfbench.roofline", name) in imported
