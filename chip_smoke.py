@@ -122,7 +122,10 @@ runs after 10; any failure raises and exits non-zero:
    changed neighbours), the frontier's own bit tests and tile moves apart,
    and the plain loop, with the voxels that changed in each sweep (the
    plain loop on the card), the tiles the kernel visited and its grid's
-   blocks an SM; one more tick's CUDA launches and busy time; then
+   blocks an SM; one more tick's CUDA launches and busy time; the
+   ``changes`` kernel (the tick's inserts and bucket resets) on one more
+   tick of the global stream's map, against its plain version, its
+   launches and times beside its bytes bound (``changes_row``); then
    ``FiestaPipeline`` in
    incremental mode on phase 5's frames, ``update()`` every third frame
    under sync debug mode "error", kernels then plain;
@@ -274,7 +277,12 @@ PLAN_SOLVES = 5          # timed plan_step solves, one sync each
 FLY_STEPS = 10           # receding-horizon steps (run.py --fly)
 PLAN_TOL = 1e-3          # card vs CPU solve: tests/test_torch_mpc.py's gate
 GRAD_TOL = 1e-5          # card vs CPU cost gradient, relative L2: same gate
-INCR_KERNELS = ("prep", "splat", "carve", "boxadd", "relax")  # incremental
+INCR_KERNELS = ("prep", "splat", "carve", "boxadd", "fuse", "changes",
+                "relax")  # incremental
+# int32 operations a voxel of the changes kernel: the insert test, the
+# defined test, the occupancy index (two multiplies, two adds) and the
+# selects of d2 and the three planes
+CHANGES_OPS = 12
 # phase 15: the demo preset's 40 m floor at cow_and_lady's 0.05 m, 800x800x80
 # voxels at t = 100, where the packed closest word misses int32
 WIDE_MAP_SIZE = (40.0, 40.0, 4.0)
@@ -366,6 +374,7 @@ PLAIN = (
     (edt, "split_wide", edt._split_wide_plain),
     (sort, "sort_pairs", sort._sort_pairs_plain),
     (esdf, "relax_to_fixpoint", esdf._relax_to_fixpoint_plain),
+    (esdf, "apply_occupancy_changes", esdf._apply_occupancy_changes_plain),
 )
 
 
@@ -1633,6 +1642,42 @@ def relax_row(calls, nvox):
     return out
 
 
+def changes_row(cfg, state, batch):
+    """The ``changes`` kernel as the incremental tick calls it, on one
+    more tick ``batch`` of ``state``'s map: the one-pass drain's occupancy
+    and the log-odds before it (``esdf.NewlyOccupied``), the map's d2 and
+    closest.  Bit-equal to the plain version, its CUDA launches a call,
+    then its times (``kernel_times``) beside the plain version's and its
+    bytes bound (25 bytes a voxel: d2, the three closest planes, the
+    occupancy and the old log-odds read, d2 and the planes written)."""
+    ticked = pipeline.integrate_scan_batch(cfg, ft.copy_state(state),
+                                           *batch[:3], batch[3])
+    on, eq = ((cfg.min_occupancy_log, False) if cfg.probabilistic
+              else (1.0, True))
+    occ = fusion.fuse_drain(
+        ticked.logodds, ticked.seen, ticked.hit_cnt, ticked.miss_cnt,
+        l_hit=cfg.prob_hit_log, l_miss=cfg.prob_miss_log,
+        clamp_min=cfg.clamp_min_log, clamp_max=cfg.clamp_max_log,
+        occ_thresh=on, occ_is_eq=eq)[2]
+    inserts = esdf.NewlyOccupied(ticked.logodds, on, eq)
+    args = (state.d2, state.closest, occ, inserts)
+    kern = lambda: esdf.apply_occupancy_changes(*args, mask=None)  # noqa
+    plain = lambda: esdf._apply_occupancy_changes_plain(  # noqa: E731
+        *args, mask="reset")
+    ref = plain()
+    by_kernel, counts, _ = profiled(kern, 10)
+    nvox = state.d2.numel()
+    return dict(
+        name="changes", source="fiesta_tpu_torch/kernels/changes.cu",
+        replaces="fiesta_tpu/ops/esdf.py:224 (apply_occupancy_changes; "
+                 "port-only: XLA fusion in fiesta_tpu)",
+        err=max_abs_err(list(kern()[:2]), list(ref[:2])),
+        **kernel_times(kern), plain_ms=time_ms(plain), library_ms=None,
+        cuda_launches=sum(counts.values()), by_kernel=by_kernel,
+        bound=in_ms(bound_s(25 * nvox, CHANGES_OPS * nvox, I32_OPS_PER_S)),
+        inserted=int(inserts.mask(occ).sum()), reset=int(ref[2].sum()))
+
+
 def incremental_tick_launches(cfg, state, batch, use_window):
     """CUDA launches and device ms by kernel of one incremental tick from
     ``state`` (profiler)."""
@@ -1828,7 +1873,8 @@ def incremental_path(cfg, batches, k_state, frames, dev, card, rows,
         log(f"incremental {name} stream (kernels): {i_ms:.3f} ms/tick on "
             f"{card}; launches {i_launches}")
         check_launched(i_launches, f"the incremental {name} stream")
-        assert i_launches["relax"] == batches[0].shape[0], i_launches
+        assert i_launches["relax"] == i_launches["changes"] == \
+            batches[0].shape[0], i_launches
         launches.update(i_launches)
         with plain_versions():
             ip_state, ip_stats, ip_ms = run_stream(c, batches, dev,
@@ -1865,6 +1911,17 @@ def incremental_path(cfg, batches, k_state, frames, dev, card, rows,
             f"{tick['busy_ms']:.3f} ms (relax {tick['relax_device_ms']:.3f})"
             f"; on {card}")
         relax_calls[name] = calls
+        if name == "global":
+            changes = changes_row(c, i_state, tuple(b[-1] for b in batches))
+            rows.append(changes)
+            log(f"changes (one more tick of the global stream's map, "
+                f"{changes['inserted']} inserts, {changes['reset']} "
+                f"resets): {changes['ms']:.4f} ms host-paced, "
+                f"{changes['device_ms']:.4f} on the card alone, host "
+                f"{changes['host_ms']:.4f} (bound "
+                f"{changes['bound'][0]:.4f} ms by {changes['bound'][1]}), "
+                f"plain {changes['plain_ms']:.4f}; CUDA launches a call "
+                f"{changes['cuda_launches']:g}; bit-equal; on {card}")
     # after both streams' launch counts were read
     relax = {name: relax_row(calls, i_state.d2.numel())
              for name, calls in relax_calls.items()}

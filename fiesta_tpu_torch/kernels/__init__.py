@@ -46,7 +46,7 @@ LAUNCHES = {"splat": 0, "carve": 0, "edt_binary": 0, "edt_minplus": 0,
             "closest_window": 0, "closest_split": 0, "closest_decode": 0,
             "closest_binary_wide": 0, "closest_window_wide": 0,
             "closest_split_wide": 0, "sort": 0, "relax": 0, "depth": 0,
-            "prep": 0}
+            "prep": 0, "changes": 0}
 
 #: compiler output (ptxas register/shared-memory report) per source
 BUILD_LOG: dict = {}
@@ -89,6 +89,8 @@ _SIGNATURES = {
     "prep": ("prep.cu", "fiesta_prep",
              [_P] * 3 + [_I] + [_P] * 3 + [_I, _L] + [_I] * 10 + [_F] * 12
              + [_P] * 6),
+    "changes": ("changes.cu", "fiesta_changes",
+                [_P] * 8 + [_I] * 4 + [_F, _I, _I, _P]),
 }
 SOURCES = tuple(sorted({s for s, _, _ in _SIGNATURES.values()}))
 
@@ -783,6 +785,76 @@ def relax_sweeps(d2: torch.Tensor, closest: torch.Tensor, update_mask,
             toffs.ctypes.data, toffs.shape[1], int(max_iters),
             RELAX_LOG_SWEEPS, state.data_ptr(), aux.data_ptr())
     return d2_out, c_out, state
+
+
+#: the mask ``changes`` writes: none, the resets, the resets and inserts
+CHANGES_MASKS = (None, "reset", "queued")
+
+
+def changes(d2: torch.Tensor, closest: torch.Tensor, occupied: torch.Tensor,
+            insert_mask=None, logodds=None, *, occ_thresh: float = 0.0,
+            occ_is_eq: bool = False, x_offset: int = 0, mask=None):
+    """The incremental update's inserts and bucket resets in one launch:
+    d2 [X,Y,Z] i32 and closest [3,X,Y,Z] i16 in, new d2 and closest out,
+    with the u8 mask ``mask`` names (``CHANGES_MASKS``) viewed as bool,
+    else None.  ``occupied`` (bool or u8): the whole grid's occupancy
+    after the drain, of which the grid is the X-slab starting at global x
+    ``x_offset``.  The inserts are ``insert_mask`` (bool or u8 [X,Y,Z]),
+    or, given ``logodds`` (the f32 log-odds before the drain; the whole
+    grid, ``x_offset`` 0), the voxels occupied that ``logodds >
+    occ_thresh`` (``==`` with ``occ_is_eq``) finds free.  The inputs are
+    left as they are.  Replaces the plain PyTorch ops of
+    ``esdf.apply_occupancy_changes`` (the JAX package has no kernel
+    here)."""
+    _check(d2, torch.int32, "changes d2")
+    _check(closest, torch.int16, "changes closest")
+    if d2.dim() != 3 or tuple(closest.shape) != (3,) + tuple(d2.shape):
+        raise ValueError("changes: expected d2 [X,Y,Z] and closest "
+                         "[3,X,Y,Z]")
+    if mask not in CHANGES_MASKS:
+        raise ValueError(f"changes: mask {mask!r} not in {CHANGES_MASKS}")
+    if (insert_mask is None) == (logodds is None):
+        raise ValueError("changes: give insert_mask or logodds, not both")
+    gx, gy, gz = d2.shape
+    x_offset = int(x_offset)
+    if occupied.dtype == torch.bool:
+        occupied = occupied.view(torch.uint8)
+    _check(occupied, torch.uint8, "changes occupied")
+    if occupied.dim() != 3 or tuple(occupied.shape[1:]) != (gy, gz) or \
+            not 0 <= x_offset <= occupied.shape[0] - gx:
+        raise ValueError(f"changes: occupied {tuple(occupied.shape)} does "
+                         f"not hold the slab {tuple(d2.shape)} at x "
+                         f"{x_offset}")
+    if max(occupied.shape) >= 1 << 15:
+        raise ValueError(f"changes: grid {tuple(occupied.shape)} does not "
+                         "fit the kernel's int16 coordinates")
+    ins_ptr = lo_ptr = None
+    if logodds is not None:
+        _check(logodds, torch.float32, "changes logodds")
+        if logodds.shape != d2.shape or occupied.shape != d2.shape:
+            raise ValueError("changes: the drained form takes the whole "
+                             "grid's logodds and occupancy")
+        lo_ptr = logodds.data_ptr()
+    else:
+        if insert_mask.dtype == torch.bool:
+            insert_mask = insert_mask.view(torch.uint8)
+        _check(insert_mask, torch.uint8, "changes insert_mask")
+        if insert_mask.shape != d2.shape:
+            raise ValueError(f"changes: insert_mask shape "
+                             f"{tuple(insert_mask.shape)} != "
+                             f"{tuple(d2.shape)}")
+        ins_ptr = insert_mask.data_ptr()
+    _same_device("changes", d2, closest, occupied,
+                 *(t for t in (insert_mask, logodds) if t is not None))
+    d2_o, c_o = torch.empty_like(d2), torch.empty_like(closest)
+    mask_o = None if mask is None else torch.empty(
+        d2.shape, dtype=torch.uint8, device=d2.device)
+    _launch("changes", d2.device, d2.data_ptr(), closest.data_ptr(),
+            occupied.data_ptr(), ins_ptr, lo_ptr, d2_o.data_ptr(),
+            c_o.data_ptr(), None if mask_o is None else mask_o.data_ptr(),
+            gx, gy, gz, x_offset, float(np.float32(occ_thresh)),
+            int(bool(occ_is_eq)), CHANGES_MASKS.index(mask))
+    return d2_o, c_o, None if mask_o is None else mask_o.view(torch.bool)
 
 
 def depth(depths: torch.Tensor, transforms, prev_depth, prev_transform, *,

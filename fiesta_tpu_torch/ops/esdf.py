@@ -14,7 +14,10 @@ launch of the ``relax`` kernel (``kernels/relax.cu``), which sweeps to the
 fixpoint with a grid barrier between sweeps and keeps the "anything
 changed" test and the sweep count on the device, as JAX's
 ``lax.while_loop`` does; on a CPU tensor ``relax_once`` in a host loop
-(its plain version).  ``build_esdf`` is the exact separable min-plus EDT
+(its plain version).  ``apply_occupancy_changes``, the inserts and bucket
+resets before the sweeps, is one launch of the ``changes`` kernel
+(``kernels/changes.cu``) on a CUDA tensor and its plain version on a CPU
+tensor.  ``build_esdf`` is the exact separable min-plus EDT
 with argmin tracking, plain PyTorch (the tests' oracle).
 
 Distances are squared int32 voxel counts; closest coordinates are int16
@@ -23,14 +26,16 @@ planes [3, X, Y, Z], -1 where undefined.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from .. import kernels
 from ..grid import (INF_D2, UNDEFINED_COORD, coord_grids, pack_closest,
                     unpack_closest)
+from ..timing import span
 from .edt import closest_capability
 
 _PAD = 2  # stencil reach (the 24-stencil contains +-2 face offsets)
@@ -187,16 +192,56 @@ def relax_to_fixpoint(d2: torch.Tensor, closest: torch.Tensor, update_mask,
                                     push_recv_mask)
 
 
+class NewlyOccupied(NamedTuple):
+    """The inserts of a tick drained in one pass (``fusion.fuse_drain``):
+    the voxels occupied after the drain that the occupancy predicate
+    (``logodds > occ_thresh``, or ``==`` with ``occ_is_eq``, the
+    threshold rounded to f32) finds free in ``logodds``, the log-odds
+    before it: ``fusion.fuse_counts``' ``insert_mask``."""
+    logodds: torch.Tensor
+    occ_thresh: float
+    occ_is_eq: bool
+
+    def mask(self, occupied: torch.Tensor) -> torch.Tensor:
+        """The bool insert mask, given the occupancy after the drain."""
+        thr = float(np.float32(self.occ_thresh))
+        before = (self.logodds == thr) if self.occ_is_eq else \
+            (self.logodds > thr)
+        return occupied.to(torch.bool) & ~before
+
+
 def apply_occupancy_changes(d2: torch.Tensor, closest: torch.Tensor,
-                            occupied: torch.Tensor,
-                            insert_mask: torch.Tensor, x_offset: int = 0):
+                            occupied: torch.Tensor, insert_mask,
+                            x_offset: int = 0, mask="reset"):
     """Insert and delete effects before relaxation (``esdf.py:224-264``):
     inserts take d2 = 0 and closest = self; every voxel whose recorded
     closest obstacle is no longer occupied (the reference's DLL bucket of
     a deleted obstacle) resets to INF_D2 / undefined.  On an X-slab whose
     first plane is global x ``x_offset``, ``occupied`` is the whole grid's
     (the sharded engine gathers it) and inserts take global coordinates.
-    Returns (d2, closest, reset_mask)."""
+    ``insert_mask``: bool [X,Y,Z], or ``NewlyOccupied`` (the whole grid).
+    Returns (d2, closest, mask): ``mask`` "reset" the bool reset mask,
+    "queued" resets | inserts (the windowed relaxation's queued voxels),
+    None no mask (None).  CUDA tensors: one launch of the ``changes``
+    kernel; CPU: the plain version."""
+    if d2.is_cuda:
+        if isinstance(insert_mask, NewlyOccupied):
+            return kernels.changes(
+                d2, closest, occupied, logodds=insert_mask.logodds,
+                occ_thresh=insert_mask.occ_thresh,
+                occ_is_eq=insert_mask.occ_is_eq, mask=mask)
+        return kernels.changes(d2, closest, occupied, insert_mask,
+                               x_offset=x_offset, mask=mask)
+    return _apply_occupancy_changes_plain(d2, closest, occupied, insert_mask,
+                                          x_offset, mask)
+
+
+def _apply_occupancy_changes_plain(d2, closest, occupied, insert_mask,
+                                   x_offset: int = 0, mask="reset"):
+    """Plain version of ``apply_occupancy_changes``."""
+    occupied = occupied.to(torch.bool)
+    if isinstance(insert_mask, NewlyOccupied):
+        insert_mask = insert_mask.mask(occupied)
     shape = tuple(d2.shape)
     d2 = torch.where(insert_mask, 0, d2)
     closest = torch.where(insert_mask[None],
@@ -209,31 +254,35 @@ def apply_occupancy_changes(d2: torch.Tensor, closest: torch.Tensor,
     reset = defined & ~torch.take(occupied, lin.to(torch.int64))
     d2 = torch.where(reset, INF_D2, d2)
     closest = torch.where(reset[None], UNDEFINED_COORD, closest)
-    return d2, closest, reset
+    if mask == "queued":
+        reset = reset | insert_mask
+    return d2, closest, None if mask is None else reset
 
 
 def update_esdf(d2: torch.Tensor, closest: torch.Tensor,
-                occupied: torch.Tensor, insert_mask: torch.Tensor,
+                occupied: torch.Tensor, insert_mask,
                 delete_mask, window_mask, dirs, max_iters: int = 0):
     """Incremental ESDF update (UpdateESDF, ESDFMap.cpp:273-398;
     ``esdf.py:267-318``).  ``window_mask`` None: a global update; else
     in-window voxels relax against in-window sources, and queued
     out-of-window voxels (reset bucket members, inserts) re-seed from
-    in-window sources and push their obstacle into the window.  A packed
-    closest (ndim 3) is unpacked on entry and repacked on return.  Returns
-    (d2, closest, num_sweeps)."""
+    in-window sources and push their obstacle into the window.
+    ``occupied`` bool or u8; ``insert_mask`` bool, or ``NewlyOccupied``.
+    A packed closest (ndim 3) is unpacked on entry and repacked on return.
+    Returns (d2, closest, num_sweeps)."""
     del delete_mask  # subsumed by the occupancy gather
     if closest.dim() == occupied.dim():
         d2p, planes, sweeps = update_esdf(
             d2, unpack_closest(closest), occupied, insert_mask, None,
             window_mask, dirs, max_iters=max_iters)
         return d2p, pack_closest(planes), sweeps
-    d2, closest, reset = apply_occupancy_changes(d2, closest, occupied,
-                                                 insert_mask)
+    with span("fiesta.update.relax.changes"):
+        d2, closest, queued = apply_occupancy_changes(
+            d2, closest, occupied, insert_mask,
+            mask=None if window_mask is None else "queued")
     if window_mask is None:
         return relax_to_fixpoint(d2, closest, None, None, dirs,
                                  max_iters=max_iters)
-    queued = reset | insert_mask
     return relax_to_fixpoint(d2, closest, window_mask | queued, window_mask,
                              dirs, max_iters=max_iters,
                              push_src_mask=queued,

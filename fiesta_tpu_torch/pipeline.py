@@ -20,9 +20,11 @@ A config with ``edt_fine_dist < trunc_dist`` (on an even grid) rebuilds
 with the two-level EDT (``edt.hierarchical_edt_d2`` and its closest form)
 wherever the tick, the closest path and the engine rebuild.  With
 ``esdf_mode="incremental"`` the update runs the incremental engine in
-place of the rebuild: the fusion drain with its insert/delete masks and
-FIESTA's insert/delete relaxation (``esdf.update_esdf``), swept to its
-fixpoint on the device by the ``relax`` kernel.
+place of the rebuild: the fusion drain (on the card the rebuild tick's
+one-pass drain, on the CPU ``fuse_counts`` with its insert/delete masks)
+and FIESTA's insert/delete relaxation (``esdf.update_esdf``: the inserts
+and bucket resets, on the card one launch of the ``changes`` kernel, then
+the sweeps to the fixpoint, on the card the ``relax`` kernel).
 """
 
 from __future__ import annotations
@@ -173,10 +175,10 @@ def esdf_update(cfg: FiestaConfig, state: MapState,
 
     Rebuild mode: the one-pass drain, then the EDT rebuilt over the whole
     grid; the counts come from the drain (no insert/delete masks are
-    built) and ``max_iters`` is unused.  Incremental mode: ``fuse_counts``
-    and ``esdf.update_esdf`` (in the window when ``use_window``), whose
-    relaxation stops after ``max_iters`` sweeps when it is > 0; the stats
-    come from the masks."""
+    built) and ``max_iters`` is unused.  Incremental mode: the drain
+    (``fuse_counts`` on the CPU, the one-pass drain on the card) and
+    ``esdf.update_esdf`` (in the window when ``use_window``), whose
+    relaxation stops after ``max_iters`` sweeps when it is > 0."""
     with span("fiesta.update"):
         if cfg.esdf_mode != "rebuild":
             return _incremental_update(cfg, state, cur_pos, use_window,
@@ -211,7 +213,11 @@ def _rebuild_update(cfg: FiestaConfig, state: MapState, cur_pos,
 
 def _incremental_update(cfg: FiestaConfig, state: MapState, cur_pos,
                         use_window: bool, max_iters: int):
-    """The incremental engine's update (``pipeline.py:282-310``)."""
+    """The incremental engine's update (``pipeline.py:282-310``).  A CUDA
+    state takes ``_drained_update``; a CPU state drains through
+    ``fuse_counts``, whose masks give the inserts and the counts."""
+    if state.logodds.is_cuda:
+        return _drained_update(cfg, state, cur_pos, use_window, max_iters)
     wmask = None
     if use_window:
         wmask = window_mask(cfg, *local_window(cfg, cur_pos))
@@ -232,6 +238,36 @@ def _incremental_update(cfg: FiestaConfig, state: MapState, cur_pos,
         num_deleted=fr.delete_mask.sum(dtype=torch.int32),
         num_sweeps=sweeps)
     return new_state, stats
+
+
+def _drained_update(cfg: FiestaConfig, state: MapState, cur_pos,
+                    use_window: bool, max_iters: int):
+    """The incremental update through the rebuild tick's one-pass drain
+    (``fusion.fuse_drain``: the window as its bounds, the counters
+    returned zeroed, the counts its own), its inserts taken from the
+    log-odds before it (``esdf.NewlyOccupied``): on the card two launches
+    and the relax kernel's one.  Bit for bit ``_incremental_update``'s
+    ``fuse_counts`` path, on either device."""
+    window = local_window(cfg, cur_pos) if use_window else None
+    on, off_eq = ((cfg.min_occupancy_log, False) if cfg.probabilistic
+                  else (1.0, True))
+    with span("fiesta.update.drain"):
+        new_lo, seen, occ, hit0, miss0, n_obs, n_ins, n_del = \
+            fusion.fuse_drain(
+                state.logodds, state.seen, state.hit_cnt, state.miss_cnt,
+                l_hit=cfg.prob_hit_log, l_miss=cfg.prob_miss_log,
+                clamp_min=cfg.clamp_min_log, clamp_max=cfg.clamp_max_log,
+                occ_thresh=on, occ_is_eq=off_eq, window=window)
+    with span("fiesta.update.relax"):
+        d2, closest, sweeps = esdf.update_esdf(
+            state.d2, state.closest, occ,
+            esdf.NewlyOccupied(state.logodds, on, off_eq), None,
+            None if window is None else window_mask(cfg, *window),
+            cfg.relax_dirs, max_iters=max_iters)
+    new_state = MapState(logodds=new_lo, d2=d2, closest=closest, seen=seen,
+                         hit_cnt=hit0, miss_cnt=miss0)
+    return new_state, UpdateStats(num_observed=n_obs, num_inserted=n_ins,
+                                  num_deleted=n_del, num_sweeps=sweeps)
 
 
 def integrate_scan_batch(cfg: FiestaConfig, state: MapState, points, valids,

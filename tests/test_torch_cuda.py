@@ -882,7 +882,7 @@ def test_stream_kernels_equal_plain(dev, monkeypatch):
         "fuse": 4, "boxadd": 4, "closest_binary": 0, "closest_window": 0,
         "closest_split": 0, "closest_decode": 0, "closest_binary_wide": 0,
         "closest_window_wide": 0, "closest_split_wide": 0, "sort": 0,
-        "relax": 0, "depth": 0, "prep": 4}
+        "relax": 0, "depth": 0, "prep": 4, "changes": 0}
     monkeypatch.setattr(raycast, "_scanline_splat_prep",
                         raycast._scanline_splat_prep_plain)
     monkeypatch.setattr(raycast, "splat_packed", raycast._splat_packed_plain)
@@ -1410,6 +1410,8 @@ def _incremental_plain(monkeypatch):
     monkeypatch.setattr(edt, "minplus_pass", edt._minplus_pass_plain)
     monkeypatch.setattr(esdf, "relax_to_fixpoint",
                         esdf._relax_to_fixpoint_plain)
+    monkeypatch.setattr(esdf, "apply_occupancy_changes",
+                        esdf._apply_occupancy_changes_plain)
 
 
 def _incremental_cfg(window):
@@ -1450,20 +1452,186 @@ def test_incremental_stream_and_engine_kernels_equal_plain(dev, monkeypatch,
     k_state, k_stats = pipeline.fused_stream(cfg, ft.make_state(cfg, dev),
                                              *batches, use_window=window)
     torch.cuda.synchronize()
-    assert kernels.LAUNCHES["relax"] == 3
+    assert kernels.LAUNCHES["relax"] == kernels.LAUNCHES["changes"] == 3
     k_eng = engine("error")
-    assert kernels.LAUNCHES["relax"] == 6
+    assert kernels.LAUNCHES["relax"] == kernels.LAUNCHES["changes"] == 6
     _incremental_plain(monkeypatch)
     p_state, p_stats = pipeline.fused_stream(cfg, ft.make_state(cfg, dev),
                                              *batches, use_window=window)
     p_eng = engine("default")
-    assert kernels.LAUNCHES["relax"] == 6
+    assert kernels.LAUNCHES["relax"] == kernels.LAUNCHES["changes"] == 6
     for f in dataclasses.fields(k_state):
         _eq(getattr(k_state, f.name), getattr(p_state, f.name))
         _eq(getattr(k_eng, f.name), getattr(p_eng, f.name))
     for a, b in zip(k_stats, p_stats):
         _eq(a, b)
     assert int(k_stats.num_sweeps.max()) > 1
+
+
+# ---------------------------------------------------------------------------
+# the changes kernel (the incremental update's inserts and bucket resets)
+# ---------------------------------------------------------------------------
+
+CHANGES_SHAPES = {"vector": (40, 36, 24), "scalar": (23, 37, 13)}
+
+
+def _changes_scene(shape, seed, x_offset=0, gx_all=None):
+    """On the CPU: d2 / closest of an X-slab of ``shape`` whose closest
+    coordinates are global (the slab starts at x ``x_offset`` of a grid
+    ``gx_all`` planes long), the whole grid's occupancy after a drain,
+    the log-odds before it and the insert mask they give.  Undefined
+    closests; closests at obstacles that stay and at obstacles that went;
+    inserts on voxels whose own obstacle went, on obstacles of other
+    voxels' buckets, and along every face of the grid; log-odds at the
+    threshold and one ulp above it."""
+    g = torch.Generator().manual_seed(seed)
+    gx, gy, gz = shape
+    full = (gx_all or gx, gy, gz)
+    occ = torch.rand(full, generator=g) < 0.1
+    pts = torch.nonzero(torch.rand(full, generator=g) < 0.25)
+    pick = torch.randint(0, len(pts), shape, generator=g)
+    c = pts[pick].permute(3, 0, 1, 2).to(torch.int16)
+    c = torch.where((torch.rand(shape, generator=g) < 0.2)[None], -1, c)
+    self_c = ft.grid.coord_grids(shape, "cpu").to(torch.int32)
+    self_c[0] += x_offset
+    diff = self_c - c.to(torch.int32)
+    d2 = torch.where(c[0] >= 0, (diff * diff).sum(0), ft.grid.INF_D2)
+    own = occ[x_offset:x_offset + gx]         # a view: faces set in occ
+    before = torch.rand(shape, generator=g) < 0.5
+    for face in (own[0], own[-1], own[:, 0], own[:, -1], own[:, :, 0],
+                 own[:, :, -1]):
+        face.fill_(True)
+    thr = np.float32(0.85)
+    lo = torch.where(before, torch.from_numpy(np.float32(
+        [np.nextafter(thr, np.float32(9))])), torch.from_numpy(
+            np.float32([thr])))
+    insert = own & ~before
+    return d2.to(torch.int32), c.contiguous(), occ, lo, insert, float(thr)
+
+
+def _changes_check(dev, d2, c, occ, arg, mask, x_offset=0):
+    """``apply_occupancy_changes`` on the card (one ``changes_kernel``
+    launch, its inputs left as they are) against its plain version on
+    the CPU."""
+    on_dev = [t.to(dev) for t in (d2, c, occ)]
+    arg_dev = (esdf.NewlyOccupied(arg.logodds.to(dev), arg.occ_thresh,
+                                  arg.occ_is_eq)
+               if isinstance(arg, esdf.NewlyOccupied) else arg.to(dev))
+    kept = [t.clone() for t in on_dev]
+    before = kernels.LAUNCHES["changes"]
+    got, names = _cuda_kernels(lambda: esdf.apply_occupancy_changes(
+        *on_dev, arg_dev, x_offset=x_offset, mask=mask))
+    assert kernels.LAUNCHES["changes"] == before + 1
+    assert len(names) == 1 and "changes_kernel" in names[0], names
+    ref = esdf._apply_occupancy_changes_plain(d2, c, occ, arg, x_offset,
+                                              mask)
+    for a, b in zip(got, ref):
+        assert (a is None) == (b is None)
+        if a is not None:
+            _eq(a.cpu(), b)
+    for a, b in zip(on_dev, kept):
+        _eq(a, b)
+    return ref
+
+
+@pytest.mark.parametrize("mask", kernels.CHANGES_MASKS)
+@pytest.mark.parametrize("form", ["insert_mask", "drained", "drained_eq"])
+@pytest.mark.parametrize("path", sorted(CHANGES_SHAPES))
+def test_changes_kernel(dev, path, form, mask):
+    """The kernel against the plain ``apply_occupancy_changes``, bit for
+    bit: its vector path (four voxels a thread) and its one-voxel path,
+    each insert form (a mask, and the drained form's old log-odds in both
+    occupancy predicates) and each mask form (none, the resets, the
+    windowed relaxation's queued voxels)."""
+    d2, c, occ, lo, insert, thr = _changes_scene(CHANGES_SHAPES[path], 7)
+    if form == "insert_mask":
+        arg = insert
+    elif form == "drained":
+        arg = esdf.NewlyOccupied(lo, thr, False)
+        occ = occ.to(torch.uint8)
+    else:       # deterministic mode: occupied where the log-odds == thr
+        lo = torch.where(insert, 0.5, torch.where(occ, thr, 0.0)).to(
+            torch.float32)
+        arg = esdf.NewlyOccupied(lo, thr, True)
+    assert torch.equal(arg.mask(occ) if form != "insert_mask" else arg,
+                       insert)
+    _changes_check(dev, d2, c, occ, arg, mask)
+    # the scene holds resets, and inserts on voxels whose obstacle went
+    went = esdf._apply_occupancy_changes_plain(
+        d2, c, occ, torch.zeros_like(insert))[2]
+    assert int(went.sum()) > 0 and int((insert & went).sum()) > 0
+    assert int((insert & ~went).sum()) > 0
+
+
+@pytest.mark.parametrize("x_offset", [0, 13, 32])
+def test_changes_kernel_x_origin(dev, x_offset):
+    """An X-slab of 8 planes of a 40-plane grid (the sharded update's
+    call): inserts take global coordinates, the resets read the gathered
+    occupancy."""
+    d2, c, occ, _, insert, _ = _changes_scene((8, 36, 24), x_offset,
+                                              x_offset, 40)
+    ref = _changes_check(dev, d2, c, occ, insert, "reset", x_offset)
+    assert int(ref[2].sum()) > 0
+    ins = ref[1][:, insert]
+    assert int(ins[0].min()) == x_offset and int(ins[0].max()) == \
+        x_offset + 7
+
+
+def test_changes_kernel_rejects(dev):
+    """What the kernel cannot take: the drained form on a slab, both
+    insert forms at once, a mask it does not write."""
+    d2, c, occ, lo, insert, thr = (t.to(dev) if torch.is_tensor(t) else t
+                                   for t in _changes_scene((8, 6, 4), 1))
+    with pytest.raises(ValueError, match="not both"):
+        kernels.changes(d2, c, occ, insert, lo)
+    with pytest.raises(ValueError, match="mask"):
+        kernels.changes(d2, c, occ, insert, mask="deleted")
+    big = torch.cat([occ, occ])
+    with pytest.raises(ValueError, match="whole grid"):
+        kernels.changes(d2, c, big, logodds=lo, occ_thresh=thr)
+
+
+@pytest.mark.parametrize("window", [False, True], ids=["global", "window"])
+def test_incremental_update_card_equals_cpu(dev, window):
+    """20 ticks of an orbit in incremental mode, obstacles going from the
+    third on: the card's update (the one-pass drain, the changes kernel,
+    the relax kernel) against the CPU's (``fuse_counts``, the plain
+    changes and sweeps) tick by tick: every state field, every
+    ``UpdateStats`` field and the sweep count bit-equal."""
+    cfg = dataclasses.replace(_incremental_cfg(window), p_max=0.85)
+    _, frames = replay.make_sequence(cfg, n_frames=60, n_boxes=6, seed=5,
+                                     height=24, width=32, orbit_radius=0.6)
+    batches = replay.stage_update_batches(cfg, frames, device="cpu")
+    g = torch.Generator().manual_seed(2)
+    cpu, card = ft.make_state(cfg, "cpu"), ft.make_state(cfg, dev)
+    deleted = 0
+    kernels.reset_launch_counts()
+    for i in range(batches[0].shape[0]):
+        tick = [b[i] for b in batches]
+        cpu = pipeline.integrate_scan_batch(cfg, cpu, *tick[:3], tick[3],
+                                            use_window=window)
+        card = pipeline.integrate_scan_batch(
+            cfg, card, *(t.to(dev) for t in tick[:3]), tick[3].to(dev),
+            use_window=window)
+        if i >= 2:       # a third of the obstacles move away
+            occ = torch.nonzero(ft.occupied_grid(cfg, cpu.logodds))
+            gone = tuple(occ[torch.randperm(len(occ), generator=g)[
+                :len(occ) // 3]].T)
+            for s in (cpu, card):
+                s.hit_cnt[gone] = 0
+                s.miss_cnt[gone] = 3
+        cpu, c_stats = pipeline.esdf_update(cfg, cpu, tick[3], window)
+        card, k_stats = pipeline.esdf_update(cfg, card, tick[3].to(dev),
+                                             window)
+        for f in dataclasses.fields(cpu):
+            _eq(getattr(card, f.name).cpu(), getattr(cpu, f.name))
+        for a, b in zip(k_stats, c_stats):
+            _eq(a.cpu(), b)
+        deleted += int(c_stats.num_deleted)
+    n = batches[0].shape[0]
+    assert n == 20 and deleted > 0
+    assert kernels.LAUNCHES["changes"] == kernels.LAUNCHES["relax"] == n
+    assert kernels.LAUNCHES["fuse"] == n
 
 
 @pytest.mark.parametrize("mode", ["rebuild", "incremental"])

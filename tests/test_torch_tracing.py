@@ -133,7 +133,8 @@ def test_nesting_parents_tick_number_and_self_time(monkeypatch):
 @pytest.mark.parametrize("kind,extra,mode", [
     ("cloud", set(), "rebuild"),
     ("depth", {"fiesta.depth"}, "rebuild"),
-    ("cloud", {"fiesta.update.relax"}, "incremental")])
+    ("cloud", {"fiesta.update.relax", "fiesta.update.relax.changes"},
+     "incremental")])
 def test_span_names_of_one_cpu_tick(kind, extra, mode):
     cfg = _cfg(esdf_mode=mode)
     args, tick = _ticks(cfg, kind)
